@@ -2,9 +2,11 @@
 
 Samples are float32 by default, as in ``probabilit_tpu``; float64 is
 available for validation (``set_dtype``, or ``PROBABILIT_TPU_X64=1``
-before import).  The device is explicit: ``set_device("cuda")`` puts the
-plain executor's tensors on the card.  Nothing moves to the CPU because a
-GPU is missing; the default is simply ``cpu``.
+before import).  The device defaults to ``cuda``: the port is built for
+the card, and ``set_device("cpu")`` is how a caller (the CPU tests, for
+one) asks for the CPU.  Nothing moves to the CPU because a GPU is
+missing: on a machine without a card, sampling on the default device
+raises.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ import os
 
 import torch
 
+DEFAULT_DEVICE = torch.device("cuda")
+
 _FLOAT_DTYPE = None
-_DEVICE = torch.device("cpu")
+_DEVICE = DEFAULT_DEVICE
 
 
 def float_dtype():
@@ -41,7 +45,7 @@ def int_dtype():
 
 
 def device():
-    """The device that sampling places its tensors on."""
+    """The device that sampling places its tensors on (default ``cuda``)."""
     return _DEVICE
 
 

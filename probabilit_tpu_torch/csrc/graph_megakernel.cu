@@ -26,19 +26,40 @@
 // word 0 is used.  The stream depends on the seed only, not on the grid.
 // ops/philox.py computes the same words in PyTorch.
 //
-// Math: the device functions transcribe ops/special.py (Giles erfinv) and
-// ops/ppf.py.  nvcc contracts a*b+c into FMAs by default and PyTorch's
-// eager ops do not, so results differ from the plain version by a few
-// ulps (more in the normal tails); chip_smoke.py measures the difference.
+// Correlated graphs (the recolour branch of the TPU kernel,
+// pallas_exec.py:542-560): SCORE k puts z_k = ndtri_fast(u) of a drawn
+// column into a register array z[16]; RECOLOR i computes
+// y_i = b_i + sum_j A_ij z_j with (A, b) from corr_stats.cu's statistics
+// (engine/cuda_exec.py::recolor_transform), held in shared memory; then
+// SCORE_NORM / SCORE_LOGNORM evaluate ppf(ndtr(y)) in closed form, or NDTR
+// gives clamp_open_unit(ndtr_fast(y)) for the variable's own ppf.  (A, b)
+// is a separate device array, not a tape immediate: it is known only
+// after the statistics pass.  z is indexed through unrolled predicated
+// loops over kMaxCorr, so it stays in registers.
+//
+// Math: the device functions (sampling_math.cuh) transcribe ops/special.py
+// and ops/ppf.py.  nvcc contracts a*b+c into FMAs by default and
+// PyTorch's eager ops do not, so results differ from the plain version by
+// a few ulps (more in the normal tails); chip_smoke.py measures the
+// difference.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sampling_math.cuh"
+
 namespace {
 
-// Must equal MAX_SLOTS / MAX_INSTR in engine/cuda_exec.py.
+using sampling_math::bits_to_open_unit;
+using sampling_math::clamp_open_unit;
+using sampling_math::ndtr_fast;
+using sampling_math::ndtri_fast;
+using sampling_math::philox_word0;
+
+// Must equal MAX_SLOTS / MAX_INSTR / MAX_CORR_K in engine/cuda_exec.py.
 constexpr int kMaxSlots = 64;
 constexpr int kMaxInstr = 1024;
+constexpr int kMaxCorr = 16;
 constexpr int kFields = 6;  // [opcode, dst, a, b, c, d]
 constexpr int kThreads = 256;
 
@@ -47,11 +68,16 @@ enum Op : int {
   OP_DRAW,
   OP_LOADK,
   OP_STORE,
+  OP_SCORE,
+  OP_RECOLOR,
+  OP_NDTR,
   OP_PPF_UNIFORM,
   OP_PPF_NORM,
   OP_PPF_EXPON,
   OP_PPF_LOGNORM,
   OP_PPF_TRIANG,
+  OP_SCORE_NORM,
+  OP_SCORE_LOGNORM,
   OP_ADD,
   OP_MUL,
   OP_MAX,
@@ -97,66 +123,6 @@ enum Op : int {
   OP_EXPM1,
 };
 
-__device__ __forceinline__ uint32_t philox_word0(uint64_t i, uint32_t column,
-                                                 uint32_t k0, uint32_t k1) {
-  uint32_t c0 = static_cast<uint32_t>(i);
-  uint32_t c1 = static_cast<uint32_t>(i >> 32);
-  uint32_t c2 = column;
-  uint32_t c3 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-// pallas_exec._bits_to_open_unit: the top 23 bits in the mantissa of 1.0f.
-__device__ __forceinline__ float bits_to_open_unit(uint32_t bits) {
-  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  const float tiny = 5.9604644775390625e-08f;  // 2^-24
-  return fminf(fmaxf(u, tiny), 1.0f - tiny);
-}
-
-// ops/special.py::erfinv_f32 with _giles_branch_polys.
-__device__ __forceinline__ float erfinv_f32(float x) {
-  float w = -logf(fmaxf((1.0f - x) * (1.0f + x), 1e-37f));
-  w = fminf(w, 16.64f);
-  const float wc = w - 2.5f;
-  float p1 = 2.81022636e-08f;
-  p1 = 3.43273939e-07f + p1 * wc;
-  p1 = -3.5233877e-06f + p1 * wc;
-  p1 = -4.39150654e-06f + p1 * wc;
-  p1 = 0.00021858087f + p1 * wc;
-  p1 = -0.00125372503f + p1 * wc;
-  p1 = -0.00417768164f + p1 * wc;
-  p1 = 0.246640727f + p1 * wc;
-  p1 = 1.50140941f + p1 * wc;
-  const float ws = sqrtf(fminf(w, 16.64f)) - 3.0f;
-  float p2 = -0.000200214257f;
-  p2 = 0.000100950558f + p2 * ws;
-  p2 = 0.00134934322f + p2 * ws;
-  p2 = -0.00367342844f + p2 * ws;
-  p2 = 0.00573950773f + p2 * ws;
-  p2 = -0.0076224613f + p2 * ws;
-  p2 = 0.00943887047f + p2 * ws;
-  p2 = 1.00167406f + p2 * ws;
-  p2 = 2.83297682f + p2 * ws;
-  return (w < 5.0f ? p1 : p2) * x;
-}
-
-__device__ __forceinline__ float ndtri_fast(float q) {
-  return 1.4142135623730951f * erfinv_f32(2.0f * q - 1.0f);
-}
-
 // torch.floor_divide on floats (ATen's div_floor_floating).
 __device__ __forceinline__ float floor_divide(float a, float b) {
   if (b == 0.0f) return a / b;
@@ -199,16 +165,23 @@ __device__ __forceinline__ float sign(float x) {
 
 __global__ void __launch_bounds__(kThreads)
     graph_megakernel(const int* __restrict__ code, const float* __restrict__ imm,
-                     int n_instr, uint32_t k0, uint32_t k1, int64_t n,
-                     float* __restrict__ out, int* __restrict__ nonfinite) {
-  // The tape, sized at launch: n_instr * kFields ints, then n_instr floats.
+                     int n_instr, const float* __restrict__ ab, int n_corr, uint32_t k0,
+                     uint32_t k1, int64_t n, float* __restrict__ out,
+                     int* __restrict__ nonfinite) {
+  // The tape, sized at launch: n_instr * kFields ints, n_instr floats,
+  // then the recolour transform: A (n_corr x n_corr, row-major) and b.
   extern __shared__ int s_code[];
   float* s_imm = reinterpret_cast<float*>(s_code + n_instr * kFields);
+  float* s_ab = s_imm + n_instr;
   for (int t = threadIdx.x; t < n_instr * kFields; t += blockDim.x) s_code[t] = code[t];
   for (int t = threadIdx.x; t < n_instr; t += blockDim.x) s_imm[t] = imm[t];
+  for (int t = threadIdx.x; t < n_corr * n_corr + n_corr; t += blockDim.x) s_ab[t] = ab[t];
   __syncthreads();
 
   float slot[kMaxSlots];
+  float z[kMaxCorr];
+#pragma unroll
+  for (int j = 0; j < kMaxCorr; ++j) z[j] = 0.0f;
   bool bad = false;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
@@ -229,6 +202,29 @@ __global__ void __launch_bounds__(kThreads)
                                              static_cast<uint32_t>(ins[2]), k0, k1));
           break;
         case OP_LOADK: r = s_imm[p]; break;
+        case OP_SCORE: {  // dst is the score's index k, a the drawn column.
+          const float score = ndtri_fast(slot[ins[2]]);
+          const int k = ins[1];
+#pragma unroll
+          for (int j = 0; j < kMaxCorr; ++j) {
+            if (j == k) z[j] = score;
+          }
+          continue;
+        }
+        case OP_RECOLOR: {  // a is the variable's index i.
+          const float* a_row = s_ab + ins[2] * n_corr;
+          r = s_ab[n_corr * n_corr + ins[2]];
+#pragma unroll
+          for (int j = 0; j < kMaxCorr; ++j) {
+            if (j < n_corr) r = r + a_row[j] * z[j];
+          }
+          break;
+        }
+        case OP_NDTR: r = clamp_open_unit(ndtr_fast(slot[ins[2]])); break;
+        case OP_SCORE_NORM: r = slot[ins[3]] + slot[ins[4]] * slot[ins[2]]; break;
+        case OP_SCORE_LOGNORM:
+          r = slot[ins[4]] + slot[ins[5]] * expf(slot[ins[3]] * slot[ins[2]]);
+          break;
         // ops/ppf.py: q in a; then the family's parameters in b, c, d.
         case OP_PPF_UNIFORM: r = slot[ins[3]] + slot[ins[4]] * slot[ins[2]]; break;
         case OP_PPF_NORM: r = slot[ins[3]] + slot[ins[4]] * ndtri_fast(slot[ins[2]]); break;
@@ -297,19 +293,23 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `code` is
-// int32 (n_instr, 6), `imm` float32 (n_instr,), `out` float32
+// int32 (n_instr, 6), `imm` float32 (n_instr,), `ab` float32
+// (n_corr^2 + n_corr,) or null when n_corr is 0, `out` float32
 // (n_keep, n), `nonfinite` one int32 that the caller has zeroed.
 extern "C" int graph_megakernel_launch(const void* code, const void* imm, int n_instr,
-                                       uint32_t seed0, uint32_t seed1, int64_t n,
-                                       void* out, void* nonfinite, int blocks,
-                                       void* stream) {
-  if (n_instr < 0 || n_instr > kMaxInstr || n < 0 || blocks <= 0) {
+                                       const void* ab, int n_corr, uint32_t seed0,
+                                       uint32_t seed1, int64_t n, void* out,
+                                       void* nonfinite, int blocks, void* stream) {
+  if (n_instr < 0 || n_instr > kMaxInstr || n < 0 || blocks <= 0 || n_corr < 0 ||
+      n_corr > kMaxCorr || (n_corr > 0 && ab == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(n_instr) * (kFields * sizeof(int) + sizeof(float));
+  const size_t smem = static_cast<size_t>(n_instr) * (kFields * sizeof(int) + sizeof(float)) +
+                      static_cast<size_t>(n_corr * n_corr + n_corr) * sizeof(float);
   graph_megakernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(code), static_cast<const float*>(imm), n_instr, seed0,
-      seed1, n, static_cast<float*>(out), static_cast<int*>(nonfinite));
+      static_cast<const int*>(code), static_cast<const float*>(imm), n_instr,
+      static_cast<const float*>(ab), n_corr, seed0, seed1, n, static_cast<float*>(out),
+      static_cast<int*>(nonfinite));
   return static_cast<int>(cudaGetLastError());
 }

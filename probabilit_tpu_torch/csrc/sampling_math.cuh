@@ -1,0 +1,97 @@
+// sampling_math.cuh: device functions shared by the port's kernels.
+//
+// graph_megakernel.cu and corr_stats.cu both include this file, so the
+// correlation-statistics pass and the main pass compute the normal scores
+// z = ndtri_fast(u) from the same Philox bits with the same code.  Each
+// function transcribes its plain PyTorch twin: ops/philox.py
+// (philox4x32_10, bits_to_open_unit) and ops/special.py (erfinv_f32,
+// ndtri_fast, ndtr_fast).
+
+#pragma once
+
+#include <cstdint>
+
+namespace sampling_math {
+
+// Word 0 of Philox4x32-10 (Salmon et al., SC'11) at counter
+// (i mod 2^32, i >> 32, column, 0) under key (k0, k1).
+__device__ __forceinline__ uint32_t philox_word0(uint64_t i, uint32_t column,
+                                                 uint32_t k0, uint32_t k1) {
+  uint32_t c0 = static_cast<uint32_t>(i);
+  uint32_t c1 = static_cast<uint32_t>(i >> 32);
+  uint32_t c2 = column;
+  uint32_t c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// The top 23 bits in the mantissa of 1.0f, minus 1, clamped to
+// [2^-24, 1 - 2^-24].
+__device__ __forceinline__ float bits_to_open_unit(uint32_t bits) {
+  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  const float tiny = 5.9604644775390625e-08f;  // 2^-24
+  return fminf(fmaxf(u, tiny), 1.0f - tiny);
+}
+
+// Giles (2012) single-precision inverse error function.
+__device__ __forceinline__ float erfinv_f32(float x) {
+  float w = -logf(fmaxf((1.0f - x) * (1.0f + x), 1e-37f));
+  w = fminf(w, 16.64f);
+  const float wc = w - 2.5f;
+  float p1 = 2.81022636e-08f;
+  p1 = 3.43273939e-07f + p1 * wc;
+  p1 = -3.5233877e-06f + p1 * wc;
+  p1 = -4.39150654e-06f + p1 * wc;
+  p1 = 0.00021858087f + p1 * wc;
+  p1 = -0.00125372503f + p1 * wc;
+  p1 = -0.00417768164f + p1 * wc;
+  p1 = 0.246640727f + p1 * wc;
+  p1 = 1.50140941f + p1 * wc;
+  const float ws = sqrtf(fminf(w, 16.64f)) - 3.0f;
+  float p2 = -0.000200214257f;
+  p2 = 0.000100950558f + p2 * ws;
+  p2 = 0.00134934322f + p2 * ws;
+  p2 = -0.00367342844f + p2 * ws;
+  p2 = 0.00573950773f + p2 * ws;
+  p2 = -0.0076224613f + p2 * ws;
+  p2 = 0.00943887047f + p2 * ws;
+  p2 = 1.00167406f + p2 * ws;
+  p2 = 2.83297682f + p2 * ws;
+  return (w < 5.0f ? p1 : p2) * x;
+}
+
+__device__ __forceinline__ float ndtri_fast(float q) {
+  return 1.4142135623730951f * erfinv_f32(2.0f * q - 1.0f);
+}
+
+// Standard-normal CDF, Abramowitz & Stegun 7.1.26; the lower tail is
+// computed directly, never as 1 - (something near 1).
+__device__ __forceinline__ float ndtr_fast(float x) {
+  const float z = fabsf(x) * 0.70710678118654752f;
+  const float t = 1.0f / (1.0f + 0.3275911f * z);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float tail = 0.5f * poly * expf(-z * z);
+  return x >= 0.0f ? 1.0f - tail : tail;
+}
+
+// ops/qmc.py::clamp_open_unit in float32 (NaN stays NaN, as torch.clamp).
+__device__ __forceinline__ float clamp_open_unit(float q) {
+  const float tiny = 5.9604644775390625e-08f;  // 2^-24
+  return isnan(q) ? q : fminf(fmaxf(q, tiny), 1.0f - tiny);
+}
+
+}  // namespace sampling_math

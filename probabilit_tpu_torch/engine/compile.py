@@ -1,22 +1,54 @@
 """Graph planning and the plain PyTorch executor.
 
-Port of ``probabilit_tpu/engine/compile.py:47-291, 383-543``.  The JAX
-package stages the graph into one jitted XLA program; PyTorch runs
-eagerly, so here ``build_body`` returns a function that evaluates the
-graph op by op on a ``(n, d)`` quantile matrix, in the same three phases:
+Port of ``probabilit_tpu/engine/compile.py:35-543``.  The JAX package
+stages the graph into one jitted XLA program; PyTorch runs eagerly, so
+here ``build_body`` returns a function that evaluates the graph op by op
+on a ``(n, d)`` quantile matrix, in the same three phases:
 
 1. initial sampling nodes (ISNs) and their parameter ancestors;
-2. correlation induction (not ported yet: raises ``NotImplementedError``);
+2. correlation induction on the declared variables, after a
+   nearest-correlation repair of the target (``Plan``);
 3. every node in topological order, keeping only the requested outputs.
 
-There is no program cache: nothing is traced or compiled.
+Phase 2 has two branches, as in the JAX package: the sort-free
+Gaussian-copula recolouring when the engine generated the uniforms
+itself (``sample(method=None)``), and the correlator's own transform
+(Iman-Conover's four sorts) on an explicit quantile matrix.  There is no
+program cache: nothing is traced or compiled.
 """
 
 from __future__ import annotations
 
-from probabilit_tpu_torch.models import graph as _graph
+import torch
 
-__all__ = ["EmitContext", "Plan", "get_plan", "build_body"]
+from probabilit_tpu_torch import config
+from probabilit_tpu_torch.models import graph as _graph
+from probabilit_tpu_torch.ops import correlation as _correlation
+from probabilit_tpu_torch.ops import ncm as _ncm
+from probabilit_tpu_torch.ops import ppf as _ppf
+from probabilit_tpu_torch.ops import special as _special
+from probabilit_tpu_torch.ops.qmc import clamp_open_unit
+from probabilit_tpu_torch.utils import build_corrmat
+
+__all__ = [
+    "CORRELATOR_MAP",
+    "EmitContext",
+    "Plan",
+    "get_plan",
+    "resolve_correlator",
+    "correlator_token",
+    "instantiate_correlator",
+    "recolor_eligible",
+    "check_rows",
+    "build_body",
+]
+
+CORRELATOR_MAP = {
+    "imanconover": _correlation.ImanConover,
+    "cholesky": _correlation.Cholesky,
+}
+
+_NCM_CACHE = {}
 
 
 class EmitContext:
@@ -33,6 +65,9 @@ class EmitContext:
         if nid not in self._values:
             self._values[nid] = node._emit(self)
         return self._values[nid]
+
+    def set_value(self, node, value):
+        self._values[node._id] = value
 
     def column(self, node):
         return self._columns[node._id]
@@ -88,12 +123,8 @@ class Plan:
         self._analyze_correlations()
 
     def _analyze_correlations(self):
-        """Collect and validate declared correlations.
-
-        Only the validation is ported: the correlated variables must be
-        ISNs, each pair declared once.  The nearest-correlation repair and
-        the correlators come with the next slice (ROADMAP A6).
-        """
+        """Collect and validate declared correlations, and repair the
+        target to the nearest correlation matrix (cached by its bytes)."""
         correlations = []
         for node in self.topo:
             correlations.extend(node._correlations)
@@ -111,8 +142,27 @@ class Plan:
                 if len(common) > 1:
                     raise ValueError(f"Correlations specified more than once: {common}")
 
-        self.correlations = correlations
+        if not correlations:
+            self.corr_vars = []
+            self.corr_matrix = None
+            return
+
         self.corr_vars = sorted(set().union(*variable_sets), key=lambda n: n._id)
+        var_to_int = {v: i for i, v in enumerate(self.corr_vars)}
+        raw = build_corrmat(
+            [
+                (tuple(var_to_int[var] for var in variables), corrmat)
+                for (variables, corrmat) in correlations
+            ]
+        )
+        cache_key = raw.tobytes()
+        cached = _NCM_CACHE.get(cache_key)
+        if cached is None:
+            cached = _ncm.nearest_correlation_matrix(raw)
+            if len(_NCM_CACHE) > 64:
+                _NCM_CACHE.pop(next(iter(_NCM_CACHE)))
+            _NCM_CACHE[cache_key] = cached
+        self.corr_matrix = cached
 
 
 def get_plan(sink):
@@ -131,17 +181,86 @@ def get_plan(sink):
     return plan
 
 
-def build_body(plan, keep_ids):
+def resolve_correlator(correlator):
+    """Name -> class from ``CORRELATOR_MAP``; classes and instances pass
+    through (an instance carries its configuration, e.g. ``ties``)."""
+    if isinstance(correlator, str):
+        name = correlator.lower()
+        if name == "tcopula":
+            raise NotImplementedError(
+                "correlator='tcopula' (StudentTCopula) is not ported yet "
+                "(ROADMAP A6b); use 'imanconover' or 'cholesky'."
+            )
+        return CORRELATOR_MAP[name]
+    return correlator
+
+
+def correlator_token(correlator_cls):
+    """Hashable identity of a resolved correlator (class or instance)."""
+    if isinstance(correlator_cls, _correlation.Correlator):
+        return correlator_cls._cache_token()
+    return getattr(correlator_cls, "__qualname__", str(correlator_cls))
+
+
+def instantiate_correlator(correlator_cls):
+    """A usable instance from a resolved correlator (class or instance)."""
+    if isinstance(correlator_cls, _correlation.Correlator):
+        return correlator_cls
+    return correlator_cls()
+
+
+def _generatable(var):
+    """Is this variable's sampler a monotone scalar inverse CDF?
+
+    In the port every such node is a ``Distribution`` of a ported family
+    (all of them univariate and monotone).
+    """
+    from probabilit_tpu_torch.models.distributions import Distribution
+
+    return isinstance(var, Distribution) and _ppf.lookup(var.distr) is not None
+
+
+def recolor_eligible(plan, correlator_cls):
+    """Can generated sampling induce this plan's correlations sort-free?
+
+    True when the plan declares correlations, the correlator has
+    ``_recolor_scores`` (Gaussian-copula score recolouring), and every
+    correlated variable is ``_generatable``.
+    """
+    return (
+        plan.corr_matrix is not None
+        and hasattr(correlator_cls, "_recolor_scores")
+        and all(_generatable(v) for v in plan.corr_vars)
+    )
+
+
+def check_rows(plan, n):
+    """The ``n <= K`` guard of a correlated plan."""
+    if plan.corr_matrix is not None and n <= len(plan.corr_vars):
+        raise ValueError(
+            "Inducing correlations needs more observations than "
+            "variables (rows > columns); X has shape "
+            f"({n}, {len(plan.corr_vars)})."
+        )
+
+
+def build_body(plan, keep_ids, correlator="imanconover", generated=False):
     """The 3-phase sampling function for ``plan``.
 
     Returns ``body(quantiles) -> {node_id: tensor}`` for the kept nodes;
     ``quantiles`` is an ``(n, d)`` tensor, already clamped to (0, 1).
+    ``generated=True`` (the uniforms were drawn by the engine, and
+    ``recolor_eligible`` holds) takes the sort-free recolouring branch of
+    phase 2; otherwise the correlator transforms the sampled columns.
     """
+    corr_matrix = plan.corr_matrix
+    correlator_cls = None if corr_matrix is None else resolve_correlator(correlator)
+    corr_vars = list(plan.corr_vars)
+    corr_var_ids = frozenset(v._id for v in corr_vars)
     topo = list(plan.topo)
     pre_topo = list(plan.pre_topo)
     col_of = dict(plan.col_of)
     keep_ids = frozenset(keep_ids)
-    correlated = bool(plan.corr_vars)
     parents_of = {node._id: {p._id for p in node.get_parents()} for node in topo}
     n_children = {node._id: 0 for node in topo}
     for pids in parents_of.values():
@@ -150,21 +269,49 @@ def build_body(plan, keep_ids):
 
     def body(quantiles):
         n = quantiles.shape[0]
+        check_rows(plan, n)
         columns = {nid: quantiles[:, col] for nid, col in col_of.items()}
         ctx = EmitContext(n=n, columns=columns, device=quantiles.device)
+        fast = generated and corr_matrix is not None
 
         # Phase 1: initial sampling nodes and their Constant/Transform
         # parameter ancestors, in topological order (bounded recursion).
         for node in pre_topo:
+            if fast and node._id in corr_var_ids:
+                continue  # Produced by the recolouring below.
             ctx.value(node)
 
-        # Phase 2: correlation induction.
-        if correlated:
-            raise NotImplementedError(
-                "Correlated graphs are not ported yet: correlation induction "
-                "(nearest-correlation repair, Iman-Conover) is the next "
-                "slice of the port (ROADMAP A6)."
-            )
+        # Phase 2: correlation induction on the declared variables,
+        # stacked on the leading axis (K, n).
+        if corr_matrix is not None:
+            instance = instantiate_correlator(correlator_cls).set_target(corr_matrix)
+            dtype = config.float_dtype()
+            if fast:
+                # Sort-free Gaussian-copula Iman-Conover: recolour the
+                # normal scores of the variables' own uniforms to the
+                # target correlation, then push each score row through
+                # the closed-form score ppf (norm, lognorm) or through
+                # ndtr into the variable's own inverse CDF.
+                z = torch.stack(
+                    [_special.ndtri_fast(ctx.column(v).to(dtype)) for v in corr_vars]
+                )
+                y = instance._recolor_scores(z)
+                for i, var in enumerate(corr_vars):
+                    val_i = _ppf.score_emit(var, y[i], ctx)
+                    if val_i is None:
+                        saved = ctx._columns[var._id]
+                        ctx._columns[var._id] = clamp_open_unit(_special.ndtr_fast(y[i]))
+                        val_i = var._emit(ctx)
+                        ctx._columns[var._id] = saved
+                    ctx.set_value(var, val_i)
+            else:
+                XT = torch.stack([ctx.value(v) for v in corr_vars]).to(dtype)
+                if hasattr(instance, "_apply_rows"):
+                    X_corr_T = instance._apply_rows(XT)
+                else:
+                    X_corr_T = instance._apply(XT.T).T
+                for i, var in enumerate(corr_vars):
+                    ctx.set_value(var, X_corr_T[i])
 
         # Phase 3: propagate in topological order and keep only the
         # requested outputs.  Eager PyTorch has no dead-code elimination,

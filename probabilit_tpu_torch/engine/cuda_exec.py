@@ -15,11 +15,24 @@ one per transform (variadic chains fold left, as ``functools.reduce``
 does), and ``STORE k``.  Values live in per-thread slots, reused by
 liveness.
 
-``run`` is the wrapper: on a tape whose tensors lie on the CPU it uses the
-plain version (``run_reference``); on a CUDA tape it launches the kernel,
-counting the launch in ``LAUNCHES``, or raises.  ``run_reference`` is
-``philox_uniforms`` (the same random bits as the kernel) followed by
-``run_tape`` (the same tape, interpreted with PyTorch ops on float32).
+Correlated graphs (sort-free Gaussian-copula Iman-Conover, as the TPU
+kernel's recolour branch) add ``SCORE k`` (z_k = ndtri_fast of a drawn
+column, kept in the kernel's score registers, not in a slot),
+``RECOLOR i`` (y_i = b_i + sum_j A_ij z_j), ``SCORE_NORM`` /
+``SCORE_LOGNORM`` (``ppf(ndtr(y))`` in closed form) and ``NDTR``
+(``clamp_open_unit(ndtr_fast(y))`` into the variable's own ppf).  The
+recolour transform ``(A, b)`` comes from a second kernel,
+``csrc/corr_stats.cu``, over the same Philox bits: ``recolor_transform``
+launches it, reduces its per-block partials in float64 and solves the
+K x K system on the host (the path's one host sync).
+
+``run`` and ``corr_stats`` are the wrappers: on tensors that lie on the
+CPU they use the plain versions (``run_reference``,
+``corr_stats_reference``); on CUDA tensors they launch the kernels,
+counting the launches in ``LAUNCHES`` and ``STATS_LAUNCHES``, or raise.
+``run_reference`` is ``philox_uniforms`` (the same random bits as the
+kernel) followed by ``run_tape`` (the same tape, interpreted with
+PyTorch ops on float32).
 """
 
 from __future__ import annotations
@@ -37,11 +50,15 @@ import torch
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.models import graph as _graph
 from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.ops import correlation as _correlation
 from probabilit_tpu_torch.ops import philox as _philox
 from probabilit_tpu_torch.ops import ppf as _ppf
+from probabilit_tpu_torch.ops import special as _special
+from probabilit_tpu_torch.ops.qmc import clamp_open_unit
 
 __all__ = [
     "LAUNCHES",
+    "STATS_LAUNCHES",
     "supports",
     "environment_issue",
     "keep_order",
@@ -51,17 +68,28 @@ __all__ = [
     "run_tape",
     "run_reference",
     "run",
+    "corr_stats_reference",
+    "corr_stats",
+    "recolor_transform",
 ]
 
-# Launches of the CUDA kernel by ``run``.
+# Launches of the megakernel by ``run`` and of the statistics kernel by
+# ``corr_stats``.
 LAUNCHES = 0
+STATS_LAUNCHES = 0
 
-# MAX_SLOTS and MAX_INSTR must equal kMaxSlots and kMaxInstr in
-# csrc/graph_megakernel.cu; MAX_KEEP is the 16 outputs of pallas_exec.supports.
+# MAX_SLOTS, MAX_INSTR and MAX_CORR_K must equal kMaxSlots, kMaxInstr and
+# kMaxCorr in csrc/graph_megakernel.cu (kMaxCorr in csrc/corr_stats.cu
+# too); MAX_KEEP and MAX_CORR_K are pallas_exec.supports' 16 outputs and
+# 16 correlated variables.
 MAX_SLOTS = 64
 MAX_INSTR = 1024
 MAX_KEEP = 16
+MAX_CORR_K = 16
 _THREADS = 256
+
+# Score-linear families: ppf(ndtr(y)) has a closed form in the score y.
+_SCORE_OPS = {"norm": "SCORE_NORM", "lognorm": "SCORE_LOGNORM"}
 
 _FAMILY_OPS = {
     "uniform": "PPF_UNIFORM",
@@ -120,8 +148,9 @@ _TRANSFORM_OPS = {
 # Opcode numbering; the enum in csrc/graph_megakernel.cu lists the same
 # names in the same order.
 OPCODES = (
-    ["DRAW", "LOADK", "STORE"]
+    ["DRAW", "LOADK", "STORE", "SCORE", "RECOLOR", "NDTR"]
     + list(_FAMILY_OPS.values())
+    + list(_SCORE_OPS.values())
     + list(_TRANSFORM_OPS.values())
 )
 _OPCODE = {name: i for i, name in enumerate(OPCODES)}
@@ -184,8 +213,8 @@ def _ppf_params(node):
 
 def _structure_ok(plan, keep_ids):
     """Can every node and the keep-set be expressed on the tape?"""
-    if plan.corr_vars:
-        return False  # Correlated graphs: the next slice (ROADMAP A6).
+    if len(plan.corr_vars) > MAX_CORR_K:
+        return False
     topo_ids = {node._id for node in plan.topo}
     if plan.sink._id not in keep_ids or not keep_ids <= topo_ids:
         return False
@@ -211,10 +240,11 @@ def supports(plan, keep_ids):
     """True if this graph can run as the CUDA megakernel.
 
     The counterpart of ``pallas_exec.supports`` restricted to what the
-    port has: uncorrelated graphs of Constants, the five closed-form
-    families and the arithmetic transforms, with at most 16 kept nodes
-    including the sink, no ``NoOp``, no integer or boolean arithmetic, and
-    a tape within the kernel's instruction and slot caps.
+    port has: graphs of Constants, the five closed-form families and the
+    arithmetic transforms, with at most 16 correlated variables and at
+    most 16 kept nodes including the sink, no ``NoOp``, no integer or
+    boolean arithmetic, and a tape within the kernel's instruction and
+    slot caps.
     """
     keep_ids = frozenset(keep_ids)
     if not _structure_ok(plan, keep_ids):
@@ -271,6 +301,7 @@ class Tape:
     n_slots: int
     d: int  # uniform columns drawn
     keep_order: tuple  # node ids of the output rows
+    n_corr: int = 0  # correlated variables: (A, b) holds n_corr^2 + n_corr floats
 
     @property
     def n_instr(self):
@@ -283,7 +314,7 @@ class Tape:
     def to(self, device):
         return Tape(
             self.code.to(device), self.imm.to(device), self.n_slots, self.d,
-            self.keep_order,
+            self.keep_order, self.n_corr,
         )
 
 
@@ -292,7 +323,11 @@ def lower(plan, keep_order):
     of ``keep_order``; raises ``ValueError`` on a graph ``supports`` refuses.
 
     Values are first numbered one per instruction, then mapped onto slots:
-    a slot is free again after the last instruction that reads it.
+    a slot is free again after the last instruction that reads it.  A
+    correlated plan's tape opens with ``DRAW`` and ``SCORE`` for each
+    correlated variable (the scores live in their own registers, so no
+    slot allocation can reuse them), and each correlated variable is
+    ``RECOLOR i`` followed by its score ppf, or ``NDTR`` and its ppf.
     """
     if not _structure_ok(plan, frozenset(keep_order)):
         raise ValueError("This graph is not supported by the CUDA megakernel.")
@@ -309,9 +344,23 @@ def lower(plan, keep_order):
     def operand(x):
         return value_of[x._id] if isinstance(x, _graph.Node) else emit("LOADK", imm=x)
 
+    corr_index = {v._id: i for i, v in enumerate(plan.corr_vars)}
+    for i, var in enumerate(plan.corr_vars):
+        u = emit("DRAW")
+        rows[-1][2] = plan.col_of[var._id]
+        rows.append([_OPCODE["SCORE"], i, u, -1, -1, -1, 0.0])  # dst: score index
+
     for node in plan.topo:
         if isinstance(node, _graph.Constant):
             v = emit("LOADK", imm=node.value)
+        elif node._id in corr_index:
+            y = emit("RECOLOR")
+            rows[-1][2] = corr_index[node._id]  # a: the variable's index (a literal)
+            params = [operand(p) for p in _ppf_params(node)]
+            if node.distr in _SCORE_OPS:
+                v = emit(_SCORE_OPS[node.distr], [y, *params])
+            else:
+                v = emit(_FAMILY_OPS[node.distr], [emit("NDTR", [y]), *params])
         elif isinstance(node, Distribution):
             q = emit("DRAW")
             rows[-1][2] = plan.col_of[node._id]  # a: the column (a literal)
@@ -341,7 +390,7 @@ def lower(plan, keep_order):
     imm = np.array([float(r[6]) for r in rows], dtype=np.float32)
     tape = Tape(
         torch.from_numpy(code), torch.from_numpy(imm), n_slots, plan.d,
-        tuple(keep_order),
+        tuple(keep_order), len(plan.corr_vars),
     )
     if tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS:
         raise ValueError(
@@ -354,12 +403,12 @@ def lower(plan, keep_order):
 def _register_fields(op):
     """(dst is a value, operand fields that are values) for an opcode."""
     name = OPCODES[op]
-    if name == "DRAW":
-        return True, ()  # a is a column number
+    if name in ("DRAW", "RECOLOR"):
+        return True, ()  # a is a column number / a variable's index
     if name == "LOADK":
         return True, ()
-    if name == "STORE":
-        return False, (2,)  # dst is the output row
+    if name in ("STORE", "SCORE"):
+        return False, (2,)  # dst is the output row / the score's index
     return True, (2, 3, 4, 5)
 
 
@@ -405,15 +454,20 @@ def seed_words(seed):
     return seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
 
 
-def philox_uniforms(seed_words, n, d, device="cpu"):
+def philox_uniforms(seed_words, n, d, device="cpu", columns=None, start=0):
     """The ``(n, d)`` float32 uniforms the kernel draws: column ``c`` of
     sample ``i`` is word 0 of Philox4x32-10 at counter
-    ``(i mod 2^32, i >> 32, c, 0)`` under key ``seed_words``."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    ``(i mod 2^32, i >> 32, c, 0)`` under key ``seed_words``.
+
+    ``columns`` (default ``range(d)``) picks the columns; ``start`` the
+    first sample index.
+    """
+    columns = range(d) if columns is None else columns
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
     lo, hi = i & 0xFFFFFFFF, i >> 32
     cols = [
         _philox.bits_to_open_unit(_philox.philox4x32_10((lo, hi, c, 0), seed_words)[0])
-        for c in range(d)
+        for c in columns
     ]
     if not cols:
         return torch.empty((n, 0), dtype=torch.float32, device=device)
@@ -421,18 +475,33 @@ def philox_uniforms(seed_words, n, d, device="cpu"):
 
 
 _PPF_FN = {op: _ppf.lookup(family) for family, op in _FAMILY_OPS.items()}
+_SCORE_FAMILY = {op: family for family, op in _SCORE_OPS.items()}
 _OP_FN = {op: cls.op for cls, op in _TRANSFORM_OPS.items()}
 
 
-def run_tape(tape, U):
+def _check_ab(tape, ab):
+    if tape.n_corr and (ab is None or tuple(ab.shape) != (tape.n_corr**2 + tape.n_corr,)):
+        raise ValueError(
+            f"A tape with {tape.n_corr} correlated variables needs the "
+            "recolour transform ab (recolor_transform) of "
+            f"{tape.n_corr**2 + tape.n_corr} floats."
+        )
+
+
+def run_tape(tape, U, ab=None):
     """Interpret ``tape`` on the float32 quantile matrix ``U`` with PyTorch
-    ops; returns the ``(n_keep, n)`` float32 outputs."""
+    ops; returns the ``(n_keep, n)`` float32 outputs.  ``ab`` is the
+    recolour transform of a correlated tape (``recolor_transform``)."""
     if config.float_dtype() != torch.float32:
         raise ValueError("The tape is float32-only.")
+    _check_ab(tape, ab)
     code = tape.code.cpu().tolist()
     imm = tape.imm.cpu().tolist()
+    K = tape.n_corr
+    ab = [] if ab is None else ab.cpu().tolist()
     n = U.shape[0]
     slots = [None] * tape.n_slots
+    z = [None] * K
     out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=U.device)
     for (op, dst, a, b, c, d), k in zip(code, imm):
         name = OPCODES[op]
@@ -442,6 +511,19 @@ def run_tape(tape, U):
             slots[dst] = torch.full((n,), k, dtype=torch.float32, device=U.device)
         elif name == "STORE":
             out[dst] = slots[a]
+        elif name == "SCORE":
+            z[dst] = _special.ndtri_fast(slots[a])
+        elif name == "RECOLOR":
+            # The kernel's order: b_i, then + A_ij z_j for j = 0..K-1.
+            y = torch.full((n,), ab[K * K + a], dtype=torch.float32, device=U.device)
+            for j in range(K):
+                y = y + ab[a * K + j] * z[j]
+            slots[dst] = y
+        elif name == "NDTR":
+            slots[dst] = clamp_open_unit(_special.ndtr_fast(slots[a]))
+        elif name in _SCORE_FAMILY:
+            args = [slots[s] for s in (a, b, c, d) if s >= 0]
+            slots[dst] = _ppf.score_call(_SCORE_FAMILY[name], *args)
         elif name in _PPF_FN:
             args = [slots[s] for s in (a, b, c, d) if s >= 0]
             slots[dst] = _PPF_FN[name](*args)
@@ -451,37 +533,46 @@ def run_tape(tape, U):
     return out
 
 
-def run_reference(tape, seed_words, n):
+def run_reference(tape, seed_words, n, ab=None):
     """The plain twin of the kernel: the same bits, the same tape."""
     U = philox_uniforms(seed_words, n, tape.d, device=tape.code.device)
-    return run_tape(tape, U)
+    return run_tape(tape, U, ab)
 
 
-def run(tape, seed_words, n):
+def run(tape, seed_words, n, ab=None):
     """Sample ``n`` rows of ``tape``; returns ``(out, nonfinite)``.
 
     ``out`` is ``(n_keep, n)`` float32 on the tape's device; ``nonfinite``
     is an int32 tensor, nonzero when any stored value is not finite.  A
-    CPU tape runs the plain version; a CUDA tape launches the kernel.
+    correlated tape takes its recolour transform ``ab`` (float32
+    ``(K^2 + K,)``, from ``recolor_transform``).  A CPU tape runs the plain
+    version; a CUDA tape launches the kernel.
     """
     global LAUNCHES
     device = tape.code.device
+    _check_ab(tape, ab)
     if device.type == "cpu":
-        out = run_reference(tape, seed_words, n)
+        out = run_reference(tape, seed_words, n, ab)
         return out, (~torch.isfinite(out)).any().to(torch.int32).reshape(1)
     issue = environment_issue(device)
     if issue is not None:
         raise RuntimeError(issue)
-    if tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS or tape.n_keep > MAX_KEEP:
+    if (
+        tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS or tape.n_keep > MAX_KEEP
+        or tape.n_corr > MAX_CORR_K
+    ):
         raise ValueError("The tape exceeds the kernel's caps.")
     code = tape.code.to(torch.int32).contiguous()
     imm = tape.imm.to(torch.float32).contiguous()
+    if tape.n_corr:
+        ab = ab.to(device=device, dtype=torch.float32).contiguous()
     out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=device)
     flag = torch.zeros((1,), dtype=torch.int32, device=device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = max(1, min(math.ceil(n / _THREADS), sms * (2048 // _THREADS)))
-    err = _launcher()(
+    err = _megakernel()(
         code.data_ptr(), imm.data_ptr(), tape.n_instr,
+        ab.data_ptr() if tape.n_corr else None, tape.n_corr,
         seed_words[0], seed_words[1], n,
         out.data_ptr(), flag.data_ptr(), blocks,
         torch.cuda.current_stream(device).cuda_stream,
@@ -492,15 +583,132 @@ def run(tape, seed_words, n):
     return out, flag
 
 
-def _launcher():
+def _megakernel():
     from probabilit_tpu_torch import _build
 
     fn = _build.load("graph_megakernel").graph_megakernel_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _stats_width(k):
+    """Sums per row of statistics: z_k, then z_j z_k for j <= k."""
+    return k + k * (k + 1) // 2
+
+
+def corr_stats_reference(seed_words, n, columns, device="cpu", chunk=1 << 22):
+    """The plain twin of the statistics kernel: float64 ``(P,)`` sums of
+    z_k and of z_j z_k (upper triangle, row-major) over the samples
+    ``i < n``, with z = ``ndtri_fast`` of the kernel's uniforms of
+    ``columns``."""
+    k = len(columns)
+    iu = torch.triu_indices(k, k, device=device)
+    sums = torch.zeros(_stats_width(k), dtype=torch.float64, device=device)
+    for start in range(0, n, chunk):
+        rows = min(chunk, n - start)
+        U = philox_uniforms(seed_words, rows, k, device=device, columns=columns, start=start)
+        z = _special.ndtri_fast(U).double()
+        sums[:k] += z.sum(dim=0)
+        sums[k:] += (z.T @ z)[iu[0], iu[1]]
+    return sums
+
+
+def corr_stats(seed_words, n, columns, device):
+    """The statistics of ``columns`` over ``n`` samples, float64 ``(P,)``.
+
+    On the CPU the plain twin; on a CUDA device the kernel
+    (``csrc/corr_stats.cu``), whose per-block float32 partials are summed
+    in float64 on the device.
+    """
+    global STATS_LAUNCHES
+    device = torch.device(device)
+    if device.type == "cpu":
+        return corr_stats_reference(seed_words, n, columns, device)
+    issue = environment_issue(device)
+    if issue is not None:
+        raise RuntimeError(issue)
+    k = len(columns)
+    if not 1 <= k <= MAX_CORR_K or n <= 0:
+        raise ValueError(f"corr_stats takes 1..{MAX_CORR_K} columns and n > 0.")
+    blocks = stats_grid(k, n)
+    cols = torch.tensor(list(columns), dtype=torch.int32, device=device)
+    partials = torch.empty((blocks, _stats_width(k)), dtype=torch.float32, device=device)
+    err = _stats_kernel().corr_stats_launch(
+        cols.data_ptr(), k, seed_words[0], seed_words[1], n,
+        partials.data_ptr(), blocks,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"corr_stats launch failed: CUDA error {err}.")
+    STATS_LAUNCHES += 1
+    return partials.sum(dim=0, dtype=torch.float64)
+
+
+def stats_grid(k, n):
+    """Blocks (rows of partials) the statistics kernel uses for k columns
+    and n samples on the current card: one resident wave."""
+    blocks = ctypes.c_int(0)
+    err = _stats_kernel().corr_stats_grid(k, n, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"corr_stats_grid failed: CUDA error {err}.")
+    return blocks.value
+
+
+def _stats_kernel():
+    from probabilit_tpu_torch import _build
+
+    lib = _build.load("corr_stats")
+    lib.corr_stats_grid.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.corr_stats_grid.restype = ctypes.c_int
+    lib.corr_stats_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.corr_stats_launch.restype = ctypes.c_int
+    return lib
+
+
+def solve_recolor(sums, n, corr_matrix):
+    """The recolour transform from the score statistics, in float64.
+
+    Returns ``[A row-major, b]`` (numpy float64) such that
+    ``y_i = b_i + sum_j A_ij z_j`` standardises the scores, removes their
+    empirical correlation and colours them to ``corr_matrix``: the same
+    map as ``ImanConover._recolor_scores``, from moments instead of the
+    scores themselves.  The target factor comes from
+    ``Correlator.set_target``, so a PSD-singular target raises its
+    ``ValueError``.
+    """
+    sums = np.asarray(sums, dtype=np.float64)
+    k = corr_matrix.shape[0]
+    P = _correlation.ImanConover().set_target(corr_matrix).P
+    mean = sums[:k] / n
+    G = np.zeros((k, k))
+    G[np.triu_indices(k)] = sums[k:]
+    G = G + np.triu(G, 1).T
+    cov = G / n - np.outer(mean, mean)
+    std = np.sqrt(np.diag(cov))
+    L = np.linalg.cholesky(cov / np.outer(std, std))
+    A = (P @ np.linalg.solve(L, np.eye(k))) / std[None, :]
+    b = -A @ mean
+    return np.concatenate([A.ravel(), b])
+
+
+def recolor_transform(plan, seed_words, n, device=None):
+    """Run the statistics pass over the plan's correlated columns and
+    solve the recolour transform: float32 ``(K^2 + K,)`` on ``device``
+    (default ``config.device()``).  The counterpart of
+    ``pallas_exec._recolor_transform``.
+    """
+    device = config.device() if device is None else torch.device(device)
+    columns = [plan.col_of[v._id] for v in plan.corr_vars]
+    sums = corr_stats(seed_words, n, columns, device).cpu().numpy()  # the one sync
+    ab = solve_recolor(sums, n, plan.corr_matrix)
+    return torch.tensor(ab, dtype=torch.float32, device=device)

@@ -4,10 +4,12 @@ Port of ``probabilit_tpu/engine/sampler.py:45-257``.  Two executors:
 
 * ``executor=None``: the plain PyTorch executor on ``config.device()``.
   Uniforms come from a ``torch.Generator`` seeded by ``random_state``, and
-  ``engine/compile.py::build_body`` evaluates the graph op by op.
+  ``engine/compile.py::build_body`` evaluates the graph op by op;
+  declared correlations take its sort-free recolouring branch.
 * ``executor="cuda"``: the whole graph in one CUDA kernel
-  (``engine/cuda_exec.py``), with Philox4x32-10 bits drawn inside it.
-  The counterpart of the JAX package's ``executor="pallas"``.
+  (``engine/cuda_exec.py``), with Philox4x32-10 bits drawn inside it; a
+  correlated graph first runs the correlation-statistics kernel over the
+  same bits.  The counterpart of the JAX package's ``executor="pallas"``.
 
 The two executors draw different random streams; each is deterministic
 per seed.
@@ -61,7 +63,7 @@ def sample(
             "port's counterpart is executor='cuda'."
         )
     if executor == "cuda":
-        return _sample_cuda(plan, size, random_state, method, gc_strategy)
+        return _sample_cuda(plan, size, random_state, method, correlator, gc_strategy)
     if executor is not None:
         raise ValueError(f"Unknown executor {executor!r}; use None or 'cuda'.")
     if method is not None:
@@ -77,10 +79,13 @@ def sample(
         dtype=config.float_dtype(),
         device=config.device(),
     )
-    return _execute(plan, _qmc.clamp_open_unit(quantiles), gc_strategy)
+    generated = plan.corr_matrix is not None and _compile.recolor_eligible(
+        plan, _compile.resolve_correlator(correlator)
+    )
+    return _execute(plan, _qmc.clamp_open_unit(quantiles), correlator, gc_strategy, generated)
 
 
-def _sample_cuda(plan, size, random_state, method, gc_strategy):
+def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
     from probabilit_tpu_torch.engine import cuda_exec
 
     sink = plan.sink
@@ -96,18 +101,31 @@ def _sample_cuda(plan, size, random_state, method, gc_strategy):
     ):
         raise ValueError(
             "executor='cuda' requires method=None, a narrow gc_strategy "
-            "keep-list (<= 16 kept nodes; [] keeps just the sink), an "
-            "uncorrelated graph, and the families uniform, norm, expon, "
-            "lognorm and triang, without integer or boolean arithmetic."
+            "keep-list (<= 16 kept nodes; [] keeps just the sink), at most "
+            f"{cuda_exec.MAX_CORR_K} correlated variables, and the families "
+            "uniform, norm, expon, lognorm and triang, without integer or "
+            "boolean arithmetic."
         )
+    if plan.corr_matrix is not None:
+        resolved = _compile.resolve_correlator(correlator)
+        ic_cls = _compile.CORRELATOR_MAP["imanconover"]
+        if not (resolved is ic_cls or type(resolved) is ic_cls):
+            # The kernel's correlation induction IS (sort-free)
+            # Iman-Conover; other correlators have other semantics.
+            raise ValueError("executor='cuda' supports correlator='imanconover' only.")
     env_issue = cuda_exec.environment_issue()
     if env_issue is not None:
         raise ValueError(env_issue)
     seed = resolve_seed(random_state)
     _clear_samples(plan)
+    _compile.check_rows(plan, size)
+    words = cuda_exec.seed_words(seed)
     keep_order = cuda_exec.keep_order(plan, keep_ids)
     tape = cuda_exec.lower(plan, keep_order).to(config.device())
-    out, nonfinite = cuda_exec.run(tape, cuda_exec.seed_words(seed), size)
+    ab = None
+    if plan.corr_matrix is not None:
+        ab = cuda_exec.recolor_transform(plan, words, size, device=config.device())
+    out, nonfinite = cuda_exec.run(tape, words, size, ab)
     if nonfinite.item():
         raise ValueError("Sampling produced non-finite values.")
     by_id = {node._id: node for node in plan.topo}
@@ -136,10 +154,10 @@ def sample_from_quantiles(sink, quantiles, correlator="imanconover", gc_strategy
             f"`quantiles` has {n_dim} columns but the graph has "
             f"{plan.d_total} sampling dimensions."
         )
-    return _execute(plan, quantiles, gc_strategy)
+    return _execute(plan, quantiles, correlator, gc_strategy)
 
 
-def _execute(plan, quantiles, gc_strategy):
+def _execute(plan, quantiles, correlator, gc_strategy, generated=False):
     # Clear any stale samples before running, so a failure leaves none.
     _clear_samples(plan)
 
@@ -148,7 +166,8 @@ def _execute(plan, quantiles, gc_strategy):
     else:
         keep_ids = frozenset({plan.sink._id} | {node._id for node in gc_strategy})
 
-    outputs = _compile.build_body(plan, keep_ids)(quantiles)
+    body = _compile.build_body(plan, keep_ids, correlator, generated=generated)
+    outputs = body(quantiles)
 
     # Non-finite guard: one fused flag (one device sync), then the
     # offending node is named.

@@ -8,8 +8,7 @@ from its parents' tensors with the same numeric semantics as the JAX
 package (``jnp`` type promotion: integer constants stay integers,
 comparisons give booleans).
 
-Not ported yet: ``ScalarFunctionTransform`` / ``scalar_transform``, and
-``correlate`` (the correlated path is the next slice, ROADMAP A6).
+Not ported yet: ``ScalarFunctionTransform`` / ``scalar_transform``.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import itertools
 import numbers
 import operator
 
+import numpy as np
 import torch
 
 from probabilit_tpu_torch import config
@@ -109,7 +109,7 @@ class Node(abc.ABC):
     id_iter = itertools.count()
 
     # Bumped by every operation that can change an already-built node's
-    # sampling semantics (``correlate``, once ported); ``compile.get_plan``
+    # sampling semantics (``correlate``); ``compile.get_plan``
     # keys its per-sink cache on it.
     _mutation_epoch = 0
 
@@ -215,10 +215,23 @@ class Node(abc.ABC):
         )
 
     def correlate(self, *variables, corr_mat):
-        raise NotImplementedError(
-            "correlate() is not ported yet: the correlated path is the next "
-            "slice of the port (ROADMAP A6)."
-        )
+        """Declare a target correlation among ancestor variables.
+
+        The variables must be initial sampling nodes; that is checked at
+        sample time (``compile.Plan``).  Returns ``self``.
+        """
+        corr_mat = np.asarray(corr_mat)
+        assert corr_mat.ndim == 2
+        assert corr_mat.shape[0] == corr_mat.shape[1]
+        assert corr_mat.shape[0] == len(variables)
+        assert len(variables) == len(set(variables))
+        nodes = set(self.unique_nodes())
+        for var in variables:
+            if var not in nodes:
+                raise ValueError(f"{var} is not an ancestor of {self}")
+        self._correlations.append((list(variables), np.copy(corr_mat)))
+        Node._mutation_epoch += 1
+        return self
 
 
 def topological_sort(sink):

@@ -7,6 +7,11 @@ with scipy.stats' parameter names and order.  Parameters may be tensors
 (composite distributions) or numbers; both broadcast elementwise.  The
 other families of the reference (Newton, table and scipy-callback tiers)
 are still to port (ROADMAP A8).
+
+The score shortcuts (``score_call``, ``score_emit``) evaluate
+``ppf(ndtr(y))`` in closed form for the score-linear families (norm,
+lognorm), as ``probabilit_tpu/ops/ppf.py:151-190`` does for the
+correlated paths.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.ops import special
 
-__all__ = ["register", "lookup", "call"]
+__all__ = ["register", "lookup", "call", "score_call", "score_emit"]
 
 _REGISTRY = {}
 
@@ -79,3 +84,47 @@ def triang(q, c, loc=0.0, scale=1.0):
     right = 1.0 - torch.sqrt((1.0 - q) * (1.0 - c))
     x = torch.where(q <= c, left, right)
     return _f(loc) + _f(scale) * x
+
+
+# Normal-score shortcuts: families whose ppf is an elementwise function
+# of ndtri(q) have a closed form in a standard-normal score y,
+# ppf(ndtr(y)) = g(y).  The correlated paths produce such scores, so g(y)
+# skips the ndtr/ndtri roundtrip (exact where the roundtrip drifts in the
+# tails).
+
+
+def _score_norm(y, loc=0.0, scale=1.0):
+    return _f(loc) + _f(scale) * _f(y)
+
+
+def _score_lognorm(y, s, loc=0.0, scale=1.0):
+    return _f(loc) + _f(scale) * torch.exp(_f(s) * _f(y))
+
+
+_SCORE_KERNELS = {"norm": _score_norm, "lognorm": _score_lognorm}
+
+
+def score_call(name, y, *args, **kwargs):
+    """``ppf(name, ndtr(y))`` in closed form, or None if unsupported."""
+    kernel = _SCORE_KERNELS.get(name)
+    return None if kernel is None else kernel(y, *args, **kwargs)
+
+
+def score_emit(var, y, ctx):
+    """Score shortcut for a ``Distribution`` node, or None.
+
+    Node-valued parameters resolve through ``ctx`` exactly as in
+    ``Distribution._emit``.
+    """
+    from probabilit_tpu_torch.models.distributions import Distribution
+    from probabilit_tpu_torch.models.graph import Node
+
+    if not isinstance(var, Distribution) or var.distr not in _SCORE_KERNELS:
+        return None
+
+    def unpack(a):
+        return ctx.value(a) if isinstance(a, Node) else a
+
+    args = tuple(unpack(a) for a in var.args)
+    kwargs = {k: unpack(v) for k, v in var.kwargs.items()}
+    return score_call(var.distr, y, *args, **kwargs)

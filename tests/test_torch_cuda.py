@@ -6,11 +6,15 @@ machine with the card it runs without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: per kept node, max |kernel - twin| <= 1e-4 * max |twin|.  The
-two differ only where nvcc contracts a*b+c into FMAs and where CUDA's
-libm rounds differently from PyTorch's.
+Tolerances: the megakernel, per kept node, max |kernel - twin| <=
+1e-4 * max |twin| (correlated graphs given the same recolour transform);
+the statistics kernel, each sum within 1e-5 * n of the twin's (every sum
+is of n terms of magnitude about 1: z_k, z_j z_k).  They differ only where
+nvcc contracts a*b+c into FMAs, where CUDA's libm rounds differently from
+PyTorch's, and in the order of float32 partial sums.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,18 +25,31 @@ from probabilit_tpu_torch.models import benchmarks, graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution
 
 REL_TOL = 1e-4
+STATS_TOL = 1e-5
 N = 1 << 20
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port defaults to the card; tests ask for their device."""
+    previous = config.device()
+    config.set_device("cpu")
+    try:
+        yield
+    finally:
+        config.set_device(previous)
 
 
 @pytest.fixture
 def cuda_card():
     if not torch.cuda.is_available() or cuda_exec.environment_issue("cuda") is not None:
         pytest.skip("needs an sm_90 CUDA card")
+    previous = config.device()
     config.set_device("cuda")
     try:
         yield
     finally:
-        config.set_device("cpu")
+        config.set_device(previous)
 
 
 def _composite():
@@ -103,3 +120,56 @@ def test_kernel_flags_non_finite_values(cuda_card):
     sink = tg.Log(Distribution("norm"))
     with pytest.raises(ValueError, match="non-finite"):
         sink.sample(N, random_state=0, gc_strategy=[], executor="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+def test_stats_kernel_matches_twin(cuda_card, k):
+    columns = [3 * j + 1 for j in range(k)]
+    launches = cuda_exec.STATS_LAUNCHES
+    got = cuda_exec.corr_stats((7, 8), N, columns, "cuda")
+    again = cuda_exec.corr_stats((7, 8), N, columns, "cuda")
+    ref = cuda_exec.corr_stats_reference((7, 8), N, columns, "cuda")
+    assert cuda_exec.STATS_LAUNCHES == launches + 2
+    assert got.dtype == torch.float64 and got.shape == (k + k * (k + 1) // 2,)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: deterministic
+    assert (got - ref).abs().max().item() <= STATS_TOL * N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed_correlated_50", "portfolio_model"])
+def test_recoloured_kernel_matches_twin(cuda_card, name):
+    sink = getattr(benchmarks, name)()
+    plan = tcompile.get_plan(sink)
+    keep = frozenset([sink._id] + [v._id for v in plan.corr_vars])
+    order = cuda_exec.keep_order(plan, keep)
+    tape = cuda_exec.lower(plan, order).to("cuda")
+    ab = cuda_exec.recolor_transform(plan, (5, 6), N)
+    got, _ = cuda_exec.run(tape, (5, 6), N, ab)
+    ref = cuda_exec.run_reference(tape, (5, 6), N, ab)
+    for k in range(tape.n_keep):
+        scale = ref[k].abs().max().item()
+        assert (got[k] - ref[k]).abs().max().item() <= REL_TOL * scale, order[k]
+    # The recoloured scores carry the repaired target exactly (up to
+    # float32): norm values, and the logs of lognorm values with loc = 0,
+    # are linear in them.
+    linear = {"norm": lambda x: x, "lognorm": torch.log}
+    idx = [i for i, v in enumerate(plan.corr_vars) if v.distr in linear]
+    y = torch.stack(
+        [linear[plan.corr_vars[i].distr](got[order.index(plan.corr_vars[i]._id)]) for i in idx]
+    )
+    corr = torch.corrcoef(y.double()).cpu().numpy()
+    np.testing.assert_allclose(corr, plan.corr_matrix[np.ix_(idx, idx)], atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_correlated_sample_through_both_kernels(cuda_card):
+    sink = benchmarks.mixed_correlated_50()
+    launches = (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES)
+    a = sink.sample(N, random_state=5, gc_strategy=[], executor="cuda")
+    b = sink.sample(N, random_state=5, gc_strategy=[], executor="cuda")
+    assert (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES) == (launches[0] + 2, launches[1] + 2)
+    assert a.device.type == "cuda" and a.shape == (N,) and bool(torch.isfinite(a).all())
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="imanconover"):
+        sink.sample(N, gc_strategy=[], executor="cuda", correlator="cholesky")

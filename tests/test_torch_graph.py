@@ -17,10 +17,22 @@ from probabilit_tpu.engine import compile as jax_compile
 from probabilit_tpu.models import benchmarks as jax_benchmarks
 from probabilit_tpu.models import graph as jg
 from probabilit_tpu.models.distributions import Distribution as JaxDistribution
-from probabilit_tpu_torch import interop
+from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.models import graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    previous = config.device()
+    config.set_device("cpu")
+    try:
+        yield
+    finally:
+        config.set_device(previous)
+
 
 N = 4096
 ULP_TOL = 4
@@ -239,9 +251,18 @@ def test_python_to_prob_rejects_other_types():
 
 
 def test_correlate_waits_for_the_next_slice():
+    # correlate() is ported; only the Student-t copula correlator waits.
     a, b = Distribution("norm"), Distribution("norm")
-    with pytest.raises(NotImplementedError, match="A6"):
-        (a + b).correlate(a, b, corr_mat=np.eye(2))
+    epoch = tg.Node._mutation_epoch
+    sink = (a + b).correlate(a, b, corr_mat=np.eye(2))
+    assert tg.Node._mutation_epoch == epoch + 1
+    variables, corr_mat = sink._correlations[0]
+    assert variables == [a, b] and np.array_equal(corr_mat, np.eye(2))
+    assert sink.copy()._correlations[0][0][0]._id == a._id
+    with pytest.raises(AssertionError):
+        sink.correlate(a, b, corr_mat=np.eye(3))
+    with pytest.raises(NotImplementedError, match="A6b"):
+        sink.sample(10, correlator="tcopula")
 
 
 def _port_modules():

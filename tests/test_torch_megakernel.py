@@ -23,7 +23,7 @@ from probabilit_tpu.engine import pallas_exec
 from probabilit_tpu.models import benchmarks as jax_benchmarks
 from probabilit_tpu.models import graph as jg
 from probabilit_tpu.models.distributions import Distribution as JaxDistribution
-from probabilit_tpu_torch import interop
+from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models import benchmarks, graph as tg
@@ -34,6 +34,17 @@ from test_torch_cuda import GRAPHS  # the same graphs the card tests run
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "probabilit_tpu_torch"
 KERNEL_SRC = PKG / "csrc" / "graph_megakernel.cu"
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    previous = config.device()
+    config.set_device("cpu")
+    try:
+        yield
+    finally:
+        config.set_device(previous)
 
 # Random123's known-answer vectors for Philox4x32-10.
 KAT = [
@@ -191,9 +202,14 @@ def test_supports_agrees_with_pallas_exec():
 def test_supports_refuses_what_the_port_lacks():
     a, b = JaxDistribution("norm"), JaxDistribution("norm")
     corr_sink = (a + b).correlate(a, b, corr_mat=np.eye(2))
-    assert _supports_pair(corr_sink) == (True, False)  # the next slice, ROADMAP A6
+    assert _supports_pair(corr_sink) == (True, True)  # ported since: ROADMAP A6
     gamma = JaxDistribution("gamma", a=2.0) + 0
     assert _supports_pair(gamma) == (True, False)  # ROADMAP A8
+    cauchy = JaxDistribution("cauchy") * 2
+    assert _supports_pair(cauchy) == (True, False)  # ROADMAP A8
+    c = JaxDistribution("cauchy")
+    corr_cauchy = (a + c).correlate(a, c, corr_mat=np.eye(2))
+    assert _supports_pair(corr_cauchy) == (True, False)
 
 
 @pytest.mark.parametrize(

@@ -27,6 +27,17 @@ N = 65536
 REL_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    previous = config.device()
+    config.set_device("cpu")
+    try:
+        yield
+    finally:
+        config.set_device(previous)
+
+
 def _composite():
     a = JaxDistribution("uniform", loc=1.0, scale=2.0)
     b = JaxDistribution("norm", loc=a, scale=a * 0.5)
@@ -129,14 +140,16 @@ def test_non_finite_values_raise_and_leave_no_stale_samples():
 
 
 def test_correlated_graph_raises_not_implemented():
+    # Correlated graphs sample now; the Student-t copula is still to port.
     a, b = JaxDistribution("norm"), JaxDistribution("norm")
     jax_sink = (a + b).correlate(a, b, corr_mat=np.array([[1.0, 0.5], [0.5, 1.0]]))
     sink = interop.from_reference(jax_sink)[jax_sink._id]
     assert tcompile.get_plan(sink).corr_vars
-    with pytest.raises(NotImplementedError, match="A6"):
-        sink.sample(100, random_state=0)
-    with pytest.raises(ValueError, match="uncorrelated"):
-        sink.sample(100, random_state=0, gc_strategy=[], executor="cuda")
+    assert sink.sample(100, random_state=0).shape == (100,)
+    with pytest.raises(NotImplementedError, match="A6b"):
+        sink.sample(100, random_state=0, correlator="tcopula")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        sink.sample_from_quantiles(np.full((20, 2), 0.5), correlator="tcopula")
 
 
 def test_cuda_executor_raises_here_and_never_runs_the_plain_version(monkeypatch):
@@ -186,6 +199,9 @@ def test_float64_mode_uses_exact_quantiles(float64):
 
 
 def test_device_is_explicit_and_defaults_to_cpu():
+    # The default is the card (a fresh process checks it in
+    # test_torch_correlation.py); these tests ask for the CPU themselves.
+    assert config.DEFAULT_DEVICE == torch.device("cuda")
     assert config.device() == torch.device("cpu")
     try:
         assert config.set_device("meta") == torch.device("meta")

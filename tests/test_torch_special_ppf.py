@@ -21,7 +21,20 @@ import torch
 from probabilit_tpu.ops import ppf as jax_ppf
 from probabilit_tpu.ops import qmc as jax_qmc
 from probabilit_tpu.ops import special as jax_special
+from probabilit_tpu_torch import config
 from probabilit_tpu_torch.ops import ppf, qmc, special
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    previous = config.device()
+    config.set_device("cpu")
+    try:
+        yield
+    finally:
+        config.set_device(previous)
+
 
 ULP_TOL = 4
 TAIL_ABS_TOL = 1e-3  # on the standard score
