@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the hand-written CUDA kernels
-and checks them.  The flagship path, ``mixed_dag_20().sample(1e8,
+Drives the port's main paths through the hand-written CUDA kernels and
+checks them: sampling, correlated sampling, the bitonic row sort, and
+streamed estimation.  The flagship path, ``mixed_dag_20().sample(1e8,
 gc_strategy=[], executor="cuda")``, runs the graph megakernel:
 
 1. prints the card's name and power limit (``nvidia-smi``);
@@ -35,13 +36,51 @@ correlation-statistics kernel and the megakernel's recolour branch:
    recoloured scores), and that the sink's mean and std through
    ``executor="cuda"`` and ``executor=None`` agree within 5 standard errors;
 10. times both kernels, their twins, both executors and the host share at
-    1e8.
+    1e8, and the recolour transform with its K x K solve on the host
+    (what ``sample`` does) and on the card.
+
+The sort path, ``ops/bitonic_sort.bitonic_sort_rows`` (kernels K3, K4 and
+K5 of ``csrc/bitonic_sort.cu``):
+
+11. sorts (50, 1e7) float32 keys carrying an int32 payload, the shape of
+    the JAX package's Iman-Conover timing, and asserts each kernel was
+    launched (1, 66 and 11 times), that the keys equal ``torch.sort``'s
+    and the payloads are a permutation, each pointing at its key; runs
+    the kernels and their twin side by side on the same padded inputs
+    and holds every one of the 78 launches against the twin bitwise (keys
+    and payloads), and the call's output against the twin's; then the
+    whole call bitwise at (3, 1e5) and (4, 1e7), and ``sort_runs`` and
+    one ``merge_stage`` alone; times the sort, each kernel's share and
+    ``torch.sort`` plus a gather of the payload at (50, 1e7) and at the
+    streamed estimator's (128, 2^17).
+
+The streamed path, ``estimate`` and ``sample_streaming``:
+
+12. ``mixed_dag_20().estimate(1e9, quantiles, cvar, histogram)`` with
+    ``executor="auto"`` must launch K1 once per 2^24-block (60 times), its
+    mean and std must agree with a single-shot ``sample(1e8)`` within 5
+    standard errors and its histogram must count n; K1 (and K2) on block
+    1 (``start`` = 2^24) must match their twins at the tolerances of
+    phases 4 and 8; ``sample_streaming(2^26, executor="cuda")`` must equal
+    ``sample(2^26)`` bitwise; the same estimate of ``mixed_correlated_50``
+    must launch K2 and K1 60 times each, and its three normal drivers,
+    streamed at 1e7 (the block program of ``sample_streaming`` with the
+    drivers kept), must carry the repaired target within 2e-3.  Each
+    estimate is timed at 1e9 with quantiles on and off, with its host
+    share (wall - kernel time) / wall; the correlated one with each
+    block's recolour system solved on the card and on the host.
 
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
 instructions at 132 SMs x 64 lanes x 1.98 GHz; float32 operations, an FMA
-counting two, at 67 TFLOP/s), counted per sample by ``OP_COST`` below.  The last line is
+counting two, at 67 TFLOP/s), counted per sample by ``OP_COST`` below.
+The sort kernels' entries are per call of ``bitonic_sort_rows`` at
+(50, 1e7), summed over each kernel's launches: its time, its twin's for
+the same steps, and its bound, which counts for every launch one read
+of the padded keys and payloads and one write of each slot that launch
+changes (the kernels work in place); the library call is ``torch.sort``
+plus a gather for the whole call.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero.  It needs the repository beside it and a CUDA card.
 """
@@ -65,7 +104,12 @@ STATS_TOL = 1e-5  # per sum of n terms of magnitude ~1: |kernel - twin| <= STATS
 CORR_TOL = 2e-3
 KS_P_MIN = 0.01
 SE_MAX = 5.0
-KERNELS = ("graph_megakernel", "corr_stats")
+KERNELS = ("graph_megakernel", "corr_stats", "bitonic_sort")
+SORT_MAIN = (50, 10_000_000)  # the JAX package's Iman-Conover timing shape
+SORT_ROWS = (128, 1 << 17)  # one 2^24 block of the streamed quantile estimator
+SORT_CHECKS = ((3, 100_000), (4, 10_000_000))
+N_STREAM = 1_000_000_000
+BLOCK = 1 << 24
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -179,9 +223,13 @@ def main():
     build_s = time.perf_counter() - t0
     for name, (lib_path, log) in built.items():
         lines = log.splitlines()
-        emit({"phase": "build", "kernel": name, "seconds": build_s, "library": lib_path.name,
-              "spill_lines": [line for line in lines if "spill" in line],
-              "ptxas": [line for line in lines if "ptxas" in line and "spill" not in line]})
+        record = {"phase": "build", "kernel": name, "seconds": build_s, "library": lib_path.name,
+                  "spill_lines": [line for line in lines if "spill" in line],
+                  "ptxas": [line for line in lines if "ptxas" in line and "spill" not in line]}
+        if name == "bitonic_sort":  # K3 and K5 hold one run: 8192 keys and payloads
+            record["dynamic_smem_bytes"] = {
+                f"{k}-byte keys, {p}-byte payload": 8192 * (k + p) for k in (4, 8) for p in (4, 8)}
+        emit(record)
 
     config.set_device("cuda")
     config.set_dtype(torch.float32)
@@ -280,6 +328,8 @@ def main():
     del out
 
     corr = correlated_path(torch, np, cuda_exec, _compile, smi)
+    sort = sort_path(torch, np, smi)
+    stream = streamed_path(torch, np, cuda_exec, _compile, smi)
 
     emit({"kernels": [
         {
@@ -287,8 +337,8 @@ def main():
             "route": "cuda",
             "source": "probabilit_tpu_torch/csrc/graph_megakernel.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
-            "launches": launches + corr["k1_launches"],
-            "max_abs_err": max(main_err, corr["k1_err"]),
+            "launches": launches + corr["k1_launches"] + stream["k1_launches"],
+            "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"]),
             "ms": kernel_ms,
             "plain_ms": twin_ms,
             "bound_ms": main_bound,
@@ -300,14 +350,15 @@ def main():
             "route": "cuda",
             "source": "probabilit_tpu_torch/csrc/corr_stats.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:577",
-            "launches": corr["k2_launches"],
-            "max_abs_err": corr["k2_err"],
+            "launches": corr["k2_launches"] + stream["k2_launches"],
+            "max_abs_err": max(corr["k2_err"], stream["k2_err"]),
             "ms": corr["k2_ms"],
             "plain_ms": corr["k2_twin_ms"],
             "bound_ms": corr["k2_bound_ms"],
             "bound_by": corr["k2_bound_by"],
             "library_ms": None,
         },
+        *sort["kernels"],
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -407,8 +458,13 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     k1_ms = cuda_time_ms(lambda: cuda_exec.run(main_tape, words, N_MAIN, ab))
     k1_twin_ms = cuda_time_ms(
         lambda: cuda_exec.run_reference(main_tape, words, N_MAIN, ab), repeats=3)
-    transform_ms = cuda_time_ms(
-        lambda: cuda_exec.recolor_transform(plan, words, N_MAIN, device="cuda"))
+    transform_ms, oneshot_ms = {}, {}
+    for solve in ("host", "device"):  # sample() solves on the host
+        transform_ms[solve] = cuda_time_ms(
+            lambda: cuda_exec.recolor_transform(plan, words, N_MAIN, "cuda", solve=solve))
+        oneshot_ms[solve] = cuda_time_ms(lambda: cuda_exec.run(
+            main_tape, words, N_MAIN,
+            cuda_exec.recolor_transform(plan, words, N_MAIN, "cuda", solve=solve))[1].item())
     cuda_ms = cuda_time_ms(
         lambda: sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda"))
     plain_ms = cuda_time_ms(
@@ -420,7 +476,11 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     k1_bound_ms, k1_bound_by = bound(N_MAIN, 4 * N_MAIN, k1_cost)
     emit({"phase": "correlated_timing", "card": smi, "n": N_MAIN, "k": K,
           "stats_kernel_ms": k2_ms, "stats_twin_ms": k2_twin_ms,
-          "recolor_transform_ms": transform_ms, "solve_and_sync_ms": transform_ms - k2_ms,
+          "recolor_transform_ms": transform_ms["host"],
+          "solve_and_sync_ms": transform_ms["host"] - k2_ms,
+          "recolor_transform_device_solve_ms": transform_ms["device"],
+          "transform_and_megakernel_ms": oneshot_ms["host"],
+          "transform_and_megakernel_device_solve_ms": oneshot_ms["device"],
           "megakernel_ms": k1_ms, "megakernel_twin_ms": k1_twin_ms,
           "sample_cuda_ms": cuda_ms, "sample_plain_ms": plain_ms,
           "host_ms": host_ms, "host_share": host_ms / cuda_ms,
@@ -435,6 +495,354 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k1_err": k1_err,
             "k2_err": k2_err, "k2_ms": k2_ms, "k2_twin_ms": k2_twin_ms,
             "k2_bound_ms": k2_bound_ms, "k2_bound_by": k2_bound_by}
+
+
+def cuda_events(torch, n):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def sorted_pairs_ok(torch, keys, payload, got):
+    """Keys equal torch.sort's, each int32 payload (the column) points at
+    its key, and the payloads are a permutation of the input's."""
+    sk, sp = got
+    return (bool(torch.equal(sk, torch.sort(keys, dim=1).values))
+            and bool(torch.equal(torch.gather(keys, 1, sp.long()), sk))
+            and bool(torch.equal(torch.sort(sp, dim=1).values, torch.sort(payload, dim=1).values)))
+
+
+def sort_call_ms(torch, bs, keys, payload, repeats=5):
+    """Median per-kernel device ms of one ``bitonic_sort_rows`` call, from
+    CUDA events around each launch, after one warm-up call."""
+    K, N = keys.shape
+    per_kernel = {"sort_runs": [], "block_exchange": [], "tail": []}
+    for rep in range(repeats + 1):
+        kp, pp = bs._pad(keys, payload)
+        n_blocks = kp.shape[1] // bs.RUN
+        marks = []  # (kernel, start event, stop event)
+
+        def timed(name, fn, *args):
+            start, stop = cuda_events(torch, 2)
+            start.record()
+            fn(*args)
+            stop.record()
+            marks.append((name, start, stop))
+
+        timed("sort_runs", bs._sort_runs_, kp, pp)
+        for stage in range(bs.RUN_LOG + 1, (n_blocks * bs.RUN).bit_length()):
+            for j in range(stage - 1, bs.RUN_LOG - 1, -1):
+                timed("block_exchange", bs._exchange_, kp, pp, K, n_blocks, stage, j)
+            timed("tail", bs._tail_, kp, pp, K, n_blocks, stage)
+        torch.cuda.synchronize()
+        if rep:
+            sums = dict.fromkeys(per_kernel, 0.0)
+            for name, start, stop in marks:
+                sums[name] += start.elapsed_time(stop)
+            for name, value in sums.items():
+                per_kernel[name].append(value)
+        del kp, pp
+    return {name: statistics.median(v) for name, v in per_kernel.items()}
+
+
+def sort_lockstep(torch, bs, keys, payload, got):
+    """Run the kernels and their plain twin side by side on the padded
+    inputs of one ``bitonic_sort_rows`` call, and hold the buffers after
+    every launch against the twin's bitwise (keys and payloads), and the
+    twin's final rows against ``got``, that call's output.
+
+    Returns per kernel: the twin's ms for the same steps (CUDA events),
+    the max |kernel - twin| over its launches, and the bytes its launches
+    must move: each launch reads the padded keys and payloads once and
+    writes the slots whose key or payload it changes (a slot it leaves
+    alone needs no write; these kernels work in place).
+    """
+    K, N = keys.shape
+    kp, pp = bs._pad(keys, payload)  # the kernels' buffers
+    tk, tp = kp.clone(), pp.clone()  # the twin's
+    n_blocks = kp.shape[1] // bs.RUN
+    length = n_blocks * bs.RUN
+    slot = kp.element_size() + pp.element_size()
+    out = {name: {"twin_ms": 0.0, "max_abs_err": 0.0, "bytes": 0}
+           for name in ("sort_runs", "block_exchange", "tail")}
+
+    def runs_twin(k, p):
+        k, p = bs.sort_runs_reference(k.reshape(-1, bs.SUB, bs.LANES),
+                                      p.reshape(-1, bs.SUB, bs.LANES))
+        return k.reshape(K, length), p.reshape(K, length)
+
+    def steps_twin(stage, js):
+        def twin(k, p):
+            for j in js:
+                k, p = bs._step(k, p, j, bs._desc_bits(length, stage, j, k.device))
+            return k, p
+        return twin
+
+    def launch(name, kernel, twin):
+        nonlocal tk, tp
+        before_k, before_p = tk, tp
+        start, stop = cuda_events(torch, 2)
+        start.record()
+        tk, tp = twin(tk, tp)
+        stop.record()
+        kernel()
+        torch.cuda.synchronize()
+        record = out[name]
+        record["twin_ms"] += start.elapsed_time(stop)
+        same = torch.equal(kp, tk) and torch.equal(pp, tp)
+        check(same, f"{name} at ({K}, {N}): kernel differs from its twin, "
+                    f"{int((kp != tk).sum())} keys and {int((pp != tp).sum())} payloads")
+        changed = int(((tk != before_k) | (tp != before_p)).sum())
+        record["bytes"] += kp.numel() * slot + changed * slot
+        del before_k, before_p
+
+    launch("sort_runs", lambda: bs._sort_runs_(kp, pp), runs_twin)
+    for stage in range(bs.RUN_LOG + 1, length.bit_length()):
+        for j in range(stage - 1, bs.RUN_LOG - 1, -1):
+            launch("block_exchange",
+                   lambda: bs._exchange_(kp, pp, K, n_blocks, stage, j), steps_twin(stage, [j]))
+        launch("tail", lambda: bs._tail_(kp, pp, K, n_blocks, stage),
+               steps_twin(stage, range(bs.RUN_LOG - 1, -1, -1)))
+    check(torch.equal(tk[:, :N], got[0]) and torch.equal(tp[:, :N], got[1]),
+          f"({K}, {N}): bitonic_sort_rows differs from its twin")
+    del kp, pp, tk, tp
+    return out
+
+
+def sort_path(torch, np, smi):
+    """Phase 11: the sort kernels K3-K5 through ``bitonic_sort_rows``."""
+    from probabilit_tpu_torch.ops import bitonic_sort as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def inputs(K, N):
+        keys = torch.randn((K, N), generator=gen, device="cuda")
+        keys[:, ::7] = torch.floor(keys[:, ::7] * 4)  # duplicate keys (no -0.0)
+        payload = torch.arange(N, dtype=torch.int32, device="cuda").expand(K, N).contiguous()
+        return keys, payload
+
+    # The main path: the Iman-Conover shape, through the entry point.
+    keys, payload = inputs(*SORT_MAIN)
+    bs.RUNS_LAUNCHES = bs.EXCHANGE_LAUNCHES = bs.TAIL_LAUNCHES = 0
+    got = bs.bitonic_sort_rows(keys, payload)
+    torch.cuda.synchronize()
+    launches = {"sort_runs": bs.RUNS_LAUNCHES, "block_exchange": bs.EXCHANGE_LAUNCHES,
+                "tail": bs.TAIL_LAUNCHES}
+    check(launches == {"sort_runs": 1, "block_exchange": 66, "tail": 11},
+          f"sort launches per call: {launches}")
+    check(sorted_pairs_ok(torch, keys, payload, got),
+          "(50, 1e7): keys unsorted, payloads off their keys or not a permutation")
+    emit({"phase": "sort_main_path", "shape": SORT_MAIN, "launches": launches})
+
+    # Each kernel against its twin, bitwise, launch by launch on the main
+    # inputs; then the same whole call at the check shapes, and alone.
+    main = sort_lockstep(torch, bs, keys, payload, got)
+    del got
+    torch.cuda.empty_cache()
+    emit({"phase": "sort_vs_twin_main", "shape": SORT_MAIN, "bitwise_equal": True,
+          **{f"{name}_{key}": value for name, record in main.items()
+             for key, value in record.items()}})
+    for K, N in SORT_CHECKS:
+        k, p = inputs(K, N)
+        got = bs.bitonic_sort_rows(k, p)
+        ref = bs.bitonic_sort_rows_reference(k, p)
+        key_err = (got[0] - ref[0]).abs().max().item()
+        payload_diff = int((got[1] != ref[1]).sum())
+        check(torch.equal(got[0], ref[0]) and payload_diff == 0,
+              f"({K}, {N}): kernels vs twin, key err {key_err}, {payload_diff} payloads differ")
+        check(sorted_pairs_ok(torch, k, p, got), f"({K}, {N}): keys unsorted or payloads off")
+        emit({"phase": "sort_vs_twin", "shape": [K, N], "n_blocks": bs.padded_blocks(N),
+              "max_abs_err": key_err, "payloads_differing": payload_diff})
+        del got, ref, k, p
+    k, p = inputs(64, 8192)
+    runs = bs.sort_runs(k.reshape(64, bs.SUB, bs.LANES), p.reshape(64, bs.SUB, bs.LANES))
+    runs_ref = bs.sort_runs_reference(k.reshape(64, bs.SUB, bs.LANES), p.reshape(64, bs.SUB, bs.LANES))
+    blocks = [t.reshape(2, 32, bs.SUB, bs.LANES) for t in runs]
+    merged = bs.merge_stage(*blocks, 18)
+    merged_ref = bs.merge_stage_reference(*blocks, 18)
+    alone = all(torch.equal(a, b) for a, b in zip(runs + merged, runs_ref + merged_ref))
+    check(alone, "sort_runs or merge_stage alone differs from its twin")
+    emit({"phase": "sort_kernels_alone", "sort_runs_runs": 64, "merge_stage": 18,
+          "merge_shape": [2, 32, bs.SUB, bs.LANES], "bitwise_equal": alone})
+
+    # Timings on this card, each beside torch.sort (unstable) and a gather.
+    def library(k, p):
+        values, idx = torch.sort(k, dim=1, stable=False)
+        return values, torch.gather(p, 1, idx)
+
+    timing = {}
+    for shape in (SORT_MAIN, SORT_ROWS):
+        if shape != SORT_MAIN:
+            keys, payload = inputs(*shape)
+        K, N = shape
+        n_pad = bs.padded_blocks(N) * bs.RUN
+        bs.RUNS_LAUNCHES = bs.EXCHANGE_LAUNCHES = bs.TAIL_LAUNCHES = 0
+        bs.bitonic_sort_rows(keys, payload)
+        per_call = [bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES]
+        call_ms = cuda_time_ms(lambda: bs.bitonic_sort_rows(keys, payload))
+        library_ms = cuda_time_ms(lambda: library(keys, payload))
+        passes = 1 + sum(s - 13 + 1 for s in range(14, n_pad.bit_length()))
+        padded_bytes = K * n_pad * 8
+        timing[shape] = {
+            "shape": [K, N], "card": smi, "call_ms": call_ms, "library_ms": library_ms,
+            "passes": passes, "launches_per_call_k3_k4_k5": per_call,
+            "read_write_bound_ms": 2 * K * N * 8 / HBM_BYTES_PER_S * 1e3,
+            "network_bound_ms": passes * 2 * padded_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+        if shape == SORT_MAIN:
+            timing[shape]["kernel_ms"] = sort_call_ms(torch, bs, keys, payload)
+            timing[shape]["network_needed_ms"] = sum(
+                record["bytes"] for record in main.values()) / HBM_BYTES_PER_S * 1e3
+        emit({"phase": "sort_timing", **timing[shape]})
+        del keys, payload
+    torch.cuda.empty_cache()
+
+    kernel_ms = timing[SORT_MAIN]["kernel_ms"]
+    library_ms = timing[SORT_MAIN]["library_ms"]
+    sources = {"sort_runs": 116, "block_exchange": 171, "tail": 195}
+    return {"kernels": [
+        {
+            "name": f"bitonic_{name}",
+            "route": "cuda",
+            "source": "probabilit_tpu_torch/csrc/bitonic_sort.cu",
+            "replaces": f"probabilit_tpu/ops/pallas_sort.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": main[name]["max_abs_err"],
+            "ms": kernel_ms[name],
+            "plain_ms": main[name]["twin_ms"],
+            "bound_ms": main[name]["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": library_ms,
+        }
+        for name, line in sources.items()
+    ]}
+
+
+def streamed_path(torch, np, cuda_exec, _compile, smi):
+    """Phase 12: ``estimate`` and ``sample_streaming`` on the megakernel."""
+    from probabilit_tpu_torch.engine import streaming
+    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50, mixed_dag_20
+
+    n_blocks = -(-N_STREAM // BLOCK)
+    options = {"quantiles": (0.5, 0.99), "cvar": (0.99,)}
+    shipped_solve = streaming.RECOLOR_SOLVE
+    results = {}
+    stream_errs = {"k1": 0.0, "k2": 0.0}
+    for name, build, histogram in (("mixed_dag_20", mixed_dag_20, (-2e4, 1.5e5, 100)),
+                                   ("mixed_correlated_50", mixed_correlated_50, (0.0, 100.0, 100))):
+        sink = build()
+        correlated = name != "mixed_dag_20"
+        cuda_exec.LAUNCHES = 0
+        cuda_exec.STATS_LAUNCHES = 0
+        st = sink.estimate(N_STREAM, random_state=0, histogram=histogram, **options)
+        k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+        check(k1 == n_blocks, f"{name}: K1 ran {k1} times for {n_blocks} blocks")
+        check(k2 == (n_blocks if correlated else 0), f"{name}: K2 ran {k2} times")
+        h = st["histogram"]
+        counted = int(h["counts"].sum() + h["underflow"] + h["overflow"])
+        check(counted == N_STREAM, f"{name}: the histogram counts {counted}")
+        x = sink.sample(N_MAIN, random_state=1, gc_strategy=[], executor="cuda").double()
+        m, sd = x.mean().item(), x.std().item()
+        kurt = ((x - m) ** 4).mean().item() / sd**4 - 3.0
+        del x
+        se_mean = np.hypot(st["sem"], sd / np.sqrt(N_MAIN))
+        se_std = np.hypot(st["std"] * np.sqrt((kurt + 2) / (4 * N_STREAM)),
+                          sd * np.sqrt((kurt + 2) / (4 * N_MAIN)))
+        check(abs(st["mean"] - m) <= SE_MAX * se_mean, f"{name}: mean {st['mean']} vs {m}")
+        check(abs(st["std"] - sd) <= SE_MAX * se_std, f"{name}: std {st['std']} vs {sd}")
+        emit({"phase": "streamed_estimate", "graph": name, "n": N_STREAM, "block": BLOCK,
+              "k1_launches": k1, "k2_launches": k2, "mean": st["mean"], "std": st["std"],
+              "single_shot_mean": m, "single_shot_std": sd,
+              "mean_diff_se": abs(st["mean"] - m) / se_mean,
+              "std_diff_se": abs(st["std"] - sd) / se_std,
+              **{k: st[k] for k in ("q0.5", "q0.99", "cvar0.99", "min", "max")},
+              "histogram_counted": counted})
+        results[name] = (k1, k2)
+
+        # The kernels of one streamed block (start = BLOCK) against their
+        # twins, then timed alone for the host share.
+        plan = _compile.get_plan(sink)
+        tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, {sink._id})).to("cuda")
+        words = cuda_exec.seed_words(0)
+        record = {"phase": "streamed_kernels_vs_twin", "graph": name, "n": BLOCK, "start": BLOCK}
+        ab = None
+        if correlated:
+            columns = [plan.col_of[v._id] for v in plan.corr_vars]
+            sums = cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK)
+            sums_twin = cuda_exec.corr_stats_reference(words, BLOCK, columns, "cuda", start=BLOCK)
+            sums_first = cuda_exec.corr_stats_reference(words, BLOCK, columns, "cuda")
+            k2_err = (sums - sums_twin).abs().max().item()
+            check(k2_err <= STATS_TOL * BLOCK,
+                  f"{name}: statistics kernel at start {BLOCK} vs twin {k2_err} > {STATS_TOL} * n")
+            record.update(k2_max_abs_err=k2_err, k2_tolerance=STATS_TOL * BLOCK,
+                          k2_twin_change_from_block_0=(sums_twin - sums_first).abs().max().item())
+            stream_errs["k2"] = max(stream_errs["k2"], k2_err)
+            ab = cuda_exec.recolor_transform(plan, words, BLOCK, start=BLOCK, solve=shipped_solve)
+            del sums, sums_twin, sums_first
+        got, _ = cuda_exec.run(tape, words, BLOCK, ab, start=BLOCK)
+        twin = cuda_exec.run_reference(tape, words, BLOCK, ab, start=BLOCK)
+        k1_err = (got - twin).abs().max().item()
+        scale = twin.abs().max().item()
+        check(k1_err <= REL_TOL * scale,
+              f"{name}: megakernel at start {BLOCK} vs twin {k1_err} > {REL_TOL} * {scale}")
+        record.update(k1_max_abs_err=k1_err, k1_max_abs_twin=scale, k1_tolerance=REL_TOL * scale)
+        stream_errs["k1"] = max(stream_errs["k1"], k1_err)
+        emit(record)
+        del got, twin
+        k1_ms = cuda_time_ms(lambda: cuda_exec.run(tape, words, BLOCK, ab, start=BLOCK))
+        k2_ms = 0.0
+        if correlated:
+            k2_ms = cuda_time_ms(
+                lambda: cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK))
+        kernel_ms = n_blocks * (k1_ms + k2_ms)
+
+        # Timings at 1e9, quantiles (and CVaR) on and off; a correlated
+        # graph with the recolour system solved on the card and on the
+        # host, interleaved.
+        solves = ("device", "host") if correlated else (streaming.RECOLOR_SOLVE,)
+        for label, opts in (("quantiles_on", options), ("quantiles_off", {})):
+            walls = {solve: [] for solve in solves}
+            try:
+                for _ in range(3):
+                    for solve in solves:
+                        streaming.RECOLOR_SOLVE = solve
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        sink.estimate(N_STREAM, random_state=0, **opts)  # ends in a host read
+                        walls[solve].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                streaming.RECOLOR_SOLVE = shipped_solve
+            for solve in solves:
+                wall = statistics.median(walls[solve])
+                emit({"phase": "streamed_timing", "graph": name, "card": smi, "n": N_STREAM,
+                      "options": label, "solve": solve if correlated else None,
+                      "shipped": solve == shipped_solve, "wall_ms": wall,
+                      "samples_per_sec": N_STREAM / (wall * 1e-3),
+                      "k1_block_ms": k1_ms, "k2_block_ms": k2_ms, "kernel_ms": kernel_ms,
+                      "host_share": (wall - kernel_ms) / wall})
+
+        if correlated:
+            normals = [v for v in plan.corr_vars if v.distr == "norm"]
+            idx = [plan.corr_vars.index(v) for v in normals]
+            _, run = streaming._block_program(sink, 1 << 22, "cuda", extra=tuple(normals))
+            blocks = [torch.stack(run(b, 2)[1]) for b in range(-(-N_MOMENTS // (1 << 22)))]
+            drivers = torch.cat(blocks, dim=1)[:, :N_MOMENTS].double()
+            got_corr = torch.corrcoef(drivers).cpu().numpy()
+            corr_err = float(np.abs(got_corr - plan.corr_matrix[np.ix_(idx, idx)]).max())
+            check(corr_err <= CORR_TOL, f"streamed normal drivers off the target by {corr_err}")
+            emit({"phase": "streamed_correlation", "n": N_MOMENTS, "block": 1 << 22,
+                  "corr_max_abs_err": corr_err, "corr_tolerance": CORR_TOL})
+            del drivers, blocks
+        else:
+            n = 1 << 26
+            streamed = sink.sample_streaming(n, block_size=BLOCK, random_state=3, executor="cuda")
+            single = sink.sample(n, random_state=3, gc_strategy=[], executor="cuda").cpu().numpy()
+            equal = bool(np.array_equal(streamed, single))
+            check(equal, "sample_streaming(2^26) differs from sample(2^26)")
+            emit({"phase": "streamed_equals_single_shot", "n": n, "block": BLOCK,
+                  "bitwise_equal": equal})
+            del streamed, single
+    return {"k1_launches": sum(k1 for k1, _ in results.values()),
+            "k2_launches": sum(k2 for _, k2 in results.values()),
+            "k1_err": stream_errs["k1"], "k2_err": stream_errs["k2"]}
 
 
 if __name__ == "__main__":

@@ -2,13 +2,13 @@
 //
 // Replaces probabilit_tpu/engine/pallas_exec.py::_make_stats_kernel (the
 // TPU's pass-1 kernel, called from _recolor_transform).  For every sample
-// i < n it redraws the uniforms of the K correlated columns from the same
-// Philox4x32-10 stream as graph_megakernel.cu (counter = (i mod 2^32,
-// i >> 32, column, 0)), turns them into normal scores z = ndtri_fast(u),
-// and sums z_k and z_j z_k (upper triangle, row-major): P = K + K(K+1)/2
-// sums.  engine/cuda_exec.py::recolor_transform reduces the per-block
-// partials in float64 and solves the K x K recolour transform (A, b) that
-// the megakernel's RECOLOR instructions apply.
+// i in [start, start + n) it redraws the uniforms of the K correlated
+// columns from the same Philox4x32-10 stream as graph_megakernel.cu
+// (counter = (i mod 2^32, i >> 32, column, 0)), turns them into normal
+// scores z = ndtri_fast(u), and sums z_k and z_j z_k (upper triangle,
+// row-major): P = K + K(K+1)/2 sums.  engine/cuda_exec.py::recolor_transform
+// reduces the per-block partials in float64 and solves the K x K recolour
+// transform (A, b) that the megakernel's RECOLOR instructions apply.
 //
 // Unlike the TPU kernel, it draws exactly the columns plan.col_of[v] of
 // the correlated variables (the counter carries the column), so the main
@@ -44,8 +44,8 @@ constexpr int kWarps = kThreads / 32;
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-    corr_stats(const int* __restrict__ columns, uint32_t k0, uint32_t k1, int64_t n,
-               float* __restrict__ partials) {
+    corr_stats(const int* __restrict__ columns, uint32_t k0, uint32_t k1, int64_t start,
+               int64_t n, float* __restrict__ partials) {
   static_assert(K >= 1 && K <= kMaxCorr, "1..kMaxCorr correlated columns");
   constexpr int P = K + K * (K + 1) / 2;
   uint32_t col[K];
@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       z[k] = sampling_math::ndtri_fast(sampling_math::bits_to_open_unit(
-          sampling_math::philox_word0(static_cast<uint64_t>(i), col[k], k0, k1)));
+          sampling_math::philox_word0(static_cast<uint64_t>(start + i), col[k], k0, k1)));
       acc[k] += z[k];
     }
 #pragma unroll
@@ -110,9 +110,9 @@ int blocks_for(int64_t n, int* blocks) {
 }
 
 template <int K>
-int launch(const int* columns, uint32_t k0, uint32_t k1, int64_t n, float* partials,
-           int blocks, cudaStream_t stream) {
-  corr_stats<K><<<blocks, kThreads, 0, stream>>>(columns, k0, k1, n, partials);
+int launch(const int* columns, uint32_t k0, uint32_t k1, int64_t start, int64_t n,
+           float* partials, int blocks, cudaStream_t stream) {
+  corr_stats<K><<<blocks, kThreads, 0, stream>>>(columns, k0, k1, start, n, partials);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -151,13 +151,15 @@ extern "C" int corr_stats_grid(int k, int64_t n, int* blocks) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // `columns` is int32 (k,) on the device, `partials` float32
-// (blocks, k + k(k+1)/2), `blocks` as corr_stats_grid gave it.
+// (blocks, k + k(k+1)/2), `blocks` as corr_stats_grid gave it; the sums
+// run over samples start..start+n-1.
 extern "C" int corr_stats_launch(const void* columns, int k, uint32_t seed0, uint32_t seed1,
-                                 int64_t n, void* partials, int blocks, void* stream) {
-  if (n <= 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-#define CORR_STATS_LAUNCH(KK)                                                              \
-  launch<KK>(static_cast<const int*>(columns), seed0, seed1, n, static_cast<float*>(partials), \
-             blocks, static_cast<cudaStream_t>(stream))
+                                 int64_t start, int64_t n, void* partials, int blocks,
+                                 void* stream) {
+  if (n <= 0 || start < 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+#define CORR_STATS_LAUNCH(KK)                                                          \
+  launch<KK>(static_cast<const int*>(columns), seed0, seed1, start, n,                 \
+             static_cast<float*>(partials), blocks, static_cast<cudaStream_t>(stream))
   CORR_STATS_DISPATCH(k, CORR_STATS_LAUNCH)
 #undef CORR_STATS_LAUNCH
 }

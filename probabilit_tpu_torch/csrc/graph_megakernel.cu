@@ -22,8 +22,10 @@
 // instruction and slot traffic; per-graph code generation is later work.
 //
 // Random bits: Philox4x32-10 (Salmon et al., SC'11), key = the two seed
-// words, counter = (i mod 2^32, i >> 32, column, 0) for global sample i;
-// word 0 is used.  The stream depends on the seed only, not on the grid.
+// words, counter = (i mod 2^32, i >> 32, column, 0) for global sample
+// i = start + (row of the output); word 0 is used.  The stream depends on
+// the seed only, not on the grid, so a streamed block that starts at
+// sample b*B draws rows b*B.. of the seed's one stream.
 // ops/philox.py computes the same words in PyTorch.
 //
 // Correlated graphs (the recolour branch of the TPU kernel,
@@ -166,7 +168,7 @@ __device__ __forceinline__ float sign(float x) {
 __global__ void __launch_bounds__(kThreads)
     graph_megakernel(const int* __restrict__ code, const float* __restrict__ imm,
                      int n_instr, const float* __restrict__ ab, int n_corr, uint32_t k0,
-                     uint32_t k1, int64_t n, float* __restrict__ out,
+                     uint32_t k1, int64_t start, int64_t n, float* __restrict__ out,
                      int* __restrict__ nonfinite) {
   // The tape, sized at launch: n_instr * kFields ints, n_instr floats,
   // then the recolour transform: A (n_corr x n_corr, row-major) and b.
@@ -198,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
       float r;
       switch (op) {
         case OP_DRAW:
-          r = bits_to_open_unit(philox_word0(static_cast<uint64_t>(i),
+          r = bits_to_open_unit(philox_word0(static_cast<uint64_t>(start + i),
                                              static_cast<uint32_t>(ins[2]), k0, k1));
           break;
         case OP_LOADK: r = s_imm[p]; break;
@@ -295,12 +297,13 @@ __global__ void __launch_bounds__(kThreads)
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `code` is
 // int32 (n_instr, 6), `imm` float32 (n_instr,), `ab` float32
 // (n_corr^2 + n_corr,) or null when n_corr is 0, `out` float32
-// (n_keep, n), `nonfinite` one int32 that the caller has zeroed.
+// (n_keep, n) for samples start..start+n-1, `nonfinite` one int32 that
+// the caller has zeroed.
 extern "C" int graph_megakernel_launch(const void* code, const void* imm, int n_instr,
                                        const void* ab, int n_corr, uint32_t seed0,
-                                       uint32_t seed1, int64_t n, void* out,
+                                       uint32_t seed1, int64_t start, int64_t n, void* out,
                                        void* nonfinite, int blocks, void* stream) {
-  if (n_instr < 0 || n_instr > kMaxInstr || n < 0 || blocks <= 0 || n_corr < 0 ||
+  if (n_instr < 0 || n_instr > kMaxInstr || n < 0 || start < 0 || blocks <= 0 || n_corr < 0 ||
       n_corr > kMaxCorr || (n_corr > 0 && ab == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -309,7 +312,7 @@ extern "C" int graph_megakernel_launch(const void* code, const void* imm, int n_
                       static_cast<size_t>(n_corr * n_corr + n_corr) * sizeof(float);
   graph_megakernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(code), static_cast<const float*>(imm), n_instr,
-      static_cast<const float*>(ab), n_corr, seed0, seed1, n, static_cast<float*>(out),
+      static_cast<const float*>(ab), n_corr, seed0, seed1, start, n, static_cast<float*>(out),
       static_cast<int*>(nonfinite));
   return static_cast<int>(cudaGetLastError());
 }

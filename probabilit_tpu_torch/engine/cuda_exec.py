@@ -24,7 +24,11 @@ column, kept in the kernel's score registers, not in a slot),
 recolour transform ``(A, b)`` comes from a second kernel,
 ``csrc/corr_stats.cu``, over the same Philox bits: ``recolor_transform``
 launches it, reduces its per-block partials in float64 and solves the
-K x K system on the host (the path's one host sync).
+K x K system in float64, on the host (``solve_recolor``, one sync) or on
+the same device (``solve_recolor_device``, no sync), as its caller asks.
+Every entry point takes ``start``, the first sample index: a
+streamed block b of size B draws samples ``[b*B, b*B + B)`` of the
+seed's one Philox stream.
 
 ``run`` and ``corr_stats`` are the wrappers: on tensors that lie on the
 CPU they use the plain versions (``run_reference``,
@@ -70,6 +74,8 @@ __all__ = [
     "run",
     "corr_stats_reference",
     "corr_stats",
+    "solve_recolor",
+    "solve_recolor_device",
     "recolor_transform",
 ]
 
@@ -533,14 +539,15 @@ def run_tape(tape, U, ab=None):
     return out
 
 
-def run_reference(tape, seed_words, n, ab=None):
+def run_reference(tape, seed_words, n, ab=None, start=0):
     """The plain twin of the kernel: the same bits, the same tape."""
-    U = philox_uniforms(seed_words, n, tape.d, device=tape.code.device)
+    U = philox_uniforms(seed_words, n, tape.d, device=tape.code.device, start=start)
     return run_tape(tape, U, ab)
 
 
-def run(tape, seed_words, n, ab=None):
-    """Sample ``n`` rows of ``tape``; returns ``(out, nonfinite)``.
+def run(tape, seed_words, n, ab=None, start=0):
+    """Sample rows ``start .. start + n - 1`` of ``tape``; returns
+    ``(out, nonfinite)``.
 
     ``out`` is ``(n_keep, n)`` float32 on the tape's device; ``nonfinite``
     is an int32 tensor, nonzero when any stored value is not finite.  A
@@ -552,7 +559,7 @@ def run(tape, seed_words, n, ab=None):
     device = tape.code.device
     _check_ab(tape, ab)
     if device.type == "cpu":
-        out = run_reference(tape, seed_words, n, ab)
+        out = run_reference(tape, seed_words, n, ab, start)
         return out, (~torch.isfinite(out)).any().to(torch.int32).reshape(1)
     issue = environment_issue(device)
     if issue is not None:
@@ -562,6 +569,8 @@ def run(tape, seed_words, n, ab=None):
         or tape.n_corr > MAX_CORR_K
     ):
         raise ValueError("The tape exceeds the kernel's caps.")
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}.")
     code = tape.code.to(torch.int32).contiguous()
     imm = tape.imm.to(torch.float32).contiguous()
     if tape.n_corr:
@@ -573,7 +582,7 @@ def run(tape, seed_words, n, ab=None):
     err = _megakernel()(
         code.data_ptr(), imm.data_ptr(), tape.n_instr,
         ab.data_ptr() if tape.n_corr else None, tape.n_corr,
-        seed_words[0], seed_words[1], n,
+        seed_words[0], seed_words[1], start, n,
         out.data_ptr(), flag.data_ptr(), blocks,
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -590,7 +599,7 @@ def _megakernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -603,25 +612,28 @@ def _stats_width(k):
     return k + k * (k + 1) // 2
 
 
-def corr_stats_reference(seed_words, n, columns, device="cpu", chunk=1 << 22):
+def corr_stats_reference(seed_words, n, columns, device="cpu", chunk=1 << 22, start=0):
     """The plain twin of the statistics kernel: float64 ``(P,)`` sums of
     z_k and of z_j z_k (upper triangle, row-major) over the samples
-    ``i < n``, with z = ``ndtri_fast`` of the kernel's uniforms of
-    ``columns``."""
+    ``start <= i < start + n``, with z = ``ndtri_fast`` of the kernel's
+    uniforms of ``columns``."""
     k = len(columns)
     iu = torch.triu_indices(k, k, device=device)
     sums = torch.zeros(_stats_width(k), dtype=torch.float64, device=device)
-    for start in range(0, n, chunk):
-        rows = min(chunk, n - start)
-        U = philox_uniforms(seed_words, rows, k, device=device, columns=columns, start=start)
+    for offset in range(0, n, chunk):
+        rows = min(chunk, n - offset)
+        U = philox_uniforms(
+            seed_words, rows, k, device=device, columns=columns, start=start + offset
+        )
         z = _special.ndtri_fast(U).double()
         sums[:k] += z.sum(dim=0)
         sums[k:] += (z.T @ z)[iu[0], iu[1]]
     return sums
 
 
-def corr_stats(seed_words, n, columns, device):
-    """The statistics of ``columns`` over ``n`` samples, float64 ``(P,)``.
+def corr_stats(seed_words, n, columns, device, start=0):
+    """The statistics of ``columns`` over samples ``start .. start + n - 1``,
+    float64 ``(P,)``.
 
     On the CPU the plain twin; on a CUDA device the kernel
     (``csrc/corr_stats.cu``), whose per-block float32 partials are summed
@@ -630,18 +642,18 @@ def corr_stats(seed_words, n, columns, device):
     global STATS_LAUNCHES
     device = torch.device(device)
     if device.type == "cpu":
-        return corr_stats_reference(seed_words, n, columns, device)
+        return corr_stats_reference(seed_words, n, columns, device, start=start)
     issue = environment_issue(device)
     if issue is not None:
         raise RuntimeError(issue)
     k = len(columns)
-    if not 1 <= k <= MAX_CORR_K or n <= 0:
-        raise ValueError(f"corr_stats takes 1..{MAX_CORR_K} columns and n > 0.")
+    if not 1 <= k <= MAX_CORR_K or n <= 0 or start < 0:
+        raise ValueError(f"corr_stats takes 1..{MAX_CORR_K} columns, n > 0 and start >= 0.")
     blocks = stats_grid(k, n)
     cols = torch.tensor(list(columns), dtype=torch.int32, device=device)
     partials = torch.empty((blocks, _stats_width(k)), dtype=torch.float32, device=device)
     err = _stats_kernel().corr_stats_launch(
-        cols.data_ptr(), k, seed_words[0], seed_words[1], n,
+        cols.data_ptr(), k, seed_words[0], seed_words[1], start, n,
         partials.data_ptr(), blocks,
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -669,14 +681,15 @@ def _stats_kernel():
     lib.corr_stats_grid.restype = ctypes.c_int
     lib.corr_stats_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.corr_stats_launch.restype = ctypes.c_int
     return lib
 
 
 def solve_recolor(sums, n, corr_matrix):
-    """The recolour transform from the score statistics, in float64.
+    """The recolour transform from the score statistics, in float64 numpy
+    (the twin of ``solve_recolor_device``).
 
     Returns ``[A row-major, b]`` (numpy float64) such that
     ``y_i = b_i + sum_j A_ij z_j`` standardises the scores, removes their
@@ -701,14 +714,48 @@ def solve_recolor(sums, n, corr_matrix):
     return np.concatenate([A.ravel(), b])
 
 
-def recolor_transform(plan, seed_words, n, device=None):
-    """Run the statistics pass over the plan's correlated columns and
-    solve the recolour transform: float32 ``(K^2 + K,)`` on ``device``
-    (default ``config.device()``).  The counterpart of
-    ``pallas_exec._recolor_transform``.
+def solve_recolor_device(sums, n, target_factor):
+    """``solve_recolor`` in float64 torch ops on the device of ``sums``.
+
+    ``target_factor`` is the lower Cholesky factor ``P`` of the target
+    (``ImanConover().set_target(C).P``).  Nothing here waits for the
+    card: ``cholesky_ex`` does not check its result, so a singular
+    empirical correlation (a degenerate sample) gives NaNs, which the
+    megakernel's non-finite flag reports.
+    """
+    k = target_factor.shape[0]
+    mean = sums[:k] / n
+    iu = torch.triu_indices(k, k, device=sums.device)
+    G = torch.zeros((k, k), dtype=torch.float64, device=sums.device)
+    G[iu[0], iu[1]] = sums[k:]
+    G = G + torch.triu(G, 1).T
+    cov = G / n - torch.outer(mean, mean)
+    std = torch.sqrt(torch.diagonal(cov))
+    L, _ = torch.linalg.cholesky_ex(cov / torch.outer(std, std))
+    eye = torch.eye(k, dtype=torch.float64, device=sums.device)
+    P = torch.as_tensor(target_factor, dtype=torch.float64, device=sums.device)
+    A = (P @ torch.linalg.solve_triangular(L, eye, upper=False)) / std[None, :]
+    b = -A @ mean
+    return torch.cat([A.reshape(-1), b])
+
+
+def recolor_transform(plan, seed_words, n, device=None, start=0, solve="host"):
+    """Run the statistics pass over the plan's correlated columns for
+    samples ``start .. start + n - 1`` and solve the recolour transform:
+    float32 ``(K^2 + K,)`` on ``device`` (default ``config.device()``).
+    The counterpart of ``pallas_exec._recolor_transform``.
+
+    ``solve="host"`` copies the sums to the host and solves in numpy (the
+    path's one sync); ``solve="device"`` solves in torch ops on ``device``
+    and never waits for it.
     """
     device = config.device() if device is None else torch.device(device)
     columns = [plan.col_of[v._id] for v in plan.corr_vars]
-    sums = corr_stats(seed_words, n, columns, device).cpu().numpy()  # the one sync
-    ab = solve_recolor(sums, n, plan.corr_matrix)
+    P = _correlation.ImanConover().set_target(plan.corr_matrix).P  # raises if singular
+    sums = corr_stats(seed_words, n, columns, device, start=start)
+    if solve == "device":
+        return solve_recolor_device(sums, n, P).to(torch.float32)
+    if solve != "host":
+        raise ValueError(f"solve must be 'host' or 'device', got {solve!r}.")
+    ab = solve_recolor(sums.cpu().numpy(), n, plan.corr_matrix)
     return torch.tensor(ab, dtype=torch.float32, device=device)

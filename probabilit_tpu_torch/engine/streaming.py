@@ -1,0 +1,728 @@
+"""Block-streamed sampling and streaming Monte Carlo estimates.
+
+Port of the core of ``probabilit_tpu/engine/streaming.py``: the sample
+axis is cut into blocks, each block is sampled on its own, and either
+
+* copied to the host (``sample_streaming``): full sample vectors of any
+  size with device memory bounded by one block; or
+* folded into a running reduction (``estimate``): mean, var, min, max,
+  skew and kurtosis, quantiles, CVaR, histograms, conditional
+  (``where=``) and control-variate estimates at 1e9+ draws.
+
+``executor="auto"`` samples each block with the CUDA megakernel
+(``engine/cuda_exec.py``) wherever the JAX package picks its TPU
+megakernel: the graph is supported and the correlator is exact
+Iman-Conover (or the graph is uncorrelated).  Block b draws samples
+``[b*B, b*B + B)`` of the seed's one Philox stream (the kernels'
+``start``), so an uncorrelated ``sample_streaming(executor="cuda")``
+equals ``sample(executor="cuda")`` bit for bit.  A correlated graph is
+recoloured per block from that block's own statistics (K2, then the
+K x K solve on the device), so every block carries the target
+correlation, as in the JAX package.  ``executor=None`` draws each block
+from a ``torch.Generator`` seeded from ``(seed, b)`` and runs the plain
+executor.
+
+The carry stays on the device: Chan/Pébay merges in float64 on device
+scalars (the JAX package carries float32), histogram counts in int64
+(where the JAX package splits each count over two float32 words), and
+the non-finite flag as a device boolean read once, at the end.  Nothing
+waits for the card between blocks.
+
+Not ported yet: ``method=`` (QMC, ROADMAP A9), the sequential
+``target_sem``/``target_rel_sem``/``max_size``, ``checkpoint=`` and
+``estimate_many`` (A7b); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from probabilit_tpu_torch import config
+from probabilit_tpu_torch.engine import compile as _compile
+from probabilit_tpu_torch.engine.sampler import resolve_seed
+from probabilit_tpu_torch.ops.qmc import clamp_open_unit
+
+__all__ = ["sample_streaming", "estimate", "estimate_many"]
+
+_ROW = 1 << 17  # columns of the quantile estimator's row sorts
+# Where a correlated block's K x K recolour system is solved
+# (``cuda_exec.recolor_transform``'s ``solve``): "device" never waits
+# between blocks, "host" syncs once per block.  ``chip_smoke.py`` phase 12
+# times both; on an H100 the streamed estimate is faster with "device",
+# while a one-shot ``sample`` is faster solving on the host (phase 10).
+RECOLOR_SOLVE = "device"
+_HISTOGRAM_MAX_BINS = 512
+
+
+def _not_ported(option, item):
+    return NotImplementedError(f"{option} is not ported yet (ROADMAP {item}).")
+
+
+def _derive_seed(seed, *path):
+    """A 64-bit seed for the stream ``path`` under ``seed`` (numpy's
+    SeedSequence spawn keys: independent for distinct paths)."""
+    words = np.random.SeedSequence(seed % 2**64, spawn_key=path).generate_state(2, np.uint32)
+    return int(words[0]) | int(words[1]) << 32
+
+
+# ---------------------------------------------------------------------
+# Per-block accumulators
+# ---------------------------------------------------------------------
+
+
+def _interp(xs, pos, m, upper):
+    """np.quantile's 'linear' order statistic at rank ``pos`` of the sorted
+    last axis (``m`` valid entries; the low index clipped to ``upper``),
+    interpolated in float32 as the JAX package does."""
+    lo = int(min(max(np.floor(pos), 0), max(upper, 0)))
+    frac = float(np.float32(pos - lo))
+    a, b = xs[..., lo], xs[..., min(lo + 1, m - 1)]
+    return a + frac * (b - a)
+
+
+def _rank32(q, m):
+    """The rank q * (m - 1) in float32, as the JAX package computes it for
+    a count known only at run time (the final block)."""
+    return np.float32(q) * (np.float32(m) - np.float32(1.0))
+
+
+def _quantile_accumulators(quantiles, block_size, cvar=()):
+    """(qsum_full, qsum_partial): per-block quantile and CVaR numerators.
+
+    The port of ``streaming._quantile_accumulators``.  ``qsum_full(x)`` is
+    a full block's contribution to the count-weighted float64 vector of
+    ``len(quantiles)`` quantiles then ``len(cvar)`` expected shortfalls;
+    ``qsum_partial(x, cnt)`` that of a final block whose first ``cnt``
+    entries are valid.  A block that is a multiple of 2^17 (and larger)
+    is sorted as rows of 2^17 and the rows' order statistics are averaged;
+    levels within 1/2^17 of 0 or 1 fall back to one sort of the block.
+    CVaR uses Rockafellar-Uryasev, ``ES_q = v + E[max(X - v, 0)] / (1 - q)``,
+    on the same sorts.  Order statistics and interpolation are float32,
+    as in the JAX package; sums are float64.
+    """
+    levels = tuple(quantiles) + tuple(cvar)
+    nq = len(quantiles)
+    rows_ok = (
+        bool(levels)
+        and block_size % _ROW == 0
+        and block_size > _ROW
+        and all(1.0 / _ROW <= q <= 1.0 - 1.0 / _ROW for q in levels)
+    )
+    f64 = torch.float64
+
+    def empty(x):
+        return torch.zeros((0,), dtype=f64, device=x.device)
+
+    def from_sorted(xs, m, upper, rank=lambda q, m: q * (m - 1)):
+        # xs: (rows, m) sorted; each row's estimate times its count m.
+        out = []
+        for i, q in enumerate(levels):
+            v = _interp(xs, rank(q, m), m, upper)
+            if i < nq:
+                out.append(v.sum(dtype=f64) * m)
+            else:
+                tail = (xs - v[..., None]).clamp_min(0.0).sum(dim=-1, dtype=f64)
+                es = v.double() + tail / float(np.float32(m * (1.0 - q)))
+                out.append(es.sum() * m)
+        return torch.stack(out)
+
+    def qsum_full(x):
+        if not levels:
+            return empty(x)
+        if rows_ok:
+            xs = torch.sort(x.reshape(-1, _ROW), dim=1).values
+            return from_sorted(xs, _ROW, _ROW - 2)
+        xs = torch.sort(x).values[None]
+        return from_sorted(xs, block_size, block_size - 2)
+
+    def qsum_partial(x, cnt):
+        if not levels:
+            return empty(x)
+        if rows_ok and not cvar:
+            # Full rows at the static positions; the boundary row of
+            # ``rem`` valid entries at its own positions.
+            n_full, rem = divmod(cnt, _ROW)
+            out = torch.zeros((nq,), dtype=f64, device=x.device)
+            if n_full:
+                xs = torch.sort(x[: n_full * _ROW].reshape(n_full, _ROW), dim=1).values
+                out = out + from_sorted(xs, _ROW, _ROW - 2)
+            if rem:
+                row = torch.sort(x[n_full * _ROW : cnt]).values
+                out = out + torch.stack(
+                    [
+                        _interp(row, _rank32(q, rem), rem, _ROW - 2).double() * rem
+                        for q in quantiles
+                    ]
+                )
+            return out
+        # With CVaR levels, or blocks too small for rows: one sort of the
+        # valid entries (the JAX package sorts the +inf-padded block).
+        xs = torch.sort(x[:cnt]).values[None]
+        return from_sorted(xs, cnt, block_size - 2, _rank32)
+
+    return qsum_full, qsum_partial
+
+
+def _histogram_accumulators(histogram):
+    """``counts(x, mask=None)``: int64 ``(bins + 2,)`` counts of one block.
+
+    ``histogram=(lo, hi, bins)``: ``bins`` equal half-open bins over
+    ``[lo, hi)`` plus underflow and overflow, laid out as
+    ``[underflow, bin_0 .. bin_{bins-1}, overflow]``; the bin index is
+    ``clip(floor((x - lo) * bins / (hi - lo)), -1, bins) + 1`` in float32,
+    as in the JAX package.  NaN and off-mask samples are counted nowhere;
+    +/-inf count as underflow/overflow.  The indices are counted with
+    ``torch.histc`` over the integer-valued bin numbers (exact: each
+    index maps to its own bin, and float32 counts are exact up to 2^24
+    per block, float64 beyond).
+    """
+    if histogram is None:
+        return lambda x, mask=None: torch.zeros((0,), dtype=torch.int64, device=x.device)
+    lo, hi, bins = histogram
+    scale = bins / (hi - lo)
+
+    def counts(x, mask=None):
+        x = x.to(torch.float32)
+        idx = torch.clamp(torch.floor((x - lo) * scale), -1.0, float(bins))
+        drop = torch.isnan(x) if mask is None else torch.isnan(x) | ~mask
+        idx = torch.where(drop, float(bins + 2), idx)  # outside histc's range
+        if idx.numel() > 1 << 24:
+            idx = idx.double()
+        return torch.histc(idx, bins=bins + 2, min=-1.0, max=float(bins + 1)).to(torch.int64)
+
+    return counts
+
+
+# ---------------------------------------------------------------------
+# The block program
+# ---------------------------------------------------------------------
+
+_UNION_SINK_CACHE = {}
+
+
+def _union_sink(sink, extras):
+    """Cached NoOp rooting ``sink`` and out-of-graph extras in one plan."""
+    from probabilit_tpu_torch.models import graph as _graph
+
+    key = (sink._id, tuple(node._id for node in extras), _graph.Node._mutation_epoch)
+    node = _UNION_SINK_CACHE.get(key)
+    if node is None:
+        if len(_UNION_SINK_CACHE) > 64:
+            _UNION_SINK_CACHE.pop(next(iter(_UNION_SINK_CACHE)))
+        node = _graph.NoOp(sink, *extras)
+        _UNION_SINK_CACHE[key] = node
+    return node
+
+
+def _resolve_executor(plan, keep, executor, correlator):
+    """"cuda" or None for ``executor`` in ("auto", "cuda", None)."""
+    from probabilit_tpu_torch.engine import cuda_exec
+
+    if executor == "pallas":
+        raise ValueError(
+            "executor='pallas' is the JAX package's TPU megakernel; the "
+            "port's counterpart is executor='cuda'."
+        )
+    if executor not in ("auto", "cuda", None):
+        raise ValueError(f"Unknown executor {executor!r}; use 'auto', 'cuda' or None.")
+    if executor is None:
+        return None
+    resolved = _compile.resolve_correlator(correlator)
+    ic_cls = _compile.CORRELATOR_MAP["imanconover"]
+    exact_ic = resolved is ic_cls or type(resolved) is ic_cls
+    if plan.corr_matrix is not None and not exact_ic:
+        if executor == "cuda":
+            raise ValueError("executor='cuda' supports correlator='imanconover' only.")
+        return None
+    graph_ok = cuda_exec.supports(plan, keep)
+    if executor == "cuda":
+        if not graph_ok:
+            raise ValueError("Graph not eligible for executor='cuda'.")
+        issue = cuda_exec.environment_issue()
+        if issue is not None:
+            raise ValueError(issue)
+        return "cuda"
+    if not graph_ok or config.device().type != "cuda":
+        return None
+    issue = cuda_exec.environment_issue()
+    if issue is not None:
+        raise RuntimeError(issue)
+    return "cuda"
+
+
+def _block_program(sink, block_size, executor="auto", correlator="imanconover", extra=None):
+    """(plan, run): ``run(b, seed) -> (sink block, extra block(s) or None)``.
+
+    ``extra`` (a node, or a tuple of nodes) is sampled alongside the sink
+    from the same draws; a node outside the sink's graph is rooted with
+    it under a cached ``NoOp``.  Every block has ``block_size`` samples.
+    """
+    from probabilit_tpu_torch.engine import cuda_exec
+
+    out_sink = sink
+    plan = _compile.get_plan(sink)
+    single_extra = extra is not None and not isinstance(extra, (tuple, list))
+    extras = () if extra is None else (extra,) if single_extra else tuple(extra)
+    if extras and not all(any(node is req for node in plan.topo) for req in extras):
+        sink = _union_sink(out_sink, extras)
+        plan = _compile.get_plan(sink)
+    keep = frozenset({out_sink._id} | {node._id for node in extras})
+
+    def pair(outputs):
+        x = outputs[out_sink._id]
+        if extra is None:
+            return x, None
+        if single_extra:
+            return x, outputs[extras[0]._id]
+        return x, tuple(outputs[node._id] for node in extras)
+
+    device = config.device()
+    if _resolve_executor(plan, keep, executor, correlator) == "cuda":
+        order = cuda_exec.keep_order(plan, keep)
+        tape = cuda_exec.lower(plan, order).to(device)
+
+        def run(b, seed):
+            words = cuda_exec.seed_words(seed)
+            start = b * block_size
+            ab = None
+            if plan.corr_matrix is not None:
+                ab = cuda_exec.recolor_transform(
+                    plan, words, block_size, device, start=start, solve=RECOLOR_SOLVE
+                )
+            out, _ = cuda_exec.run(tape, words, block_size, ab, start=start)
+            return pair({nid: out[k] for k, nid in enumerate(order)})
+
+        return plan, run
+
+    generated = plan.corr_matrix is not None and _compile.recolor_eligible(
+        plan, _compile.resolve_correlator(correlator)
+    )
+    body = _compile.build_body(plan, keep, correlator, generated=generated)
+
+    def run(b, seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_derive_seed(seed, 0, b))
+        q = torch.rand(
+            (block_size, plan.d), generator=gen, dtype=config.float_dtype(), device=device
+        )
+        return pair(body(clamp_open_unit(q)))
+
+    return plan, run
+
+
+# ---------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------
+
+
+def sample_streaming(
+    sink,
+    size,
+    block_size=16_777_216,
+    random_state=None,
+    executor="auto",
+    method=None,
+    correlator="imanconover",
+):
+    """Sample ``size`` draws of ``sink`` in device-sized blocks.
+
+    Returns a host (numpy) array of length ``size``; device memory is
+    bounded by one block.  Raises on non-finite samples, as ``sample``.
+    """
+    if method is not None:
+        raise _not_ported(f"Streamed method={method!r} (QMC)", "A9")
+    size = int(size)
+    if size < 1:
+        raise ValueError(f"size must be >= 1, got {size}.")
+    _, run = _block_program(sink, block_size, executor, correlator)
+    seed = resolve_seed(random_state)
+    out = None
+    for b in range(-(-size // block_size)):
+        lo = b * block_size
+        hi = min(size, lo + block_size)
+        block = run(b, seed)[0][: hi - lo].cpu().numpy()
+        if out is None:
+            out = np.empty((size,), dtype=block.dtype)
+        out[lo:hi] = block
+        if np.issubdtype(block.dtype, np.inexact) and not np.isfinite(block).all():
+            raise ValueError(f"Sampling produced non-finite values (block {b}).")
+    return out
+
+
+def estimate_many(*args, **kwargs):
+    """Joint streamed estimates of several nodes: not ported yet."""
+    raise _not_ported("estimate_many", "A7b")
+
+
+def estimate(
+    sink,
+    size,
+    block_size=16_777_216,
+    random_state=None,
+    executor="auto",
+    method=None,
+    quantiles=None,
+    cvar=None,
+    histogram=None,
+    replicates=None,
+    correlator="imanconover",
+    control=None,
+    where=None,
+    target_sem=None,
+    target_rel_sem=None,
+    max_size=None,
+    moments=False,
+    checkpoint=None,
+    checkpoint_every=None,
+):
+    """Streaming Monte Carlo estimate of ``sink``: n, mean, var, std, sem,
+    min, max, plus ``q<level>``, ``cvar<level>``, ``histogram``,
+    ``skew``/``kurt`` (``moments=True``), the conditional statistics of
+    ``where=node`` (``n`` accepted, ``n_total`` drawn, ``acceptance``),
+    the control-variate estimate of ``control=(node, known_mean)``, and
+    the between-replicate ``sem`` of ``replicates=R`` independent streams.
+
+    The JAX package's ``estimate`` documents each option; the port keeps
+    its conventions (quantiles by 2^17-sample row sorts with the endpoint
+    fallback, upper-tail CVaR by Rockafellar-Uryasev, half-open histogram
+    bins with under/overflow, scipy's biased skew and Fisher kurtosis,
+    ``where=`` not with ``quantiles``/``cvar``/``control``).
+    """
+    if method is not None:
+        raise _not_ported(f"Streamed method={method!r} (QMC)", "A9")
+    if target_sem is not None or target_rel_sem is not None or max_size is not None:
+        raise _not_ported("Sequential estimation (target_sem, target_rel_sem, max_size)", "A7b")
+    if checkpoint is not None or checkpoint_every is not None:
+        raise _not_ported("checkpoint=", "A7b")
+    quantiles = tuple(float(q) for q in quantiles) if quantiles else ()
+    for q in quantiles:
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"Quantile levels must be in (0, 1), got {q}.")
+    cvar = tuple(float(q) for q in cvar) if cvar else ()
+    for q in cvar:
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"CVaR levels must be in (0, 1), got {q}.")
+    if histogram is not None:
+        histogram = _check_histogram(histogram)
+    size = int(size)
+    if size < 1:
+        raise ValueError(f"size must be >= 1, got {size}.")
+    from probabilit_tpu_torch.models.graph import Node
+
+    if where is not None:
+        if not isinstance(where, Node):
+            raise ValueError(f"where must be a graph node, got {where!r}.")
+        if quantiles or cvar:
+            raise ValueError(
+                "where= does not compose with quantiles=/cvar= (the row-sort "
+                "estimators assume unmasked blocks); estimate the conditional "
+                "quantiles from sample_streaming output."
+            )
+        if control is not None:
+            raise ValueError(
+                "where= does not compose with control= (the control "
+                "regression assumes unmasked blocks)."
+            )
+    control_node, control_mu = None, None
+    if control is not None:
+        try:
+            control_node, control_mu = control
+        except (TypeError, ValueError):
+            raise ValueError(
+                "control must be a (node, known_mean) pair, e.g. "
+                "control=(cheap_part, analytic_mean)."
+            ) from None
+        if not isinstance(control_node, Node):
+            raise ValueError(f"control[0] must be a graph node, got {control_node!r}.")
+        control_mu = float(control_mu)
+    seed = resolve_seed(random_state)
+    opts = dict(
+        quantiles=quantiles, cvar=cvar, histogram=histogram, moments=moments,
+        correlator=correlator, control_node=control_node, where_node=where,
+    )
+    if replicates is None:
+        carry = _estimate_carry(sink, size, block_size, seed, executor, **opts)
+        return _finalize_estimate(
+            carry, size, quantiles, control_mu, where, cvar, histogram, moments
+        )
+    reps = int(replicates)
+    if reps < 2:
+        raise ValueError(
+            f"replicates must be >= 2 (got {reps}): a single stream has no "
+            "between-replicate variance to estimate sem from."
+        )
+    if size % reps:
+        raise ValueError(
+            f"size ({size}) must be divisible by replicates ({reps}) so every "
+            "randomisation carries equal weight."
+        )
+    carries = [
+        _estimate_carry(sink, size // reps, block_size, _derive_seed(seed, 1, r), executor, **opts)
+        for r in range(reps)
+    ]
+    merged, rep_means = _merge_carries(carries, control_mu)
+    stats = _finalize_estimate(merged, size, quantiles, control_mu, where, cvar, histogram, moments)
+    rep = np.asarray(rep_means, np.float64)
+    if rep.size < 2:
+        raise ValueError(
+            f"Only {rep.size} of {reps} replicates accepted any samples; the "
+            "between-replicate sem needs >= 2. Loosen the where condition, "
+            "raise size, or drop replicates=."
+        )
+    stats["sem"] = float(rep.std(ddof=1) / np.sqrt(rep.size))
+    if control_mu is not None:
+        stats["mean"] = float(rep.mean())
+    stats["replicates"] = reps
+    return stats
+
+
+def _check_histogram(histogram):
+    try:
+        h_lo, h_hi, h_bins = histogram
+    except (TypeError, ValueError):
+        raise ValueError(
+            "histogram must be a (lo, hi, bins) triple, e.g. histogram=(-5.0, 5.0, 100)."
+        ) from None
+    h_lo, h_hi, h_bins = float(h_lo), float(h_hi), int(h_bins)
+    if not (np.isfinite(h_lo) and np.isfinite(h_hi) and h_lo < h_hi):
+        raise ValueError(f"histogram range must be finite with lo < hi, got ({h_lo}, {h_hi}).")
+    if not 1 <= h_bins <= _HISTOGRAM_MAX_BINS:
+        raise ValueError(f"histogram bins must be in [1, {_HISTOGRAM_MAX_BINS}], got {h_bins}.")
+    return h_lo, h_hi, h_bins
+
+
+# ---------------------------------------------------------------------
+# The fold
+# ---------------------------------------------------------------------
+
+
+def _block_moments(x, y, cnt, where_mode, moments):
+    """One block's (n, mean, M2, min, max, finite, (my, M2y, Cxy), M3, M4)
+    over its first ``cnt`` samples, as float64 device scalars.  Under
+    ``where=`` (``y`` the condition) off-condition samples are never
+    inspected; otherwise ``y`` is the control (or None)."""
+    f64 = torch.float64
+    xv = x[:cnt].to(f64)
+    zero = torch.zeros((), dtype=f64, device=x.device)
+    if where_mode:
+        cond = y[:cnt] != 0
+        n = cond.sum(dtype=f64)
+        mean = torch.where(cond, xv, 0.0).sum() / n.clamp(min=1.0)
+        d = torch.where(cond, xv - mean, 0.0)
+        vmin = torch.where(cond, xv, torch.inf).min()
+        vmax = torch.where(cond, xv, -torch.inf).max()
+        finite = torch.where(cond, torch.isfinite(xv), True).all()
+    else:
+        n = torch.full((), float(cnt), dtype=f64, device=x.device)
+        mean = xv.mean()
+        d = xv - mean
+        vmin, vmax = xv.min(), xv.max()
+        finite = torch.isfinite(xv).all()
+    d2 = d * d
+    ctl = (zero, zero, zero)
+    if y is not None and not where_mode:
+        yv = y[:cnt].to(f64)
+        my = yv.mean()
+        dy = yv - my
+        ctl = (my, (dy * dy).sum(), (d * dy).sum())
+    m3, m4 = ((d2 * d).sum(), (d2 * d2).sum()) if moments else (zero, zero)
+    return n, mean, d2.sum(), vmin, vmax, finite, ctl, m3, m4
+
+
+def _merge(carry, block, where_mode, moments):
+    """Chan's pairwise merge of a block (or of a replicate's carry) into
+    the carry (Pébay 2008 for M3 and M4), in float64 on device scalars;
+    reads the OLD m2/m3."""
+    n_prev, mean, m2, vmin, vmax, finite, qsum, my, m2y, cxy, hsum, m3, m4 = carry
+    bn, bm, bm2, bmin, bmax, bfinite, (bmy, bm2y, bcxy), bm3, bm4, bqsum, bhsum = block
+    delta = bm - mean
+    delta_y = bmy - my
+    nn = n_prev + bn
+    # Under where= a block (or the whole prefix) can accept nothing: every
+    # numerator is 0 then, and a clamped denominator makes a no-op merge.
+    nn_div = nn.clamp(min=1.0) if where_mode else nn
+    w = n_prev * bn / nn_div
+    if moments:
+        m4 = m4 + bm4 + (
+            delta**4 * w * (n_prev * n_prev - n_prev * bn + bn * bn) / nn_div**2
+            + 6.0 * delta**2 * (n_prev * n_prev * bm2 + bn * bn * m2) / nn_div**2
+            + 4.0 * delta * (n_prev * bm3 - bn * m3) / nn_div
+        )
+        m3 = m3 + bm3 + (
+            delta**3 * w * (n_prev - bn) / nn_div
+            + 3.0 * delta * (n_prev * bm2 - bn * m2) / nn_div
+        )
+    return (
+        nn,
+        mean + delta * bn / nn_div,
+        m2 + bm2 + delta * delta * w,
+        torch.minimum(vmin, bmin),
+        torch.maximum(vmax, bmax),
+        finite & bfinite,
+        qsum + bqsum,
+        my + delta_y * bn / nn_div,
+        m2y + bm2y + delta_y * delta_y * w,
+        cxy + bcxy + delta * delta_y * w,
+        hsum + bhsum,
+        m3,
+        m4,
+    )
+
+
+def _initial_carry(levels, hist_len, device):
+    """The empty 13-field carry (see ``_estimate_carry``)."""
+
+    def scalar(value):
+        return torch.full((), value, dtype=torch.float64, device=device)
+
+    return (
+        scalar(0.0), scalar(0.0), scalar(0.0), scalar(np.inf), scalar(-np.inf),
+        torch.ones((), dtype=torch.bool, device=device),
+        torch.zeros((levels,), dtype=torch.float64, device=device),
+        scalar(0.0), scalar(0.0), scalar(0.0),
+        torch.zeros((hist_len,), dtype=torch.int64, device=device),
+        scalar(0.0), scalar(0.0),
+    )
+
+
+def _estimate_carry(
+    sink,
+    size,
+    block_size,
+    seed,
+    executor,
+    quantiles=(),
+    cvar=(),
+    histogram=None,
+    moments=False,
+    correlator="imanconover",
+    control_node=None,
+    where_node=None,
+):
+    """One stream's 13-field carry, as device tensors: (n, mean, M2, min,
+    max, finite, qsum, my, M2y, Cxy, histogram counts, M3, M4)."""
+    where_mode = where_node is not None
+    aux = control_node if control_node is not None else where_node
+    _, run = _block_program(sink, block_size, executor, correlator, extra=aux)
+    qsum_full, qsum_partial = _quantile_accumulators(quantiles, block_size, cvar)
+    hist = _histogram_accumulators(histogram)
+    hist_len = 0 if histogram is None else histogram[2] + 2
+    carry = _initial_carry(len(quantiles) + len(cvar), hist_len, config.device())
+    n_blocks = -(-size // block_size)
+    for b in range(n_blocks):
+        x, y = run(b, seed)
+        x = x.to(torch.float32)
+        cnt = block_size if b < n_blocks - 1 else size - b * block_size
+        stats = _block_moments(x, y, cnt, where_mode, moments)
+        qsum = qsum_full(x) if cnt == block_size else qsum_partial(x, cnt)
+        if where_mode:
+            counts = hist(x[:cnt], y[:cnt] != 0)
+        else:
+            counts = hist(x[:cnt])
+        carry = _merge(carry, (*stats, qsum, counts), where_mode, moments)
+    return carry
+
+
+def _host(value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _merge_carries(carries, control_mu=None):
+    """Chan-merge replicate carries on the host in float64; returns the
+    pooled carry and the per-replicate (control-adjusted) means."""
+    merged, rep_means = None, []
+    for carry in carries:
+        t, m, m2, lo, hi, f, q, my, m2y, cxy, h, m3, m4 = (
+            torch.as_tensor(_host(v)) for v in carry
+        )
+        if merged is None:
+            merged = _initial_carry(q.numel(), h.numel(), torch.device("cpu"))
+        if float(t) <= 0.0:
+            # A zero-accept replicate (where=) has no mean; it stays out
+            # of the between-replicate sem, and its merge is a no-op.
+            continue
+        if control_mu is None:
+            rep_means.append(float(m))
+        else:
+            adj, _, _, _ = _control_adjust(
+                float(m), float(m2), float(my), float(m2y), float(cxy), control_mu
+            )
+            rep_means.append(adj)
+        block = (t, m, m2, lo, hi, f, (my, m2y, cxy), m3, m4, q, h)
+        merged = _merge(merged, block, where_mode=True, moments=True)
+    return merged, rep_means
+
+
+def _control_adjust(mx, m2x, my, m2y, cxy, mu):
+    """(adjusted mean, variance-reduction factor 1-rho^2, beta, rho) of the
+    regression control variate ``mean - beta * (my - mu)``,
+    ``beta = Cov(x, y) / Var(y)``."""
+    if m2y <= 0.0:
+        return mx, 1.0, 0.0, 0.0
+    beta = cxy / m2y
+    rho2 = (cxy * cxy) / (m2x * m2y) if m2x > 0.0 else 0.0
+    rho2 = min(rho2, 1.0)
+    rho = (rho2**0.5) if cxy >= 0 else -(rho2**0.5)
+    return mx - beta * (my - mu), 1.0 - rho2, beta, rho
+
+
+def _finalize_estimate(
+    carry, size, quantiles, control_mu=None, where=None, cvar=(), histogram=None, moments=False
+):
+    """The statistics dict from a 13-field carry (device tensors or host
+    values); the field at index 10 holds the histogram counts."""
+    (total_, mean_, m2_, vmin_, vmax_, finite_, qsum_, my_, m2y_, cxy_, hsum_, m3_, m4_) = (
+        _host(v) for v in carry
+    )
+    total, mean, m2, vmin, vmax = (float(v) for v in (total_, mean_, m2_, vmin_, vmax_))
+    if not bool(finite_):
+        raise ValueError("Sampling produced non-finite values.")
+    if where is not None and total <= 0:
+        raise ValueError(
+            f"where= condition never held across {size} draws; no conditional "
+            "statistics exist. Loosen the condition or raise size."
+        )
+    var = m2 / total if total else float("nan")
+    stats = {
+        "n": int(round(total)) if where is not None else size,
+        "mean": mean,
+        "var": var,
+        "std": var**0.5,
+        "sem": (var / total) ** 0.5 if total else float("nan"),
+        "min": vmin,
+        "max": vmax,
+    }
+    if moments:
+        sd3 = var**1.5
+        stats["skew"] = float(m3_) / total / sd3 if total and sd3 else float("nan")
+        stats["kurt"] = float(m4_) / total / var**2 - 3.0 if total and var else float("nan")
+    if where is not None:
+        stats["n_total"] = size
+        stats["acceptance"] = total / size
+    if control_mu is not None:
+        adj, factor, beta, rho = _control_adjust(
+            mean, m2, float(my_), float(m2y_), float(cxy_), control_mu
+        )
+        stats["mean"] = adj
+        stats["sem"] = stats["sem"] * factor**0.5
+        stats["control_beta"] = beta
+        stats["control_rho"] = rho
+        stats["control_mean"] = float(my_)
+    tails = np.asarray(qsum_, np.float64)
+    for level, qs in zip(quantiles, tails[: len(quantiles)]):
+        stats[f"q{level:g}"] = float(qs / total)
+    for level, es in zip(cvar, tails[len(quantiles) :]):
+        stats[f"cvar{level:g}"] = float(es / total)
+    if histogram is not None:
+        h_lo, h_hi, h_bins = histogram
+        counts = np.asarray(hsum_, np.int64)
+        stats["histogram"] = {
+            "edges": np.linspace(h_lo, h_hi, h_bins + 1),
+            "counts": counts[1:-1],
+            "underflow": int(counts[0]),
+            "overflow": int(counts[-1]),
+        }
+    return stats

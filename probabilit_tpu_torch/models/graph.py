@@ -214,6 +214,24 @@ class Node(abc.ABC):
             self, quantiles, correlator=correlator, gc_strategy=gc_strategy
         )
 
+    def sample_streaming(self, size, block_size=16_777_216, random_state=None, **kwargs):
+        """Sample in device-sized blocks; see ``engine.streaming``."""
+        from probabilit_tpu_torch.engine import streaming
+
+        return streaming.sample_streaming(
+            self, size, block_size=block_size, random_state=random_state, **kwargs
+        )
+
+    def estimate(self, size, block_size=16_777_216, random_state=None, **kwargs):
+        """Streaming mean/var/min/max (plus quantiles, CVaR, histograms,
+        ...) at any sample count; O(block) memory.  See
+        ``engine.streaming.estimate``."""
+        from probabilit_tpu_torch.engine import streaming
+
+        return streaming.estimate(
+            self, size, block_size=block_size, random_state=random_state, **kwargs
+        )
+
     def correlate(self, *variables, corr_mat):
         """Declare a target correlation among ancestor variables.
 

@@ -1,0 +1,176 @@
+"""The bitonic row sort's plain twins against the JAX package's kernels.
+
+On the CPU the port's ``sort_runs``, ``merge_stage`` and
+``bitonic_sort_rows`` run their twins; the JAX package's functions run
+their Pallas kernels in interpret mode.  Inputs are made with numpy from
+a seed and handed to both; keys *and* payloads must be equal bit for
+bit, duplicates included.  The CUDA kernels are held against the twins
+on the card by ``test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probabilit_tpu.ops import pallas_sort as ps
+from probabilit_tpu_torch.ops import bitonic_sort as bs
+
+SRC = Path(__file__).resolve().parent.parent / "probabilit_tpu_torch" / "csrc" / "bitonic_sort.cu"
+
+
+def _both(jax_fn, port_fn, *arrays, **kwargs):
+    """(JAX result, port result) as numpy, from the same numpy inputs."""
+    ref = jax_fn(*(jnp.asarray(a) for a in arrays), interpret=True, **kwargs)
+    got = port_fn(*(torch.from_numpy(np.array(a)) for a in arrays), **kwargs)
+    return [np.asarray(r) for r in ref], [g.numpy() for g in got]
+
+
+def _assert_bitwise(ref, got):
+    for r, g in zip(ref, got):
+        assert r.dtype == g.dtype and r.shape == g.shape
+        np.testing.assert_array_equal(r.view(np.uint8), g.view(np.uint8))
+
+
+@pytest.mark.parametrize("keys", ["normal", "duplicates"])
+def test_sort_runs_twin_matches_reference(keys):
+    rng = np.random.default_rng(0)
+    shape = (4, 64, 128)
+    k = (
+        rng.normal(size=shape) if keys == "normal" else rng.integers(0, 50, size=shape)
+    ).astype(np.float32)
+    p = np.arange(k.size, dtype=np.int32).reshape(shape)
+    ref, got = _both(ps.sort_runs, bs.sort_runs, k, p)
+    _assert_bitwise(ref, got)
+    for g in range(4):  # alternating directions, payload at its key
+        flat = got[0][g].reshape(-1)
+        want = np.sort(k[g].reshape(-1))
+        np.testing.assert_array_equal(flat, want if g % 2 == 0 else want[::-1])
+        np.testing.assert_array_equal(k.reshape(-1)[got[1][g].reshape(-1)], flat)
+
+
+def test_merge_stages_twin_match_reference():
+    rng = np.random.default_rng(1)
+    k = rng.integers(0, 2000, size=(8, 64, 128)).astype(np.float32)  # with duplicates
+    p = np.arange(k.size, dtype=np.int32).reshape(k.shape)
+    runs = [np.asarray(a) for a in ps.sort_runs(jnp.asarray(k), jnp.asarray(p), interpret=True)]
+    k4, p4 = (a.reshape(2, 4, 64, 128) for a in runs)
+    ref14, got14 = _both(ps.merge_stage, bs.merge_stage, k4, p4, stage=14)
+    _assert_bitwise(ref14, got14)
+    ref15, got15 = _both(ps.merge_stage, bs.merge_stage, *ref14, stage=15)
+    _assert_bitwise(ref15, got15)
+    rows = got15[0].reshape(2, -1)
+    np.testing.assert_array_equal(rows, np.sort(k.reshape(2, -1), axis=1))
+
+
+@pytest.mark.parametrize("N", [8192, 16384, 40000])
+def test_bitonic_sort_rows_twin_matches_reference(N):
+    rng = np.random.default_rng(N)
+    keys = rng.normal(size=(3, N)).astype(np.float32)
+    keys[:, ::5] = rng.integers(-20, 20, size=keys[:, ::5].shape)  # duplicates, no -0.0
+    payload = np.tile(np.arange(N, dtype=np.int32), (3, 1))
+    ref, got = _both(ps.bitonic_sort_rows, bs.bitonic_sort_rows, keys, payload)
+    _assert_bitwise(ref, got)
+    sk, sp = got
+    torch.testing.assert_close(
+        torch.from_numpy(sk), torch.sort(torch.from_numpy(keys), dim=1).values, rtol=0, atol=0
+    )
+    np.testing.assert_array_equal(np.take_along_axis(keys, sp.astype(np.int64), axis=1), sk)
+
+
+def test_int32_permutation_keys_carry_a_float_payload():
+    rng = np.random.default_rng(7)
+    N = 12000
+    perm = np.stack([rng.permutation(N), rng.permutation(N)]).astype(np.int32)
+    vals = rng.normal(size=(2, N)).astype(np.float32)
+    ref, got = _both(ps.bitonic_sort_rows, bs.bitonic_sort_rows, perm, vals)
+    _assert_bitwise(ref, got)
+    for r in range(2):
+        np.testing.assert_array_equal(got[0][r], np.arange(N))
+        want = np.empty(N, np.float32)
+        want[perm[r]] = vals[r]
+        np.testing.assert_array_equal(got[1][r], want)
+
+
+def test_keys_equal_to_the_sentinel_trade_places_with_pad_slots():
+    """Reference defect R6, kept for bitwise parity: real keys equal to the
+    pad sentinel (+inf, INT_MAX) tie with the pad and may come out with a
+    pad's payload 0."""
+    rng = np.random.default_rng(3)
+    N = 10000
+    keys = rng.normal(size=(2, N)).astype(np.float32)
+    keys[:, rng.choice(N, 300, replace=False)] = np.inf
+    payload = np.tile(np.arange(1, N + 1, dtype=np.int32), (2, 1))
+    ref, got = _both(ps.bitonic_sort_rows, bs.bitonic_sort_rows, keys, payload)
+    _assert_bitwise(ref, got)
+    np.testing.assert_array_equal(got[0], np.sort(keys, axis=1))
+    assert (got[1] == 0).sum() > 0  # pad payloads among the first N
+    finite = np.isfinite(got[0])
+    assert (got[1][finite] > 0).all()  # the finite keys keep their own
+
+
+def test_signed_zeros_and_nan_keep_their_payloads():
+    # Outside the JAX package's contract (its min/max may move zero bits
+    # or spread a NaN): here -0.0 and +0.0 tie and never swap, and NaN
+    # compares false, so every key keeps its own payload.
+    keys = torch.tensor([[0.0, -0.0, 1.0, -0.0, 0.0, -1.0, float("nan"), 2.0] * 2048])  # no pad
+    payload = torch.arange(keys.numel(), dtype=torch.int32).reshape(keys.shape)
+    sk, sp = bs.bitonic_sort_rows(keys, payload)
+    bits = keys.view(torch.int32)[0]
+    assert torch.equal(sk.view(torch.int32)[0], bits[sp[0].long()])
+
+
+def test_padding_matches_reference():
+    for N in [1, 8191, 8192, 8193, 16384, 16385, 40000, 100_000, 10_000_000]:
+        want = max(2, int(2 ** np.ceil(np.log2(max(N, 8192) / 8192))))
+        assert bs.padded_blocks(N) == want, N
+
+
+def test_cpu_tensors_run_the_twin_and_launch_nothing():
+    rng = np.random.default_rng(4)
+    keys = torch.from_numpy(rng.normal(size=(2, 9000)).astype(np.float32))
+    payload = torch.arange(18000, dtype=torch.int64).reshape(2, 9000)
+    counts = (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES)
+    got = bs.bitonic_sort_rows(keys, payload)
+    ref = bs.bitonic_sort_rows_reference(keys, payload)
+    assert (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES) == counts
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    # float64 keys with an 8-byte payload, in the twin
+    k64 = keys.double()
+    s64, p64 = bs.bitonic_sort_rows(k64, payload)
+    torch.testing.assert_close(s64, torch.sort(k64, dim=1).values, rtol=0, atol=0)
+    torch.testing.assert_close(torch.gather(k64, 1, p64 - torch.tensor([[0], [9000]])), s64)
+
+
+def test_other_devices_and_bad_shapes_raise(monkeypatch):
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(bs, "bitonic_sort_rows_reference", forbidden)
+    monkeypatch.setattr(bs, "sort_runs_reference", forbidden)
+    meta = torch.empty((2, 100), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        bs.bitonic_sort_rows(meta, meta)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        bs.sort_runs(torch.empty((2, 64, 128), device="meta"), torch.empty((2, 64, 128), device="meta"))
+    with pytest.raises(ValueError, match="differ"):
+        bs.bitonic_sort_rows(torch.zeros(2, 10), torch.zeros(2, 11))
+    with pytest.raises(ValueError, match=r"\(R, 64, 128\)"):
+        bs.sort_runs(torch.zeros(2, 64, 64), torch.zeros(2, 64, 64))
+    with pytest.raises(ValueError, match="stage"):
+        bs.merge_stage(torch.zeros(1, 2, 64, 128), torch.zeros(1, 2, 64, 128), 15)
+
+
+def test_kernel_source_matches_the_wrapper():
+    src = SRC.read_text()
+    type_names = {torch.float32: "float", torch.int32: "int32_t", torch.float64: "double",
+                  torch.int64: "int64_t"}
+    for dtype, code in bs._KEY_CODE.items():
+        assert f"case {code}: return Launcher<{type_names[dtype]}, P>" in src
+    for name in ("bitonic_sort_runs", "bitonic_block_exchange", "bitonic_tail"):
+        assert re.search(rf'extern "C" int {name}\(', src)
+    assert f"kRun = {bs.RUN};" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src

@@ -1,4 +1,4 @@
-"""The CUDA megakernel against its plain twin, on the card.
+"""The CUDA kernels against their plain twins, on the card.
 
 Every test here needs an sm_90 card and skips without one; the decision
 is made inside a fixture.  The file imports only the port, so on the
@@ -11,7 +11,8 @@ Tolerances: the megakernel, per kept node, max |kernel - twin| <=
 the statistics kernel, each sum within 1e-5 * n of the twin's (every sum
 is of n terms of magnitude about 1: z_k, z_j z_k).  They differ only where
 nvcc contracts a*b+c into FMAs, where CUDA's libm rounds differently from
-PyTorch's, and in the order of float32 partial sums.
+PyTorch's, and in the order of float32 partial sums.  The three sort
+kernels move bits and compare, so they equal their twins bitwise.
 """
 
 import numpy as np
@@ -20,9 +21,10 @@ import torch
 
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import compile as tcompile
-from probabilit_tpu_torch.engine import cuda_exec
+from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.models import benchmarks, graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.ops import bitonic_sort as bs
 
 REL_TOL = 1e-4
 STATS_TOL = 1e-5
@@ -173,3 +175,114 @@ def test_correlated_sample_through_both_kernels(cuda_card):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="imanconover"):
         sink.sample(N, gc_strategy=[], executor="cuda", correlator="cholesky")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed_dag_20", "mixed_correlated_50"])
+def test_kernels_match_their_twins_at_a_later_start(cuda_card, name):
+    sink = getattr(benchmarks, name)()
+    plan = tcompile.get_plan(sink)
+    tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, {sink._id})).to("cuda")
+    words, start = (11, 12), 3 * N  # the fourth block of a stream of N-blocks
+    ab = None
+    if plan.corr_vars:
+        columns = [plan.col_of[v._id] for v in plan.corr_vars]
+        got = cuda_exec.corr_stats(words, N, columns, "cuda", start=start)
+        ref = cuda_exec.corr_stats_reference(words, N, columns, "cuda", start=start)
+        first = cuda_exec.corr_stats_reference(words, N, columns, "cuda")
+        assert (got - ref).abs().max().item() <= STATS_TOL * N
+        assert (ref - first).abs().max().item() > 10 * STATS_TOL * N  # start moves the sums
+        ab = cuda_exec.recolor_transform(plan, words, N, start=start, solve=streaming.RECOLOR_SOLVE)
+    got, _ = cuda_exec.run(tape, words, N, ab, start=start)
+    ref = cuda_exec.run_reference(tape, words, N, ab, start=start)
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= REL_TOL * scale
+    first = cuda_exec.run_reference(tape, words, N, ab)
+    assert not torch.equal(ref, first)
+
+
+def _sort_inputs(key_dtype, payload_dtype, shape, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if key_dtype.is_floating_point:
+        keys = torch.randn(shape, generator=g, device="cuda").to(key_dtype)
+        flat = keys.view(-1)
+        flat[::7] = torch.floor(flat[::7] * 4)  # duplicates (and no -0.0)
+    else:
+        keys = torch.randint(0, 500, shape, generator=g, device="cuda").to(key_dtype)
+    payload = torch.arange(keys.numel(), device="cuda").reshape(shape).to(payload_dtype)
+    return keys, payload
+
+
+SORT_TYPES = [
+    (torch.float32, torch.int32),
+    (torch.int32, torch.float32),
+    (torch.float64, torch.int64),
+    (torch.int64, torch.float32),
+    (torch.float32, torch.float64),
+]
+
+
+def _bitwise(got, ref):
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype, payload_dtype", SORT_TYPES)
+def test_sort_kernels_match_their_twins(cuda_card, key_dtype, payload_dtype):
+    keys, payload = _sort_inputs(key_dtype, payload_dtype, (6, 64, 128))
+    launches = (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES)
+    runs = bs.sort_runs(keys, payload)  # K3
+    _bitwise(runs, bs.sort_runs_reference(keys, payload))
+    k4 = tuple(t[:4].reshape(1, 4, 64, 128) for t in runs)
+    s14 = bs.merge_stage(*k4, 14)  # one K4 pass and one K5
+    _bitwise(s14, bs.merge_stage_reference(*k4, 14))
+    s15 = bs.merge_stage(*s14, 15)  # two K4 passes and one K5
+    _bitwise(s15, bs.merge_stage_reference(*s14, 15))
+    assert (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 3, launches[2] + 2,
+    )
+    rows = (t.reshape(3, -1) for t in _sort_inputs(key_dtype, payload_dtype, (3, 100_000), 1))
+    rows = tuple(rows)
+    got = bs.bitonic_sort_rows(*rows)
+    _bitwise(got, bs.bitonic_sort_rows_reference(*rows))
+    _bitwise((got[0],), (torch.sort(rows[0], dim=1).values,))
+
+
+@pytest.mark.cuda
+def test_sort_kernels_refuse_what_they_do_not_take(cuda_card, monkeypatch):
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(bs, "bitonic_sort_rows_reference", forbidden)
+    keys = torch.randn((2, 1000), device="cuda")
+    with pytest.raises(TypeError, match="keys"):
+        bs.bitonic_sort_rows(keys.half(), torch.zeros_like(keys))
+    with pytest.raises(TypeError, match="payload"):
+        bs.bitonic_sort_rows(keys, torch.zeros((2, 1000), dtype=torch.int16, device="cuda"))
+    with pytest.raises(ValueError, match="lie on"):
+        bs.bitonic_sort_rows(keys, torch.zeros((2, 1000)))
+
+
+@pytest.mark.cuda
+def test_sample_streaming_equals_sample(cuda_card):
+    sink = benchmarks.mixed_dag_20()
+    launches = cuda_exec.LAUNCHES
+    streamed = sink.sample_streaming(3 * N + 5, block_size=N, random_state=8, executor="cuda")
+    assert cuda_exec.LAUNCHES == launches + 4
+    single = sink.sample(3 * N + 5, random_state=8, gc_strategy=[], executor="cuda")
+    np.testing.assert_array_equal(streamed, single.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_estimate_runs_the_kernels_block_by_block(cuda_card):
+    sink = benchmarks.mixed_correlated_50()
+    launches = (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES)
+    st = sink.estimate(
+        5 * N, block_size=N, random_state=0, quantiles=(0.5,), histogram=(0.0, 50.0, 20)
+    )
+    assert (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES) == (launches[0] + 5, launches[1] + 5)
+    h = st["histogram"]
+    assert h["counts"].sum() + h["underflow"] + h["overflow"] == 5 * N
+    plan = tcompile.get_plan(sink)
+    assert streaming._resolve_executor(plan, frozenset({sink._id}), "auto", "imanconover") == "cuda"

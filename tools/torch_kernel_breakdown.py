@@ -1,11 +1,13 @@
 """Where the time of the port's CUDA path goes, on one card.
 
-    python3 tools/torch_kernel_breakdown.py [--n 100000000]
+    python3 tools/torch_kernel_breakdown.py [--n 100000000] [--streamed-n 268435456]
 
 Times the graph megakernel on tapes cut down from the two main paths'
 graphs, each alone, with CUDA events (median of 10 after one warm-up),
 and profiles one ``sample(executor="cuda")`` call of each path with
-``torch.profiler`` for its device time and idle share.  The cut-down
+``torch.profiler`` for its device time and idle share, then one streamed
+``estimate(quantiles, cvar)`` of each graph (``--streamed-n`` draws in
+2^24-blocks), its device time grouped by what the kernels do.  The cut-down
 graphs keep the main paths' distributions and drop the rest:
 
 * ``mixed_dag_20``: a store-only tape and the 8 draws summed (Philox:
@@ -28,6 +30,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -55,7 +58,9 @@ def time_ms(torch, fn, repeats=10):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=100_000_000)
-    n = parser.parse_args().n
+    parser.add_argument("--streamed-n", type=int, default=1 << 28)
+    args = parser.parse_args()
+    n = args.n
 
     import numpy as np
     import torch
@@ -158,6 +163,34 @@ def main():
         busy = float(np.sum(list(device.values())))
         emit({"profile": name, "sample_ms": wall_ms, "device_ms_by_kernel": device,
               "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms})
+
+    # One streamed estimate of each graph under the profiler: the device
+    # time of the megakernel, the statistics kernel, torch.sort's kernels
+    # (the quantile rows) and everything else (the fold's reductions).
+    groups = {"graph_megakernel": "graph_megakernel", "corr_stats": "corr_stats",
+              "sort": "sort", "radix": "sort"}
+    for name, sink in (("mixed_dag_20", dag), ("mixed_correlated_50", corr)):
+        def estimate():
+            sink.estimate(args.streamed_n, random_state=0, quantiles=(0.5, 0.99), cvar=(0.99,))
+
+        estimate()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            start = time.perf_counter()
+            estimate()  # ends in a host read
+            wall_ms = (time.perf_counter() - start) * 1e3
+        device = {}
+        for event in prof.key_averages():
+            us = getattr(event, "device_time_total", 0) or getattr(event, "cuda_time_total", 0)
+            if us and event.device_type == torch.autograd.DeviceType.CUDA:
+                group = next((g for key, g in groups.items() if key in event.key.lower()), "other")
+                device[group] = device.get(group, 0.0) + us / 1e3
+        busy = float(np.sum(list(device.values())))
+        emit({"streamed_profile": name, "n": args.streamed_n, "block": 1 << 24,
+              "estimate_ms": wall_ms, "device_ms_by_group": device, "device_busy_ms": busy,
+              "idle_share": 1.0 - busy / wall_ms})
 
 
 if __name__ == "__main__":
