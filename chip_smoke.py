@@ -44,15 +44,20 @@ K5 of ``csrc/bitonic_sort.cu``):
 
 11. sorts (50, 1e7) float32 keys carrying an int32 payload, the shape of
     the JAX package's Iman-Conover timing, and asserts each kernel was
-    launched (1, 66 and 11 times), that the keys equal ``torch.sort``'s
-    and the payloads are a permutation, each pointing at its key; runs
-    the kernels and their twin side by side on the same padded inputs
-    and holds every one of the 78 launches against the twin bitwise (keys
-    and payloads), and the call's output against the twin's; then the
-    whole call bitwise at (3, 1e5) and (4, 1e7), and ``sort_runs`` and
-    one ``merge_stage`` alone; times the sort, each kernel's share and
-    ``torch.sort`` plus a gather of the payload at (50, 1e7) and at the
-    streamed estimator's (128, 2^17).
+    launched as often as ``_merge_plan`` says (1, 15 and 11 times), that
+    the keys equal ``torch.sort``'s and the payloads are a permutation,
+    each pointing at its key; runs the kernels and their twin side by
+    side on the same padded inputs, through the same step groups, and
+    holds every one of the 27 launches against the twin bitwise (keys and
+    payloads), and the call's output against the twin's; then the whole
+    call bitwise at the ``SORT_CHECKS`` shapes (8+8-byte keys and
+    payloads, whose tail tile is 2^13, and rows of two blocks, where
+    stage 14 is a lone tail, among them), and ``sort_runs`` and a whole
+    and a partial ``merge_stage`` alone; times the sort, each kernel's
+    share, ``torch.sort`` plus a gather of the payload, and a copy of the
+    padded keys and payloads (what one tail reads and writes) at (50, 1e7)
+    and at the streamed estimator's (128, 2^17), checked launch by launch
+    too.
 
 The streamed path, ``estimate`` and ``sample_streaming``:
 
@@ -77,10 +82,11 @@ instructions at 132 SMs x 64 lanes x 1.98 GHz; float32 operations, an FMA
 counting two, at 67 TFLOP/s), counted per sample by ``OP_COST`` below.
 The sort kernels' entries are per call of ``bitonic_sort_rows`` at
 (50, 1e7), summed over each kernel's launches: its time, its twin's for
-the same steps, and its bound, which counts for every launch one read
-of the padded keys and payloads and one write of each slot that launch
-changes (the kernels work in place); the library call is ``torch.sort``
-plus a gather for the whole call.  The last line is
+the same steps, and its bound: for K3 one read of the padded keys and
+payloads and one write of each slot it changes (it works in place); for
+each merge stage one read and a write of each slot the stage changes,
+shared between K4 and K5 by the bytes their launches move in it; the
+library call is ``torch.sort`` plus a gather for the whole call.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero.  It needs the repository beside it and a CUDA card.
 """
@@ -107,7 +113,13 @@ SE_MAX = 5.0
 KERNELS = ("graph_megakernel", "corr_stats", "bitonic_sort")
 SORT_MAIN = (50, 10_000_000)  # the JAX package's Iman-Conover timing shape
 SORT_ROWS = (128, 1 << 17)  # one 2^24 block of the streamed quantile estimator
-SORT_CHECKS = ((3, 100_000), (4, 10_000_000))
+SORT_CHECKS = (  # (K, N, key dtype, payload dtype)
+    (3, 100_000, "float32", "int32"),
+    (4, 10_000_000, "float32", "int32"),
+    (4, 3_000_000, "float64", "int64"),  # 8+8 bytes: the tail's tile is 2^13
+    (5, 12_000, "float32", "int32"),  # n_blocks = 2: stage 14 is a lone tail
+    (5, 12_000, "float64", "int64"),
+)
 N_STREAM = 1_000_000_000
 BLOCK = 1 << 24
 
@@ -208,6 +220,7 @@ def main():
     from probabilit_tpu_torch.engine import cuda_exec
     from probabilit_tpu_torch.models.benchmarks import mixed_dag_20
     from probabilit_tpu_torch.models.distributions import Distribution
+    from probabilit_tpu_torch.ops import bitonic_sort as bs
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -226,9 +239,11 @@ def main():
         record = {"phase": "build", "kernel": name, "seconds": build_s, "library": lib_path.name,
                   "spill_lines": [line for line in lines if "spill" in line],
                   "ptxas": [line for line in lines if "ptxas" in line and "spill" not in line]}
-        if name == "bitonic_sort":  # K3 and K5 hold one run: 8192 keys and payloads
-            record["dynamic_smem_bytes"] = {
-                f"{k}-byte keys, {p}-byte payload": 8192 * (k + p) for k in (4, 8) for p in (4, 8)}
+        if name == "bitonic_sort":  # K3 holds an 8192-run, K5 a padded 2^tile_log tile
+            record["dynamic_smem_bytes_k3_k5"] = {
+                f"{k}-byte keys, {p}-byte payload":
+                    [8192 * (k + p), (k + p) * (33 << bs._tile_log(k, p)) // 32]
+                for k in (4, 8) for p in (4, 8)}
         emit(record)
 
     config.set_device("cuda")
@@ -510,6 +525,22 @@ def sorted_pairs_ok(torch, keys, payload, got):
             and bool(torch.equal(torch.sort(sp, dim=1).values, torch.sort(payload, dim=1).values)))
 
 
+def sort_plan(bs, K, n_blocks, k, p):
+    """The launches of one ``bitonic_sort_rows`` call after its padding, in
+    order: (kernel, stage, steps, launch) with ``launch()`` running it on
+    the padded buffers ``k`` and ``p`` (stage and steps None for K3)."""
+    tile = bs._tile_log(k.element_size(), p.element_size())
+    plan = [("sort_runs", None, None, lambda: bs._sort_runs_(k, p))]
+    for stage in range(bs.RUN_LOG + 1, (n_blocks * bs.RUN).bit_length()):
+        *passes, tail = bs._merge_plan(stage, tile)
+        for js in passes:
+            plan.append(("block_exchange", stage, js,
+                         lambda stage=stage, js=js: bs._exchange_(k, p, K, n_blocks, stage, js)))
+        plan.append(("tail", stage, tail,
+                     lambda stage=stage, js=tail: bs._tail_(k, p, K, n_blocks, stage, js)))
+    return plan
+
+
 def sort_call_ms(torch, bs, keys, payload, repeats=5):
     """Median per-kernel device ms of one ``bitonic_sort_rows`` call, from
     CUDA events around each launch, after one warm-up call."""
@@ -517,21 +548,13 @@ def sort_call_ms(torch, bs, keys, payload, repeats=5):
     per_kernel = {"sort_runs": [], "block_exchange": [], "tail": []}
     for rep in range(repeats + 1):
         kp, pp = bs._pad(keys, payload)
-        n_blocks = kp.shape[1] // bs.RUN
         marks = []  # (kernel, start event, stop event)
-
-        def timed(name, fn, *args):
+        for name, _, _, launch in sort_plan(bs, K, kp.shape[1] // bs.RUN, kp, pp):
             start, stop = cuda_events(torch, 2)
             start.record()
-            fn(*args)
+            launch()
             stop.record()
             marks.append((name, start, stop))
-
-        timed("sort_runs", bs._sort_runs_, kp, pp)
-        for stage in range(bs.RUN_LOG + 1, (n_blocks * bs.RUN).bit_length()):
-            for j in range(stage - 1, bs.RUN_LOG - 1, -1):
-                timed("block_exchange", bs._exchange_, kp, pp, K, n_blocks, stage, j)
-            timed("tail", bs._tail_, kp, pp, K, n_blocks, stage)
         torch.cuda.synchronize()
         if rep:
             sums = dict.fromkeys(per_kernel, 0.0)
@@ -545,15 +568,19 @@ def sort_call_ms(torch, bs, keys, payload, repeats=5):
 
 def sort_lockstep(torch, bs, keys, payload, got):
     """Run the kernels and their plain twin side by side on the padded
-    inputs of one ``bitonic_sort_rows`` call, and hold the buffers after
-    every launch against the twin's bitwise (keys and payloads), and the
-    twin's final rows against ``got``, that call's output.
+    inputs of one ``bitonic_sort_rows`` call, through the same step groups,
+    and hold the buffers after every launch against the twin's bitwise
+    (keys and payloads), and the twin's final rows against ``got``, that
+    call's output.
 
     Returns per kernel: the twin's ms for the same steps (CUDA events),
-    the max |kernel - twin| over its launches, and the bytes its launches
-    must move: each launch reads the padded keys and payloads once and
-    writes the slots whose key or payload it changes (a slot it leaves
-    alone needs no write; these kernels work in place).
+    the max |kernel - twin| over its launches, ``pass_bytes``, what its
+    launches move as designed (each reads the padded keys and payloads
+    once and writes the slots it changes; these kernels work in place),
+    and ``bound_bytes``, the least any schedule must move: K3 as its pass;
+    each merge stage one read of the padded buffers and one write of each
+    slot the stage changes, shared between K4 and K5 in proportion to
+    their ``pass_bytes`` in that stage.
     """
     K, N = keys.shape
     kp, pp = bs._pad(keys, payload)  # the kernels' buffers
@@ -561,7 +588,8 @@ def sort_lockstep(torch, bs, keys, payload, got):
     n_blocks = kp.shape[1] // bs.RUN
     length = n_blocks * bs.RUN
     slot = kp.element_size() + pp.element_size()
-    out = {name: {"twin_ms": 0.0, "max_abs_err": 0.0, "bytes": 0}
+    read = kp.numel() * slot
+    out = {name: {"twin_ms": 0.0, "max_abs_err": 0.0, "pass_bytes": 0, "bound_bytes": 0.0}
            for name in ("sort_runs", "block_exchange", "tail")}
 
     def runs_twin(k, p):
@@ -576,34 +604,40 @@ def sort_lockstep(torch, bs, keys, payload, got):
             return k, p
         return twin
 
-    def launch(name, kernel, twin):
-        nonlocal tk, tp
+    def changed(k0, p0):
+        return int(((tk != k0) | (tp != p0)).sum())
+
+    stage_start, moved = None, {}
+    for name, stage, js, kernel in sort_plan(bs, K, n_blocks, kp, pp):
+        if name != "sort_runs" and stage_start is None:
+            stage_start, moved = (tk, tp), {"block_exchange": 0, "tail": 0}
         before_k, before_p = tk, tp
         start, stop = cuda_events(torch, 2)
         start.record()
-        tk, tp = twin(tk, tp)
+        tk, tp = runs_twin(tk, tp) if name == "sort_runs" else steps_twin(stage, js)(tk, tp)
         stop.record()
         kernel()
         torch.cuda.synchronize()
         record = out[name]
         record["twin_ms"] += start.elapsed_time(stop)
         same = torch.equal(kp, tk) and torch.equal(pp, tp)
-        check(same, f"{name} at ({K}, {N}): kernel differs from its twin, "
-                    f"{int((kp != tk).sum())} keys and {int((pp != tp).sum())} payloads")
-        changed = int(((tk != before_k) | (tp != before_p)).sum())
-        record["bytes"] += kp.numel() * slot + changed * slot
+        check(same, f"{name} at ({K}, {N}), stage {stage}, steps {js}: kernel differs from "
+                    f"its twin, {int((kp != tk).sum())} keys and {int((pp != tp).sum())} payloads")
+        moves = read + changed(before_k, before_p) * slot
+        record["pass_bytes"] += moves
         del before_k, before_p
-
-    launch("sort_runs", lambda: bs._sort_runs_(kp, pp), runs_twin)
-    for stage in range(bs.RUN_LOG + 1, length.bit_length()):
-        for j in range(stage - 1, bs.RUN_LOG - 1, -1):
-            launch("block_exchange",
-                   lambda: bs._exchange_(kp, pp, K, n_blocks, stage, j), steps_twin(stage, [j]))
-        launch("tail", lambda: bs._tail_(kp, pp, K, n_blocks, stage),
-               steps_twin(stage, range(bs.RUN_LOG - 1, -1, -1)))
+        if name == "sort_runs":
+            record["bound_bytes"] += moves
+            continue
+        moved[name] += moves
+        if name == "tail":  # the stage ends: share its bound
+            stage_bytes = read + changed(*stage_start) * slot
+            for kernel_name, share in moved.items():
+                out[kernel_name]["bound_bytes"] += stage_bytes * share / sum(moved.values())
+            stage_start = None
     check(torch.equal(tk[:, :N], got[0]) and torch.equal(tp[:, :N], got[1]),
           f"({K}, {N}): bitonic_sort_rows differs from its twin")
-    del kp, pp, tk, tp
+    del kp, pp, tk, tp, stage_start
     return out
 
 
@@ -613,11 +647,17 @@ def sort_path(torch, np, smi):
 
     gen = torch.Generator(device="cuda").manual_seed(11)
 
-    def inputs(K, N):
-        keys = torch.randn((K, N), generator=gen, device="cuda")
+    def inputs(K, N, key_dtype=torch.float32, payload_dtype=torch.int32):
+        keys = torch.randn((K, N), generator=gen, device="cuda", dtype=key_dtype)
         keys[:, ::7] = torch.floor(keys[:, ::7] * 4)  # duplicate keys (no -0.0)
-        payload = torch.arange(N, dtype=torch.int32, device="cuda").expand(K, N).contiguous()
+        payload = torch.arange(N, dtype=payload_dtype, device="cuda").expand(K, N).contiguous()
         return keys, payload
+
+    def expected_launches(N, key_dtype=torch.float32, payload_dtype=torch.int32):
+        tile = bs._tile_log(key_dtype.itemsize, payload_dtype.itemsize)
+        stages = range(bs.RUN_LOG + 1, (bs.padded_blocks(N) * bs.RUN).bit_length())
+        return {"sort_runs": 1, "tail": len(stages),
+                "block_exchange": sum(len(bs._merge_plan(s, tile)) - 1 for s in stages)}
 
     # The main path: the Iman-Conover shape, through the entry point.
     keys, payload = inputs(*SORT_MAIN)
@@ -626,8 +666,7 @@ def sort_path(torch, np, smi):
     torch.cuda.synchronize()
     launches = {"sort_runs": bs.RUNS_LAUNCHES, "block_exchange": bs.EXCHANGE_LAUNCHES,
                 "tail": bs.TAIL_LAUNCHES}
-    check(launches == {"sort_runs": 1, "block_exchange": 66, "tail": 11},
-          f"sort launches per call: {launches}")
+    check(launches == expected_launches(SORT_MAIN[1]), f"sort launches per call: {launches}")
     check(sorted_pairs_ok(torch, keys, payload, got),
           "(50, 1e7): keys unsorted, payloads off their keys or not a permutation")
     emit({"phase": "sort_main_path", "shape": SORT_MAIN, "launches": launches})
@@ -640,27 +679,38 @@ def sort_path(torch, np, smi):
     emit({"phase": "sort_vs_twin_main", "shape": SORT_MAIN, "bitwise_equal": True,
           **{f"{name}_{key}": value for name, record in main.items()
              for key, value in record.items()}})
-    for K, N in SORT_CHECKS:
-        k, p = inputs(K, N)
+    for K, N, key_name, payload_name in SORT_CHECKS:
+        key_dtype, payload_dtype = getattr(torch, key_name), getattr(torch, payload_name)
+        k, p = inputs(K, N, key_dtype, payload_dtype)
+        bs.RUNS_LAUNCHES = bs.EXCHANGE_LAUNCHES = bs.TAIL_LAUNCHES = 0
         got = bs.bitonic_sort_rows(k, p)
+        counts = {"sort_runs": bs.RUNS_LAUNCHES, "block_exchange": bs.EXCHANGE_LAUNCHES,
+                  "tail": bs.TAIL_LAUNCHES}
         ref = bs.bitonic_sort_rows_reference(k, p)
         key_err = (got[0] - ref[0]).abs().max().item()
         payload_diff = int((got[1] != ref[1]).sum())
+        check(counts == expected_launches(N, key_dtype, payload_dtype),
+              f"({K}, {N}) {key_dtype}/{payload_dtype}: launches {counts}")
         check(torch.equal(got[0], ref[0]) and payload_diff == 0,
-              f"({K}, {N}): kernels vs twin, key err {key_err}, {payload_diff} payloads differ")
+              f"({K}, {N}) {key_dtype}/{payload_dtype}: kernels vs twin, key err {key_err}, "
+              f"{payload_diff} payloads differ")
         check(sorted_pairs_ok(torch, k, p, got), f"({K}, {N}): keys unsorted or payloads off")
-        emit({"phase": "sort_vs_twin", "shape": [K, N], "n_blocks": bs.padded_blocks(N),
+        emit({"phase": "sort_vs_twin", "shape": [K, N], "keys": str(key_dtype),
+              "payload": str(payload_dtype), "n_blocks": bs.padded_blocks(N),
+              "tile_log": bs._tile_log(k.element_size(), p.element_size()), "launches": counts,
               "max_abs_err": key_err, "payloads_differing": payload_diff})
         del got, ref, k, p
     k, p = inputs(64, 8192)
     runs = bs.sort_runs(k.reshape(64, bs.SUB, bs.LANES), p.reshape(64, bs.SUB, bs.LANES))
     runs_ref = bs.sort_runs_reference(k.reshape(64, bs.SUB, bs.LANES), p.reshape(64, bs.SUB, bs.LANES))
     blocks = [t.reshape(2, 32, bs.SUB, bs.LANES) for t in runs]
-    merged = bs.merge_stage(*blocks, 18)
-    merged_ref = bs.merge_stage_reference(*blocks, 18)
-    alone = all(torch.equal(a, b) for a, b in zip(runs + merged, runs_ref + merged_ref))
+    outs, refs = list(runs), list(runs_ref)
+    for stage in (18, 16):  # a whole-row stage and a partial one
+        outs += bs.merge_stage(*blocks, stage)
+        refs += bs.merge_stage_reference(*blocks, stage)
+    alone = all(torch.equal(a, b) for a, b in zip(outs, refs))
     check(alone, "sort_runs or merge_stage alone differs from its twin")
-    emit({"phase": "sort_kernels_alone", "sort_runs_runs": 64, "merge_stage": 18,
+    emit({"phase": "sort_kernels_alone", "sort_runs_runs": 64, "merge_stages": [18, 16],
           "merge_shape": [2, 32, bs.SUB, bs.LANES], "bitwise_equal": alone})
 
     # Timings on this card, each beside torch.sort (unstable) and a gather.
@@ -672,25 +722,29 @@ def sort_path(torch, np, smi):
     for shape in (SORT_MAIN, SORT_ROWS):
         if shape != SORT_MAIN:
             keys, payload = inputs(*shape)
+            record = sort_lockstep(torch, bs, keys, payload, bs.bitonic_sort_rows(keys, payload))
+        else:
+            record = main
         K, N = shape
-        n_pad = bs.padded_blocks(N) * bs.RUN
         bs.RUNS_LAUNCHES = bs.EXCHANGE_LAUNCHES = bs.TAIL_LAUNCHES = 0
         bs.bitonic_sort_rows(keys, payload)
         per_call = [bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES]
         call_ms = cuda_time_ms(lambda: bs.bitonic_sort_rows(keys, payload))
         library_ms = cuda_time_ms(lambda: library(keys, payload))
-        passes = 1 + sum(s - 13 + 1 for s in range(14, n_pad.bit_length()))
-        padded_bytes = K * n_pad * 8
+        kp, pp = bs._pad(keys, payload)  # a copy moves what one K5 tail must
+        kc, pc = torch.empty_like(kp), torch.empty_like(pp)
+        copy_ms = cuda_time_ms(lambda: (kc.copy_(kp), pc.copy_(pp)))
+        del kp, pp, kc, pc
         timing[shape] = {
             "shape": [K, N], "card": smi, "call_ms": call_ms, "library_ms": library_ms,
-            "passes": passes, "launches_per_call_k3_k4_k5": per_call,
+            "launches_per_call_k3_k4_k5": per_call, "padded_copy_ms": copy_ms,
+            "kernel_ms": sort_call_ms(torch, bs, keys, payload),
             "read_write_bound_ms": 2 * K * N * 8 / HBM_BYTES_PER_S * 1e3,
-            "network_bound_ms": passes * 2 * padded_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": {name: r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+                         for name, r in record.items()},
+            "design_floor_ms": {name: r["pass_bytes"] / HBM_BYTES_PER_S * 1e3
+                                for name, r in record.items()},
         }
-        if shape == SORT_MAIN:
-            timing[shape]["kernel_ms"] = sort_call_ms(torch, bs, keys, payload)
-            timing[shape]["network_needed_ms"] = sum(
-                record["bytes"] for record in main.values()) / HBM_BYTES_PER_S * 1e3
         emit({"phase": "sort_timing", **timing[shape]})
         del keys, payload
     torch.cuda.empty_cache()
@@ -708,7 +762,7 @@ def sort_path(torch, np, smi):
             "max_abs_err": main[name]["max_abs_err"],
             "ms": kernel_ms[name],
             "plain_ms": main[name]["twin_ms"],
-            "bound_ms": main[name]["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": main[name]["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": library_ms,
         }

@@ -7,9 +7,12 @@ same public functions and layouts:
   bitonic network, every 8192-element run sorted, run g ascending iff g
   is even (kernel K3, ``_local_sort_kernel``);
 * ``merge_stage(keys, payload, stage)`` on ``(K, n_blocks, 64, 128)``:
-  one stage, steps j = stage-1..13 as compare-exchange passes between
-  partner 8192-blocks (kernel K4, ``_block_exchange_kernel``), then steps
-  12..0 inside each block (kernel K5, ``_tail_kernel``);
+  one stage, steps j = stage-1..0.  The TPU runs steps 13 and up as
+  passes between partner 8192-blocks (``_block_exchange_kernel``), then
+  12..0 inside each block (``_tail_kernel``).  Here ``_merge_plan``
+  groups steps stage-1..T, T = log2 of the tail's tile (14, or 13 for 8+8
+  bytes; ``_tile_log``), into passes of up to ``FUSE`` distances (kernel
+  K4), then runs T-1..0 inside each 2^T tile (kernel K5);
 * ``bitonic_sort_rows(keys, payload)`` on ``(K, N)``: rows padded with
   sentinel keys to ``n_blocks = max(2, 2^ceil(log2(ceil(N/8192))))``
   blocks, ``sort_runs``, then stages 14..log2(n_pad); the first N columns.
@@ -18,6 +21,8 @@ Element e of a run is its flat position (the JAX package's row-major
 (64, 128) run layout is the same order), and the direction of stage s is
 bit s of the lo element's index within its row (for stage 13 of
 ``sort_runs``: the parity of the global run index, as the TPU kernel).
+Every grouping runs the same compare-exchanges in the same order on each
+element, so the result does not depend on the plan.
 
 Every step keeps the JAX package's rules, so keys *and* payloads equal
 its output bit for bit, duplicates included: a pair swaps iff it is
@@ -72,6 +77,8 @@ __all__ = [
 RUN = 8192  # elements per phase-1 run and per merge block
 SUB, LANES = 64, 128  # the JAX package's (sublane, lane) run layout
 RUN_LOG = 13
+FUSE = 5  # K4: the most steps (distances) one pass runs
+SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90 (227 KB)
 
 # Launches of K3 (sort_runs), K4 (one block-exchange pass) and K5 (one
 # tail), by the wrappers below.
@@ -88,6 +95,23 @@ def padded_blocks(n):
     """8192-blocks per row after padding ``n`` columns: a power of two, >= 2."""
     blocks = -(-max(n, RUN) // RUN)
     return max(2, 1 << (blocks - 1).bit_length())
+
+
+def _tile_log(key_bytes, payload_bytes):
+    """log2 of K5's tile: the most elements, a power of two, whose keys and
+    payloads fit in one block's shared memory with the kernel's pad slot
+    after every 32 (14 for 4+4, 4+8 and 8+4 bytes, 13 for 8+8).  The kernel
+    takes it as an argument."""
+    return (SMEM_BYTES * 32 // 33 // (key_bytes + payload_bytes)).bit_length() - 1
+
+
+def _merge_plan(stage, tile_log, fuse=FUSE):
+    """The step groups of one merge stage, as tuples of descending j: the
+    K4 passes (steps stage-1..tile_log, up to ``fuse`` a pass), then the
+    K5 tail (steps tile_log-1..0), always the last group."""
+    js = range(stage - 1, tile_log - 1, -1)
+    passes = [tuple(js[i : i + fuse]) for i in range(0, len(js), fuse)]
+    return passes + [tuple(range(tile_log - 1, -1, -1))]
 
 
 def _sentinel(dtype):
@@ -271,8 +295,8 @@ def bitonic_sort_rows(keys, payload):
     """Sort each row of ``(K, N)`` keys ascending, carrying ``payload``.
 
     Returns ``(keys, payload)`` of shape ``(K, N)``.  On CUDA tensors:
-    one K3 launch, then for each stage s = 14..log2(n_pad) its s - 13 K4
-    passes and one K5, all in place on the padded copies.
+    one K3 launch, then for each stage s = 14..log2(n_pad) the K4 passes
+    and the K5 tail of ``_merge_plan``, all in place on the padded copies.
     """
     _check_rows(keys, payload)
     if _on_cpu(keys):
@@ -314,22 +338,26 @@ def _sort_runs_(k, p):
     RUNS_LAUNCHES += 1
 
 
-def _exchange_(k, p, rows, n_blocks, stage, j):
-    """K4: one compare-exchange pass at distance 2^j (j >= 13)."""
+def _pad_log(n_blocks):
+    return (n_blocks * RUN).bit_length() - 1
+
+
+def _exchange_(k, p, rows, n_blocks, stage, js):
+    """K4: one pass over steps ``js`` (descending, consecutive, >= 13)."""
     global EXCHANGE_LAUNCHES
-    n_pad_log = (n_blocks * RUN).bit_length() - 1
     err = _lib().bitonic_block_exchange(
-        k.data_ptr(), p.data_ptr(), *_codes(k, p), rows, n_pad_log, stage, j, _stream(k)
+        k.data_ptr(), p.data_ptr(), *_codes(k, p), rows, _pad_log(n_blocks), stage, js[0],
+        len(js), _stream(k),
     )
     _check_err(err, "bitonic_block_exchange")
     EXCHANGE_LAUNCHES += 1
 
 
-def _tail_(k, p, rows, n_blocks, stage):
-    """K5: steps 12..0 of ``stage`` inside every 8192-block."""
+def _tail_(k, p, rows, n_blocks, stage, js):
+    """K5: steps ``js`` = tile_log-1..0 of ``stage`` inside every tile."""
     global TAIL_LAUNCHES
     err = _lib().bitonic_tail(
-        k.data_ptr(), p.data_ptr(), *_codes(k, p), rows, n_blocks.bit_length() - 1, stage,
+        k.data_ptr(), p.data_ptr(), *_codes(k, p), rows, _pad_log(n_blocks), stage, len(js),
         _stream(k),
     )
     _check_err(err, "bitonic_tail")
@@ -337,9 +365,10 @@ def _tail_(k, p, rows, n_blocks, stage):
 
 
 def _merge_stage_(k, p, rows, n_blocks, stage):
-    for j in range(stage - 1, RUN_LOG - 1, -1):
-        _exchange_(k, p, rows, n_blocks, stage, j)
-    _tail_(k, p, rows, n_blocks, stage)
+    *passes, tail = _merge_plan(stage, _tile_log(k.element_size(), p.element_size()))
+    for js in passes:
+        _exchange_(k, p, rows, n_blocks, stage, js)
+    _tail_(k, p, rows, n_blocks, stage, tail)
 
 
 def _lib():
@@ -348,10 +377,9 @@ def _lib():
     lib = _build.load("bitonic_sort")
     common = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
     lib.bitonic_sort_runs.argtypes = common + [ctypes.c_void_p]
-    lib.bitonic_block_exchange.argtypes = common + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.bitonic_tail.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ints = [ctypes.c_int] * 4  # n_pad_log, stage, then j_top, steps (K4) or tile_log (K5)
+    lib.bitonic_block_exchange.argtypes = common + ints + [ctypes.c_void_p]
+    lib.bitonic_tail.argtypes = common + ints[:3] + [ctypes.c_void_p]
     for fn in (lib.bitonic_sort_runs, lib.bitonic_block_exchange, lib.bitonic_tail):
         fn.restype = ctypes.c_int
     return lib

@@ -171,6 +171,100 @@ def test_kernel_source_matches_the_wrapper():
                   torch.int64: "int64_t"}
     for dtype, code in bs._KEY_CODE.items():
         assert f"case {code}: return Launcher<{type_names[dtype]}, P>" in src
-    for name in ("bitonic_sort_runs", "bitonic_block_exchange", "bitonic_tail"):
-        assert re.search(rf'extern "C" int {name}\(', src)
+    common = ["void* keys", "void* payload", "int key_type", "int payload_bytes"]
+    signatures = {
+        "bitonic_sort_runs": common + ["int64_t runs", "void* stream"],
+        "bitonic_block_exchange": common + ["int64_t rows", "int n_pad_log", "int stage",
+                                            "int j_top", "int steps", "void* stream"],
+        "bitonic_tail": common + ["int64_t rows", "int n_pad_log", "int stage", "int tile_log",
+                                  "void* stream"],
+    }
+    for name, params in signatures.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        assert found, name
+        assert [" ".join(p.split()) for p in found.group(1).split(",")] == params, name
     assert f"kRun = {bs.RUN};" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert f"kMaxFuse = {bs.FUSE};" in src and f"kMaxSmem = {bs.SMEM_BYTES};" in src
+    assert "constexpr int pad(int e) { return e + (e >> 5); }" in src  # the tile rule's pad
+    tail = src[src.index("tail_kernel(K* keys"):src.index("constexpr int kMaxGrid")]
+    assert tail.count("__syncthreads()") == 3
+
+
+@pytest.mark.parametrize("sizes, tile", [((4, 4), 14), ((4, 8), 14), ((8, 4), 14), ((8, 8), 13)])
+def test_tail_tile_is_the_largest_that_fits(sizes, tile):
+    key_bytes, payload_bytes = sizes
+    assert bs._tile_log(key_bytes, payload_bytes) == tile
+    slots = lambda t: (1 << t) + (1 << (t - 5))  # the tile and its pad slots
+    assert slots(tile) * (key_bytes + payload_bytes) <= bs.SMEM_BYTES
+    assert slots(tile + 1) * (key_bytes + payload_bytes) > bs.SMEM_BYTES
+
+
+@pytest.mark.parametrize("tile_log", [13, 14])
+@pytest.mark.parametrize("fuse", [1, 3, bs.FUSE])
+def test_merge_plan_covers_each_step_once(tile_log, fuse):
+    for stage in range(14, 25):
+        plan = bs._merge_plan(stage, tile_log, fuse)
+        *passes, tail = plan
+        assert [j for group in plan for j in group] == list(range(stage - 1, -1, -1))
+        assert tail == tuple(range(tile_log - 1, -1, -1))
+        for group in passes:
+            assert 1 <= len(group) <= fuse and min(group) >= tile_log
+
+
+@pytest.mark.parametrize("shape, launches", [((50, 10_000_000), (1, 15, 11)),
+                                             ((128, 1 << 17), (1, 3, 4))])
+def test_plan_launches_at_the_measured_shapes(shape, launches):
+    """The counts PERF.md states for float32 keys and int32 payloads."""
+    n_pad = bs.padded_blocks(shape[1]) * bs.RUN
+    tile = bs._tile_log(4, 4)
+    stages = range(bs.RUN_LOG + 1, n_pad.bit_length())
+    passes = sum(len(bs._merge_plan(s, tile)) - 1 for s in stages)
+    assert (1, passes, len(stages)) == launches
+
+
+def _run_plan(keys, payload, stage, tile_log, fuse):
+    """``merge_stage``'s steps, group by group as the wrapper launches them."""
+    K = keys.shape[0]
+    length = keys[0].numel()
+    k, p = keys.reshape(K, length), payload.reshape(K, length)
+    for group in bs._merge_plan(stage, tile_log, fuse):
+        for j in group:
+            k, p = bs._step(k, p, j, bs._desc_bits(length, stage, j, k.device))
+    return k.reshape(keys.shape), p.reshape(keys.shape)
+
+
+@pytest.fixture(scope="module", params=["normal", "duplicates"])
+def merged_by_jax(request):
+    """Sorted runs of (2, 4) blocks and the JAX package's stages 14 and 15."""
+    rng = np.random.default_rng(5)
+    shape = (8, 64, 128)
+    k = (rng.normal(size=shape) if request.param == "normal"
+         else rng.integers(0, 300, size=shape)).astype(np.float32)
+    p = np.arange(k.size, dtype=np.int32).reshape(shape)
+    runs = [np.array(a).reshape(2, 4, 64, 128)
+            for a in ps.sort_runs(jnp.asarray(k), jnp.asarray(p), interpret=True)]
+    s14 = [np.array(a) for a in ps.merge_stage(*map(jnp.asarray, runs), 14, interpret=True)]
+    s15 = [np.asarray(a) for a in ps.merge_stage(*map(jnp.asarray, s14), 15, interpret=True)]
+    return runs, s14, s15
+
+
+@pytest.mark.parametrize("tile_log, fuse", [(14, bs.FUSE), (13, bs.FUSE), (13, 1)])
+def test_plan_groups_equal_the_twin_and_the_jax_stages(merged_by_jax, tile_log, fuse):
+    runs, s14, s15 = merged_by_jax
+    got14 = _run_plan(*map(torch.from_numpy, runs), 14, tile_log, fuse)
+    _assert_bitwise(s14, [t.numpy() for t in got14])
+    got15 = _run_plan(*got14, 15, tile_log, fuse)
+    _assert_bitwise(s15, [t.numpy() for t in got15])
+    # Deeper stages, where the plan has several K4 groups, against the twin:
+    # rows of 16 blocks after the twin's stages 14..s-1.
+    rng = np.random.default_rng(tile_log * 10 + fuse)
+    keys = torch.from_numpy(rng.integers(0, 5000, size=(32, 64, 128)).astype(np.float32))
+    payload = torch.arange(keys.numel(), dtype=torch.int32).reshape(keys.shape)
+    k, p = (t.reshape(2, 16, 64, 128) for t in bs.sort_runs_reference(keys, payload))
+    for stage in range(14, 18):
+        ref = bs.merge_stage_reference(k, p, stage)
+        got = _run_plan(k, p, stage, tile_log, fuse)
+        _assert_bitwise([t.numpy() for t in ref], [t.numpy() for t in got])
+        k, p = ref
+    np.testing.assert_array_equal(k.reshape(2, -1).numpy(),
+                                  np.sort(keys.reshape(2, -1).numpy(), axis=1))

@@ -230,17 +230,26 @@ def _bitwise(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("key_dtype, payload_dtype", SORT_TYPES)
 def test_sort_kernels_match_their_twins(cuda_card, key_dtype, payload_dtype):
-    keys, payload = _sort_inputs(key_dtype, payload_dtype, (6, 64, 128))
+    # Tiles of 2^14 (4+4, 4+8, 8+4 bytes) and 2^13 (8+8: stage 14 takes a
+    # K4 pass); stages 14 and 15 over whole rows, then stage 15 over rows
+    # of 2^16 (a partial stage: its groups stay inside half a row).
+    keys, payload = _sort_inputs(key_dtype, payload_dtype, (16, 64, 128))
     launches = (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES)
     runs = bs.sort_runs(keys, payload)  # K3
     _bitwise(runs, bs.sort_runs_reference(keys, payload))
     k4 = tuple(t[:4].reshape(1, 4, 64, 128) for t in runs)
-    s14 = bs.merge_stage(*k4, 14)  # one K4 pass and one K5
+    s14 = bs.merge_stage(*k4, 14)
     _bitwise(s14, bs.merge_stage_reference(*k4, 14))
-    s15 = bs.merge_stage(*s14, 15)  # two K4 passes and one K5
+    s15 = bs.merge_stage(*s14, 15)
     _bitwise(s15, bs.merge_stage_reference(*s14, 15))
+    k8 = tuple(t.reshape(2, 8, 64, 128) for t in runs)
+    m14 = bs.merge_stage_reference(*k8, 14)
+    partial = bs.merge_stage(*m14, 15)
+    _bitwise(partial, bs.merge_stage_reference(*m14, 15))
+    tile = bs._tile_log(keys.element_size(), payload.element_size())
+    passes = sum(len(bs._merge_plan(stage, tile)) - 1 for stage in (14, 15, 15))
     assert (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES) == (
-        launches[0] + 1, launches[1] + 3, launches[2] + 2,
+        launches[0] + 1, launches[1] + passes, launches[2] + 3,
     )
     rows = (t.reshape(3, -1) for t in _sort_inputs(key_dtype, payload_dtype, (3, 100_000), 1))
     rows = tuple(rows)
