@@ -10,7 +10,7 @@ gc_strategy=[], executor="cuda")``, runs the graph megakernel:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels from ``probabilit_tpu_torch/csrc`` with nvcc, one
    process per source, all started together, and prints ptxas's register
-   and spill counts;
+   and spill-store bytes per kernel instance;
 3. samples the flagship graph at n = 1e8 and asserts that the kernel was
    launched, that the sink is finite, of shape (1e8,), and on the card;
 4. holds the kernel against its plain PyTorch twin (``run_reference``:
@@ -44,20 +44,26 @@ K5 of ``csrc/bitonic_sort.cu``):
 
 11. sorts (50, 1e7) float32 keys carrying an int32 payload, the shape of
     the JAX package's Iman-Conover timing, and asserts each kernel was
-    launched as often as ``_merge_plan`` says (1, 15 and 11 times), that
-    the keys equal ``torch.sort``'s and the payloads are a permutation,
-    each pointing at its key; runs the kernels and their twin side by
-    side on the same padded inputs, through the same step groups, and
-    holds every one of the 27 launches against the twin bitwise (keys and
+    launched as often as the plan says (K3 once for stages 1..14, then
+    per stage 15..24 the K4 passes and the K5 tail of ``_merge_plan``: 1,
+    15 and 10 times), that the keys equal ``torch.sort``'s and the
+    payloads are a permutation, each pointing at its key; runs the kernels
+    and their twin side by side on the same padded inputs, through the
+    same step groups (K3's through ``sort_tiles_reference``), and holds
+    every one of the 26 launches against the twin bitwise (keys and
     payloads), and the call's output against the twin's; then the whole
     call bitwise at the ``SORT_CHECKS`` shapes (8+8-byte keys and
-    payloads, whose tail tile is 2^13, and rows of two blocks, where
-    stage 14 is a lone tail, among them), and ``sort_runs`` and a whole
-    and a partial ``merge_stage`` alone; times the sort, each kernel's
-    share, ``torch.sort`` plus a gather of the payload, and a copy of the
-    padded keys and payloads (what one tail reads and writes) at (50, 1e7)
-    and at the streamed estimator's (128, 2^17), checked launch by launch
-    too.
+    payloads, whose tile is 2^13, and rows of two blocks, 2^14, sorted by
+    K3 alone, among them), and ``sort_runs`` (64 and an odd 63 runs) and
+    a whole and a partial ``merge_stage`` alone; times the sort, each
+    kernel's share, ``torch.sort`` plus a gather of the payload for the
+    call and for K3's work (every 2^14 tile of the padded rows), and a
+    copy of the padded keys and payloads (what one tail reads and writes)
+    at (50, 1e7) and at the streamed estimator's (128, 2^17), checked
+    launch by launch too; and times K3 alone for each width of keys and
+    payloads (``K3_TYPES``) at both shapes: at a 2^14 tile where it fits
+    and at 2^13 followed by K5's stage 14, the same stages 1..14, held
+    equal bitwise and timed in turns.
 
 The streamed path, ``estimate`` and ``sample_streaming``:
 
@@ -86,7 +92,8 @@ the same steps, and its bound: for K3 one read of the padded keys and
 payloads and one write of each slot it changes (it works in place); for
 each merge stage one read and a write of each slot the stage changes,
 shared between K4 and K5 by the bytes their launches move in it; the
-library call is ``torch.sort`` plus a gather for the whole call.  The last line is
+library call is ``torch.sort`` plus a gather, of every tile for K3, of
+the whole rows for K4 and K5.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero.  It needs the repository beside it and a CUDA card.
 """
@@ -94,6 +101,7 @@ exits non-zero.  It needs the repository beside it and a CUDA card.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +127,12 @@ SORT_CHECKS = (  # (K, N, key dtype, payload dtype)
     (4, 3_000_000, "float64", "int64"),  # 8+8 bytes: the tail's tile is 2^13
     (5, 12_000, "float32", "int32"),  # n_blocks = 2: stage 14 is a lone tail
     (5, 12_000, "float64", "int64"),
+)
+K3_TYPES = (  # (key dtype, payload dtype): K3 timed alone for every pair width
+    ("float32", "int32"),
+    ("float32", "int64"),
+    ("float64", "int32"),
+    ("float64", "int64"),
 )
 N_STREAM = 1_000_000_000
 BLOCK = 1 << 24
@@ -183,6 +197,25 @@ def bound(n, nbytes, cost):
     return times[by] * 1e3, by
 
 
+def ptxas_instances(log):
+    """{kernel instance: [registers, spill-store bytes]} from ``-Xptxas=-v``
+    output.  An instance is ``name<mangled template arguments>``: f, i, d,
+    l for float, int32, float64, int64 keys; j, m for 4- and 8-byte
+    payloads; Li14 for the integer 14."""
+    kernels = "sort_tiles_kernel|block_exchange_kernel|tail_kernel|corr_stats|graph_megakernel"
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        found = re.search(rf"Function properties for \S*?({kernels})(?:I(\w*?)EE)?", line)
+        if found:
+            name, spill = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else ""), 0
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line:
+            out[name] = [int(re.search(r"Used (\d+) registers", line).group(1)), spill]
+            name = None
+    return out
+
+
 def cuda_time_ms(fn, repeats=5):
     """Median wall time of ``fn`` on the card, by CUDA events, after one
     warm-up call."""
@@ -211,6 +244,8 @@ def main():
     here = Path(__file__).resolve().parent
     if Path(probabilit_tpu_torch.__file__).resolve().parent.parent != here:
         raise SystemExit("chip_smoke.py must run from the repository that holds it.")
+    if sys.argv[1:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}; see the docstring.")
 
     import numpy as np
     import scipy.stats
@@ -235,14 +270,11 @@ def main():
         built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     build_s = time.perf_counter() - t0
     for name, (lib_path, log) in built.items():
-        lines = log.splitlines()
         record = {"phase": "build", "kernel": name, "seconds": build_s, "library": lib_path.name,
-                  "spill_lines": [line for line in lines if "spill" in line],
-                  "ptxas": [line for line in lines if "ptxas" in line and "spill" not in line]}
-        if name == "bitonic_sort":  # K3 holds an 8192-run, K5 a padded 2^tile_log tile
+                  "registers_and_spill_bytes": ptxas_instances(log)}
+        if name == "bitonic_sort":  # K3 and K5 hold a padded 2^tile_log tile
             record["dynamic_smem_bytes_k3_k5"] = {
-                f"{k}-byte keys, {p}-byte payload":
-                    [8192 * (k + p), (k + p) * (33 << bs._tile_log(k, p)) // 32]
+                f"{k}-byte keys, {p}-byte payload": (k + p) * (33 << bs._tile_log(k, p)) // 32
                 for k in (4, 8) for p in (4, 8)}
         emit(record)
 
@@ -528,10 +560,13 @@ def sorted_pairs_ok(torch, keys, payload, got):
 def sort_plan(bs, K, n_blocks, k, p):
     """The launches of one ``bitonic_sort_rows`` call after its padding, in
     order: (kernel, stage, steps, launch) with ``launch()`` running it on
-    the padded buffers ``k`` and ``p`` (stage and steps None for K3)."""
+    the padded buffers ``k`` and ``p`` (for K3: stage None, steps the
+    stages 1..T it runs inside each 2^T tile)."""
     tile = bs._tile_log(k.element_size(), p.element_size())
-    plan = [("sort_runs", None, None, lambda: bs._sort_runs_(k, p))]
-    for stage in range(bs.RUN_LOG + 1, (n_blocks * bs.RUN).bit_length()):
+    n_pad_log = bs._pad_log(n_blocks)
+    plan = [("sort_runs", None, tuple(range(1, tile + 1)),
+             lambda: bs._sort_tiles_(k, p, n_pad_log, tile))]
+    for stage in bs._merge_stages(n_pad_log, tile):
         *passes, tail = bs._merge_plan(stage, tile)
         for js in passes:
             plan.append(("block_exchange", stage, js,
@@ -592,10 +627,9 @@ def sort_lockstep(torch, bs, keys, payload, got):
     out = {name: {"twin_ms": 0.0, "max_abs_err": 0.0, "pass_bytes": 0, "bound_bytes": 0.0}
            for name in ("sort_runs", "block_exchange", "tail")}
 
-    def runs_twin(k, p):
-        k, p = bs.sort_runs_reference(k.reshape(-1, bs.SUB, bs.LANES),
-                                      p.reshape(-1, bs.SUB, bs.LANES))
-        return k.reshape(K, length), p.reshape(K, length)
+    def runs_twin(k, p):  # K3: stages 1..T inside each tile
+        tile = bs._tile_log(k.element_size(), p.element_size())
+        return bs.sort_tiles_reference(k, p, tile, bs._pad_log(n_blocks))
 
     def steps_twin(stage, js):
         def twin(k, p):
@@ -641,6 +675,59 @@ def sort_lockstep(torch, bs, keys, payload, got):
     return out
 
 
+def sort_inputs(torch, gen, K, N, key_dtype=None, payload_dtype=None):
+    """(K, N) normal keys with duplicates, each row's column index as payload."""
+    keys = torch.randn((K, N), generator=gen, device="cuda", dtype=key_dtype or torch.float32)
+    keys[:, ::7] = torch.floor(keys[:, ::7] * 4)  # duplicate keys (no -0.0)
+    payload = torch.arange(N, dtype=payload_dtype or torch.int32, device="cuda")
+    return keys, payload.expand(K, N).contiguous()
+
+
+def k3_by_type(torch, bs, smi, library, shape, keys, payload):
+    """K3 alone on the padded ``keys`` and ``payload`` of one row sort: at a
+    2^14 tile where it fits, and at 2^13 followed by K5's stage 14 (the same
+    stages 1..14); for 8-byte keys with 8-byte payloads at 2^13 alone.  The
+    results are held equal bitwise; the times are taken in turns, each
+    twice, beside one read and write of the padded buffers at the card's
+    rate and ``torch.sort`` plus a gather of every tile of the row sort."""
+    K = shape[0]
+    kp, pp = bs._pad(keys, payload)
+    del keys, payload
+    n_blocks = kp.shape[1] // bs.RUN
+    n_pad_log = bs._pad_log(n_blocks)
+    tile = bs._tile_log(kp.element_size(), pp.element_size())
+    runs = {"k3_t13": lambda k, p: bs._sort_tiles_(k, p, n_pad_log, 13)}
+    if tile == 14:
+        runs = {"k3_t14": lambda k, p: bs._sort_tiles_(k, p, n_pad_log, 14),
+                "k3_t13_k5_stage14": lambda k, p: (
+                    bs._sort_tiles_(k, p, n_pad_log, 13),
+                    bs._tail_(k, p, K, n_blocks, 14, tuple(range(13, -1, -1))))}
+    outs = []
+    for run in runs.values():
+        k, p = kp.clone(), pp.clone()
+        run(k, p)
+        outs.append((k, p))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(k, outs[0][0]) and torch.equal(p, outs[0][1]) for k, p in outs)
+    check(equal, f"{shape} {kp.dtype}/{pp.dtype}: K3 at 2^14 differs from 2^13 and K5's stage 14")
+    del outs, k, p
+    k, p = kp.clone(), pp.clone()
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        times[name].append(cuda_time_ms(lambda: runs[name](k, p)))
+    del k, p
+    tile_library_ms = cuda_time_ms(
+        lambda: library(kp.view(-1, 1 << tile), pp.view(-1, 1 << tile)))
+    slot = kp.element_size() + pp.element_size()
+    emit({"phase": "sort_k3_by_type", "card": smi, "shape": list(shape), "keys": str(kp.dtype),
+          "payload": str(pp.dtype), "row_sort_tile_log": tile,
+          "ms": {name: statistics.mean(v) for name, v in times.items()}, "ms_each_turn": times,
+          "bitwise_equal": equal, "read_write_ms": 2 * kp.numel() * slot / HBM_BYTES_PER_S * 1e3,
+          "tile_library_ms": tile_library_ms})
+    del kp, pp
+    torch.cuda.empty_cache()
+
+
 def sort_path(torch, np, smi):
     """Phase 11: the sort kernels K3-K5 through ``bitonic_sort_rows``."""
     from probabilit_tpu_torch.ops import bitonic_sort as bs
@@ -648,14 +735,11 @@ def sort_path(torch, np, smi):
     gen = torch.Generator(device="cuda").manual_seed(11)
 
     def inputs(K, N, key_dtype=torch.float32, payload_dtype=torch.int32):
-        keys = torch.randn((K, N), generator=gen, device="cuda", dtype=key_dtype)
-        keys[:, ::7] = torch.floor(keys[:, ::7] * 4)  # duplicate keys (no -0.0)
-        payload = torch.arange(N, dtype=payload_dtype, device="cuda").expand(K, N).contiguous()
-        return keys, payload
+        return sort_inputs(torch, gen, K, N, key_dtype, payload_dtype)
 
     def expected_launches(N, key_dtype=torch.float32, payload_dtype=torch.int32):
         tile = bs._tile_log(key_dtype.itemsize, payload_dtype.itemsize)
-        stages = range(bs.RUN_LOG + 1, (bs.padded_blocks(N) * bs.RUN).bit_length())
+        stages = bs._merge_stages(bs._pad_log(bs.padded_blocks(N)), tile)
         return {"sort_runs": 1, "tail": len(stages),
                 "block_exchange": sum(len(bs._merge_plan(s, tile)) - 1 for s in stages)}
 
@@ -700,17 +784,17 @@ def sort_path(torch, np, smi):
               "tile_log": bs._tile_log(k.element_size(), p.element_size()), "launches": counts,
               "max_abs_err": key_err, "payloads_differing": payload_diff})
         del got, ref, k, p
-    k, p = inputs(64, 8192)
-    runs = bs.sort_runs(k.reshape(64, bs.SUB, bs.LANES), p.reshape(64, bs.SUB, bs.LANES))
-    runs_ref = bs.sort_runs_reference(k.reshape(64, bs.SUB, bs.LANES), p.reshape(64, bs.SUB, bs.LANES))
+    k, p = (t.reshape(64, bs.SUB, bs.LANES) for t in inputs(64, 8192))
+    runs = bs.sort_runs(k, p)  # K3 at T = 13
+    outs, refs = [*runs, *bs.sort_runs(k[:63], p[:63])], [
+        *bs.sort_runs_reference(k, p), *bs.sort_runs_reference(k[:63], p[:63])]  # odd R
     blocks = [t.reshape(2, 32, bs.SUB, bs.LANES) for t in runs]
-    outs, refs = list(runs), list(runs_ref)
     for stage in (18, 16):  # a whole-row stage and a partial one
         outs += bs.merge_stage(*blocks, stage)
         refs += bs.merge_stage_reference(*blocks, stage)
     alone = all(torch.equal(a, b) for a, b in zip(outs, refs))
     check(alone, "sort_runs or merge_stage alone differs from its twin")
-    emit({"phase": "sort_kernels_alone", "sort_runs_runs": 64, "merge_stages": [18, 16],
+    emit({"phase": "sort_kernels_alone", "sort_runs_runs": [64, 63], "merge_stages": [18, 16],
           "merge_shape": [2, 32, bs.SUB, bs.LANES], "bitwise_equal": alone})
 
     # Timings on this card, each beside torch.sort (unstable) and a gather.
@@ -734,9 +818,12 @@ def sort_path(torch, np, smi):
         kp, pp = bs._pad(keys, payload)  # a copy moves what one K5 tail must
         kc, pc = torch.empty_like(kp), torch.empty_like(pp)
         copy_ms = cuda_time_ms(lambda: (kc.copy_(kp), pc.copy_(pp)))
+        tile = bs._tile_log(kp.element_size(), pp.element_size())
+        k3_library_ms = cuda_time_ms(lambda: library(kp.view(-1, 1 << tile), pp.view(-1, 1 << tile)))
         del kp, pp, kc, pc
         timing[shape] = {
             "shape": [K, N], "card": smi, "call_ms": call_ms, "library_ms": library_ms,
+            "k3_library_ms": k3_library_ms,
             "launches_per_call_k3_k4_k5": per_call, "padded_copy_ms": copy_ms,
             "kernel_ms": sort_call_ms(torch, bs, keys, payload),
             "read_write_bound_ms": 2 * K * N * 8 / HBM_BYTES_PER_S * 1e3,
@@ -748,9 +835,15 @@ def sort_path(torch, np, smi):
         emit({"phase": "sort_timing", **timing[shape]})
         del keys, payload
     torch.cuda.empty_cache()
+    for shape in (SORT_MAIN, SORT_ROWS):
+        for key_name, payload_name in K3_TYPES:
+            k3_by_type(torch, bs, smi, library, shape,
+                       *inputs(*shape, getattr(torch, key_name), getattr(torch, payload_name)))
 
     kernel_ms = timing[SORT_MAIN]["kernel_ms"]
-    library_ms = timing[SORT_MAIN]["library_ms"]
+    library_ms = {"sort_runs": timing[SORT_MAIN]["k3_library_ms"],  # every tile sorted
+                  "block_exchange": timing[SORT_MAIN]["library_ms"],  # the whole call
+                  "tail": timing[SORT_MAIN]["library_ms"]}
     sources = {"sort_runs": 116, "block_exchange": 171, "tail": 195}
     return {"kernels": [
         {
@@ -764,7 +857,7 @@ def sort_path(torch, np, smi):
             "plain_ms": main[name]["twin_ms"],
             "bound_ms": main[name]["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": library_ms,
+            "library_ms": library_ms[name],
         }
         for name, line in sources.items()
     ]}

@@ -10,17 +10,20 @@ same public functions and layouts:
   one stage, steps j = stage-1..0.  The TPU runs steps 13 and up as
   passes between partner 8192-blocks (``_block_exchange_kernel``), then
   12..0 inside each block (``_tail_kernel``).  Here ``_merge_plan``
-  groups steps stage-1..T, T = log2 of the tail's tile (14, or 13 for 8+8
+  groups steps stage-1..T, T = log2 of the tile (14, or 13 for 8+8
   bytes; ``_tile_log``), into passes of up to ``FUSE`` distances (kernel
   K4), then runs T-1..0 inside each 2^T tile (kernel K5);
 * ``bitonic_sort_rows(keys, payload)`` on ``(K, N)``: rows padded with
   sentinel keys to ``n_blocks = max(2, 2^ceil(log2(ceil(N/8192))))``
-  blocks, ``sort_runs``, then stages 14..log2(n_pad); the first N columns.
+  blocks, stages 1..T inside each 2^T tile (K3, ``sort_tiles_reference``
+  its twin: ``sort_runs`` and stage 14 for T = 14), then stages
+  T+1..log2(n_pad) (``_merge_stages``); the first N columns.
 
 Element e of a run is its flat position (the JAX package's row-major
 (64, 128) run layout is the same order), and the direction of stage s is
 bit s of the lo element's index within its row (for stage 13 of
-``sort_runs``: the parity of the global run index, as the TPU kernel).
+``sort_runs``: the parity of the global run index, as the TPU kernel;
+K3 reads it as bit 13 of the index in rows of 2^14 elements).
 Every grouping runs the same compare-exchanges in the same order on each
 element, so the result does not depend on the plan.
 
@@ -68,6 +71,7 @@ __all__ = [
     "padded_blocks",
     "sort_runs",
     "sort_runs_reference",
+    "sort_tiles_reference",
     "merge_stage",
     "merge_stage_reference",
     "bitonic_sort_rows",
@@ -80,8 +84,8 @@ RUN_LOG = 13
 FUSE = 5  # K4: the most steps (distances) one pass runs
 SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90 (227 KB)
 
-# Launches of K3 (sort_runs), K4 (one block-exchange pass) and K5 (one
-# tail), by the wrappers below.
+# Launches of K3 (stages 1..T of every tile), K4 (one block-exchange
+# pass) and K5 (one tail), by the wrappers below.
 RUNS_LAUNCHES = 0
 EXCHANGE_LAUNCHES = 0
 TAIL_LAUNCHES = 0
@@ -98,11 +102,16 @@ def padded_blocks(n):
 
 
 def _tile_log(key_bytes, payload_bytes):
-    """log2 of K5's tile: the most elements, a power of two, whose keys and
-    payloads fit in one block's shared memory with the kernel's pad slot
-    after every 32 (14 for 4+4, 4+8 and 8+4 bytes, 13 for 8+8).  The kernel
-    takes it as an argument."""
+    """log2 of K3's and K5's tile: the most elements, a power of two, whose
+    keys and payloads fit in one block's shared memory with the kernels'
+    pad slot after every 32 (14 for 4+4, 4+8 and 8+4 bytes, 13 for 8+8).
+    The kernels take it as an argument."""
     return (SMEM_BYTES * 32 // 33 // (key_bytes + payload_bytes)).bit_length() - 1
+
+
+def _merge_stages(n_pad_log, tile_log):
+    """The stages a row sort runs after K3's stages 1..tile_log."""
+    return range(tile_log + 1, n_pad_log + 1)
 
 
 def _merge_plan(stage, tile_log, fuse=FUSE):
@@ -148,17 +157,27 @@ def _desc_bits(length, stage, j, device):
     return ((group >> (stage - j - 1)) & 1).bool()[:, None]
 
 
-def sort_runs_reference(keys, payload):
-    """The plain twin of ``sort_runs``."""
-    R = keys.shape[0]
-    _check_runs(keys, payload)
-    k, p = keys.reshape(R, RUN), payload.reshape(R, RUN)
-    parity = (torch.arange(R, device=keys.device) & 1).bool()[:, None, None]
-    for stage in range(1, RUN_LOG + 1):
+def sort_tiles_reference(keys, payload, tile_log, n_pad_log):
+    """The plain twin of K3: stages 1..tile_log inside each 2^tile_log
+    tile of the flat keys, the direction of stage s bit s of an element's
+    index within its row of 2^n_pad_log (for the last stage: of the tile's
+    first index)."""
+    tile = 1 << tile_log
+    k, p = keys.reshape(-1, tile), payload.reshape(-1, tile)
+    first = torch.arange(k.shape[0], device=keys.device) << tile_log
+    last = (((first & ((1 << n_pad_log) - 1)) >> tile_log) & 1).bool()[:, None, None]
+    for stage in range(1, tile_log + 1):
         for j in range(stage - 1, -1, -1):
-            desc = parity if stage == RUN_LOG else _desc_bits(RUN, stage, j, keys.device)
+            desc = last if stage == tile_log else _desc_bits(tile, stage, j, keys.device)
             k, p = _step(k, p, j, desc)
     return k.reshape(keys.shape), p.reshape(keys.shape)
+
+
+def sort_runs_reference(keys, payload):
+    """The plain twin of ``sort_runs``: stage 13's direction, the run's
+    parity, is bit 13 of the index in rows of two runs."""
+    _check_runs(keys, payload)
+    return sort_tiles_reference(keys, payload, RUN_LOG, RUN_LOG + 1)
 
 
 def merge_stage_reference(keys, payload, stage):
@@ -274,7 +293,7 @@ def sort_runs(keys, payload):
     _cuda_ready(keys, payload)
     k = keys.clone(memory_format=torch.contiguous_format)
     p = payload.clone(memory_format=torch.contiguous_format)
-    _sort_runs_(k, p)
+    _sort_tiles_(k, p, RUN_LOG + 1, RUN_LOG)
     return k, p
 
 
@@ -295,8 +314,9 @@ def bitonic_sort_rows(keys, payload):
     """Sort each row of ``(K, N)`` keys ascending, carrying ``payload``.
 
     Returns ``(keys, payload)`` of shape ``(K, N)``.  On CUDA tensors:
-    one K3 launch, then for each stage s = 14..log2(n_pad) the K4 passes
-    and the K5 tail of ``_merge_plan``, all in place on the padded copies.
+    one K3 launch for stages 1..T inside each 2^T tile (T = ``_tile_log``),
+    then for each stage s = T+1..log2(n_pad) the K4 passes and the K5 tail
+    of ``_merge_plan``, all in place on the padded copies.
     """
     _check_rows(keys, payload)
     if _on_cpu(keys):
@@ -305,8 +325,9 @@ def bitonic_sort_rows(keys, payload):
     K, N = keys.shape
     kp, pp = _pad(keys, payload)
     n_blocks = kp.shape[1] // RUN
-    _sort_runs_(kp, pp)
-    for stage in range(RUN_LOG + 1, (n_blocks * RUN).bit_length()):
+    tile = _tile_log(kp.element_size(), pp.element_size())
+    _sort_tiles_(kp, pp, _pad_log(n_blocks), tile)
+    for stage in _merge_stages(_pad_log(n_blocks), tile):
         _merge_stage_(kp, pp, K, n_blocks, stage)
     return kp[:, :N], pp[:, :N]
 
@@ -329,11 +350,14 @@ def _check_err(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}.")
 
 
-def _sort_runs_(k, p):
-    """K3 over every 8192-run of the contiguous buffers."""
+def _sort_tiles_(k, p, n_pad_log, tile_log):
+    """K3: stages 1..tile_log inside every 2^tile_log tile of the
+    contiguous buffers, directions by the index in rows of 2^n_pad_log."""
     global RUNS_LAUNCHES
-    runs = k.numel() // RUN
-    err = _lib().bitonic_sort_runs(k.data_ptr(), p.data_ptr(), *_codes(k, p), runs, _stream(k))
+    err = _lib().bitonic_sort_runs(
+        k.data_ptr(), p.data_ptr(), *_codes(k, p), k.numel() >> tile_log, n_pad_log, tile_log,
+        _stream(k),
+    )
     _check_err(err, "bitonic_sort_runs")
     RUNS_LAUNCHES += 1
 
@@ -376,8 +400,9 @@ def _lib():
 
     lib = _build.load("bitonic_sort")
     common = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
-    lib.bitonic_sort_runs.argtypes = common + [ctypes.c_void_p]
-    ints = [ctypes.c_int] * 4  # n_pad_log, stage, then j_top, steps (K4) or tile_log (K5)
+    # n_pad_log, then tile_log (K3); stage, j_top, steps (K4); stage, tile_log (K5)
+    ints = [ctypes.c_int] * 4
+    lib.bitonic_sort_runs.argtypes = common + ints[:2] + [ctypes.c_void_p]
     lib.bitonic_block_exchange.argtypes = common + ints + [ctypes.c_void_p]
     lib.bitonic_tail.argtypes = common + ints[:3] + [ctypes.c_void_p]
     for fn in (lib.bitonic_sort_runs, lib.bitonic_block_exchange, lib.bitonic_tail):

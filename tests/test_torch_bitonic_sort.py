@@ -173,7 +173,8 @@ def test_kernel_source_matches_the_wrapper():
         assert f"case {code}: return Launcher<{type_names[dtype]}, P>" in src
     common = ["void* keys", "void* payload", "int key_type", "int payload_bytes"]
     signatures = {
-        "bitonic_sort_runs": common + ["int64_t runs", "void* stream"],
+        "bitonic_sort_runs": common + ["int64_t tiles", "int n_pad_log", "int tile_log",
+                                       "void* stream"],
         "bitonic_block_exchange": common + ["int64_t rows", "int n_pad_log", "int stage",
                                             "int j_top", "int steps", "void* stream"],
         "bitonic_tail": common + ["int64_t rows", "int n_pad_log", "int stage", "int tile_log",
@@ -183,11 +184,25 @@ def test_kernel_source_matches_the_wrapper():
         found = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
         assert found, name
         assert [" ".join(p.split()) for p in found.group(1).split(",")] == params, name
-    assert f"kRun = {bs.RUN};" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert f"kRunLog = {bs.RUN_LOG};" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     assert f"kMaxFuse = {bs.FUSE};" in src and f"kMaxSmem = {bs.SMEM_BYTES};" in src
     assert "constexpr int pad(int e) { return e + (e >> 5); }" in src  # the tile rule's pad
     tail = src[src.index("tail_kernel(K* keys"):src.index("constexpr int kMaxGrid")]
     assert tail.count("__syncthreads()") == 3
+    # K3: steps j <= 4 in registers, 5..9 inside a warp (__syncwarp()),
+    # block barriers only around the steps j >= 10 of stages
+    # 11..T: two a stage, one after the load and one before the store,
+    # 2 + 2 (T - 10) a tile (10 at T = 14; the shared-memory kernel it
+    # replaced had 91).
+    k3 = src[src.index("// ---- K3 ----"):src.index("// ---- end of K3 ----")]
+    kernel = k3[k3.index("sort_tiles_kernel(K* keys"):]
+    warp_loop = kernel[kernel.index("// Stages 6..10"):kernel.index("// Stages 11..T")]
+    block_loop = kernel[kernel.index("// Stages 11..T"):]
+    assert "__syncthreads()" not in k3[:k3.index("sort_tiles_kernel(K* keys")]
+    assert "__syncthreads()" not in warp_loop and warp_loop.count("__syncwarp()") == 2
+    assert "for (int S = 11; S <= T; ++S)" in block_loop
+    assert kernel.count("__syncthreads()") == 4 and block_loop.count("__syncthreads()") == 3
+    assert "run_steps" not in src  # the replaced shared-memory steps, a barrier each
 
 
 @pytest.mark.parametrize("sizes, tile", [((4, 4), 14), ((4, 8), 14), ((8, 4), 14), ((8, 8), 13)])
@@ -211,13 +226,15 @@ def test_merge_plan_covers_each_step_once(tile_log, fuse):
             assert 1 <= len(group) <= fuse and min(group) >= tile_log
 
 
-@pytest.mark.parametrize("shape, launches", [((50, 10_000_000), (1, 15, 11)),
-                                             ((128, 1 << 17), (1, 3, 4))])
+@pytest.mark.parametrize("shape, launches", [((50, 10_000_000), (1, 15, 10)),
+                                             ((128, 1 << 17), (1, 3, 3))])
 def test_plan_launches_at_the_measured_shapes(shape, launches):
-    """The counts PERF.md states for float32 keys and int32 payloads."""
+    """The counts PERF.md states for float32 keys and int32 payloads: K3
+    runs stages 1..14, the merge loop starts at stage 15."""
     n_pad = bs.padded_blocks(shape[1]) * bs.RUN
     tile = bs._tile_log(4, 4)
-    stages = range(bs.RUN_LOG + 1, n_pad.bit_length())
+    stages = bs._merge_stages(n_pad.bit_length() - 1, tile)
+    assert stages[0] == 15
     passes = sum(len(bs._merge_plan(s, tile)) - 1 for s in stages)
     assert (1, passes, len(stages)) == launches
 
@@ -235,7 +252,8 @@ def _run_plan(keys, payload, stage, tile_log, fuse):
 
 @pytest.fixture(scope="module", params=["normal", "duplicates"])
 def merged_by_jax(request):
-    """Sorted runs of (2, 4) blocks and the JAX package's stages 14 and 15."""
+    """Sorted runs of (2, 4) blocks and the JAX package's stages 14 and 15,
+    and the inputs they were made from."""
     rng = np.random.default_rng(5)
     shape = (8, 64, 128)
     k = (rng.normal(size=shape) if request.param == "normal"
@@ -245,12 +263,12 @@ def merged_by_jax(request):
             for a in ps.sort_runs(jnp.asarray(k), jnp.asarray(p), interpret=True)]
     s14 = [np.array(a) for a in ps.merge_stage(*map(jnp.asarray, runs), 14, interpret=True)]
     s15 = [np.asarray(a) for a in ps.merge_stage(*map(jnp.asarray, s14), 15, interpret=True)]
-    return runs, s14, s15
+    return runs, s14, s15, (k, p)
 
 
 @pytest.mark.parametrize("tile_log, fuse", [(14, bs.FUSE), (13, bs.FUSE), (13, 1)])
 def test_plan_groups_equal_the_twin_and_the_jax_stages(merged_by_jax, tile_log, fuse):
-    runs, s14, s15 = merged_by_jax
+    runs, s14, s15, _ = merged_by_jax
     got14 = _run_plan(*map(torch.from_numpy, runs), 14, tile_log, fuse)
     _assert_bitwise(s14, [t.numpy() for t in got14])
     got15 = _run_plan(*got14, 15, tile_log, fuse)
@@ -268,3 +286,195 @@ def test_plan_groups_equal_the_twin_and_the_jax_stages(merged_by_jax, tile_log, 
         k, p = ref
     np.testing.assert_array_equal(k.reshape(2, -1).numpy(),
                                   np.sort(keys.reshape(2, -1).numpy(), axis=1))
+
+
+@pytest.mark.parametrize("tile_log", [13, 14])
+def test_tile_twin_equals_the_jax_runs_and_stage_14(merged_by_jax, tile_log):
+    """K3's twin on rows of four runs (2^15): at T = 13 the JAX package's
+    ``sort_runs``, at T = 14 that followed by its ``merge_stage(14)``."""
+    runs, s14, _, (k, p) = merged_by_jax
+    got = bs.sort_tiles_reference(torch.from_numpy(k).reshape(2, -1),
+                                  torch.from_numpy(p).reshape(2, -1), tile_log, 15)
+    want = runs if tile_log == 13 else s14
+    _assert_bitwise([w.reshape(2, -1) for w in want], [t.numpy() for t in got])
+
+
+@pytest.mark.parametrize("R", [1, 5])
+def test_sort_runs_twin_is_the_tile_twin_at_13(R):
+    """Odd R: the last run pairs with nothing, and ascends iff R - 1 is even."""
+    rng = np.random.default_rng(R)
+    k = torch.from_numpy(rng.integers(0, 100, size=(R, 64, 128)).astype(np.int32))
+    p = torch.from_numpy(rng.normal(size=(R, 64, 128)).astype(np.float32))
+    got = bs.sort_runs(k, p)
+    _assert_bitwise([t.numpy() for t in bs.sort_tiles_reference(k, p, 13, 14)],
+                    [t.numpy() for t in got])
+    for g in range(R):
+        want = np.sort(k[g].reshape(-1).numpy())
+        np.testing.assert_array_equal(got[0][g].reshape(-1).numpy(),
+                                      want if g % 2 == 0 else want[::-1])
+
+
+def test_bitonic_sort_rows_twin_equals_tiles_then_merge_stages():
+    """The order the kernels run: stages 1..14 in K3, then 15.. (K4, K5)."""
+    rng = np.random.default_rng(9)
+    keys = torch.from_numpy(rng.integers(-50, 50, size=(2, 40000)).astype(np.float32))
+    payload = torch.arange(80000, dtype=torch.int64).reshape(2, -1)
+    kp, pp = bs._pad(keys, payload)
+    n_pad_log = kp.shape[1].bit_length() - 1
+    k, p = bs.sort_tiles_reference(kp, pp, 14, n_pad_log)
+    blocks = kp.shape[1] // bs.RUN
+    for stage in bs._merge_stages(n_pad_log, 14):
+        k, p = bs.merge_stage_reference(k.reshape(2, blocks, 64, 128),
+                                        p.reshape(2, blocks, 64, 128), stage)
+    ref = bs.bitonic_sort_rows_reference(keys, payload)
+    _assert_bitwise([t.numpy() for t in ref],
+                    [t.reshape(2, -1)[:, :40000].numpy() for t in (k, p)])
+
+
+# ---------------------------------------------------------------------
+# K3's schedule, emulated: the kernel's index maps and step groups
+# ---------------------------------------------------------------------
+
+def _slot(e):
+    return e + (e >> 5)  # the kernel's pad()
+
+
+def _k3_bases(T):
+    """Per thread: layout A's, B's and C's base slot, as the kernel forms them."""
+    tid = torch.arange(1 << (T - 5))
+    return _slot(tid), _slot(((tid >> 5) << 10) | (tid & 31)), _slot(tid << 5)
+
+
+class _K3:
+    """``sort_tiles_kernel`` over every tile at once: registers ``k``,
+    ``p`` of shape (tiles, threads, 32), shared memory of pad(2^T) slots a
+    tile.  Layout changes store and load by the kernel's slot formulas;
+    every step is ascending on keys reversed (a float's sign bit flipped,
+    an integer's every bit) where their stage sorts descending, as the
+    kernel's ``reverse_keys``; register steps go through the twin's
+    ``_step`` on the register axis."""
+
+    def __init__(self, keys, payload, T, n_pad_log):
+        self.T, self.top = T, T - 5
+        tiles = keys.numel() >> T
+        self.tid = torch.arange(1 << self.top)
+        self.reg = torch.arange(32)
+        first = torch.arange(tiles) << T
+        self.row_bits = (first[:, None] & ((1 << n_pad_log) - 1)) | (self.tid[None, :] << 5)
+        self.elems_a = (self.reg[None, :] << self.top) | self.tid[:, None]
+        gk, gp = keys.reshape(tiles, -1), payload.reshape(tiles, -1)
+        self.k, self.p = gk[:, self.elems_a], gp[:, self.elems_a]
+        self.sk = torch.zeros((tiles, _slot(1 << T)), dtype=keys.dtype)
+        self.sp = torch.zeros((tiles, _slot(1 << T)), dtype=payload.dtype)
+
+    def _slots(self, shift, base):
+        return base[:, None] + _slot(self.reg[None, :] << shift)
+
+    def store(self, shift, base):
+        slots = self._slots(shift, base)
+        self.sk[:, slots] = self.k
+        self.sp[:, slots] = self.p
+
+    def load(self, shift, base):
+        slots = self._slots(shift, base)
+        self.k, self.p = self.sk[:, slots], self.sp[:, slots]
+
+    def bit(self, s):
+        return ((self.row_bits >> s) & 1).bool()
+
+    def reverse(self, mask, uniform):
+        odd = torch.tensor([bin(r & mask).count("1") % 2 == 1 for r in range(32)])
+        flip = uniform[:, :, None] ^ odd[None, None, :]
+        bits = {4: torch.int32, 8: torch.int64}[self.k.element_size()]
+        width = 8 * self.k.element_size()
+        every = -(1 << (width - 1)) if self.k.dtype.is_floating_point else -1
+        flipped = self.k.view(bits) ^ torch.tensor(every, dtype=bits)
+        self.k = torch.where(flip, flipped.view(self.k.dtype), self.k)
+
+    def register_steps(self, bits, low=0):
+        for b in range(bits - 1, low - 1, -1):
+            self.k, self.p = bs._step(self.k, self.p, b, torch.tensor(False))
+
+    def run(self):
+        T, top = self.T, self.top
+        a0, b0, c0 = _k3_bases(T)
+        none = torch.zeros_like(self.bit(0))
+        self.store(top, a0)
+        self.load(0, c0)
+        self.reverse(2, none)
+        for S in range(1, T + 1):
+            if S <= 5:
+                self.register_steps(S)
+            else:
+                self.store(0, c0)
+                if S <= 10:
+                    self.load(5, b0)
+                    self.register_steps(S - 5)
+                else:
+                    self.load(top, a0)
+                    self.register_steps(S - top, 10 - top)
+                    self.store(top, a0)
+                    self.load(5, b0)
+                    self.register_steps(5)
+                self.store(5, b0)
+                self.load(0, c0)
+                self.register_steps(5)
+            if S < T:
+                if S < 4:
+                    self.reverse(3 << S, none)
+                elif S == 4:
+                    self.reverse(1 << 4, self.bit(5))
+                else:
+                    self.reverse(0, self.bit(S + 1) ^ self.bit(S))
+        self.reverse(0, self.bit(T))
+        self.store(0, c0)
+        self.load(top, a0)
+        out_k, out_p = torch.empty_like(self.sk[:, : 1 << T]), torch.empty_like(self.sp[:, : 1 << T])
+        out_k[:, self.elems_a], out_p[:, self.elems_a] = self.k, self.p
+        return out_k, out_p
+
+
+@pytest.mark.parametrize("T", [13, 14])
+def test_k3_layouts_are_bank_free_permutations(T):
+    """Each layout's slots are pad(element) for a permutation of the tile;
+    a warp's 32 lanes hit 32 banks at every register; a warp's B and C
+    elements are the same 1024 (a __syncwarp() between them suffices)."""
+    tid = torch.arange(1 << (T - 5))[:, None]
+    r = torch.arange(32)[None, :]
+    lane, warp = tid & 31, tid >> 5
+    elems = {"A": (r << (T - 5)) | tid, "B": (warp << 10) | (r << 5) | lane, "C": (tid << 5) | r}
+    shifts = {"A": T - 5, "B": 5, "C": 0}
+    for (name, e), base in zip(elems.items(), _k3_bases(T)):
+        slots = base[:, None] + _slot(r << shifts[name])
+        assert torch.equal(slots, _slot(e)), name
+        assert torch.equal(torch.sort(e.reshape(-1)).values, torch.arange(1 << T)), name
+        banks = (slots % 32).reshape(-1, 32, 32)  # (warp, lane, register)
+        assert all(len(set(banks[w, :, i].tolist())) == 32
+                   for w in range(banks.shape[0]) for i in range(32)), name
+    for w in range(1 << (T - 10)):
+        rows = slice(32 * w, 32 * w + 32)
+        assert set(elems["B"][rows].reshape(-1).tolist()) == set(elems["C"][rows].reshape(-1).tolist())
+
+
+@pytest.mark.parametrize("key_dtype", ["float32", "int32", "float64", "int64"])
+@pytest.mark.parametrize("T, n_pad_log", [(13, 14), (14, 14), (14, 15)])
+def test_k3_schedule_equals_the_tile_twin(T, n_pad_log, key_dtype):
+    """The emulated kernel, step group by step group, against
+    ``sort_tiles_reference`` bitwise: duplicates, and for float keys NaN
+    and signed zeros; integer keys span their whole range."""
+    rng = np.random.default_rng(T * 100 + n_pad_log)
+    n = 4 << T
+    if key_dtype.startswith("float"):
+        keys = rng.normal(size=n).astype(key_dtype)
+        keys[rng.choice(n, 40, replace=False)] = np.nan
+        keys[rng.choice(n, 40, replace=False)] = -0.0
+    else:
+        info = np.iinfo(key_dtype)
+        keys = rng.integers(info.min, info.max, size=n, dtype=key_dtype, endpoint=True)
+    keys[::3] = rng.integers(-8, 8, size=keys[::3].shape)
+    if key_dtype.startswith("int"):
+        keys[1:5] = [info.min, info.max, -1, 0]
+    k, p = torch.from_numpy(keys), torch.arange(n, dtype=torch.int32)
+    got = _K3(k, p, T, n_pad_log).run()
+    ref = bs.sort_tiles_reference(k, p, T, n_pad_log)
+    _assert_bitwise([t.numpy() for t in ref], [t.reshape(-1).numpy() for t in got])

@@ -219,6 +219,9 @@ SORT_TYPES = [
     (torch.float64, torch.int64),
     (torch.int64, torch.float32),
     (torch.float32, torch.float64),
+    (torch.int32, torch.int64),
+    (torch.float64, torch.float32),
+    (torch.int64, torch.float64),
 ]
 
 
@@ -231,9 +234,19 @@ def _bitwise(got, ref):
 @pytest.mark.parametrize("key_dtype, payload_dtype", SORT_TYPES)
 def test_sort_kernels_match_their_twins(cuda_card, key_dtype, payload_dtype):
     # Tiles of 2^14 (4+4, 4+8, 8+4 bytes) and 2^13 (8+8: stage 14 takes a
-    # K4 pass); stages 14 and 15 over whole rows, then stage 15 over rows
-    # of 2^16 (a partial stage: its groups stay inside half a row).
+    # K4 pass); K3 at T = 13 (sort_runs) and at the row sort's tile, over
+    # rows of 2^15 (stage T descending in every other tile) and of 2^T;
+    # stages 14 and 15 over whole rows, then stage 15 over rows of 2^16 (a
+    # partial stage: its groups stay inside half a row).
     keys, payload = _sort_inputs(key_dtype, payload_dtype, (16, 64, 128))
+    tile = bs._tile_log(keys.element_size(), payload.element_size())
+    for n_pad_log in (15, tile):
+        k, p = (t.reshape(-1).clone() for t in (keys, payload))
+        bs._sort_tiles_(k, p, n_pad_log, tile)  # K3 in place
+        _bitwise((k, p), bs.sort_tiles_reference(keys.reshape(-1), payload.reshape(-1), tile,
+                                                 n_pad_log))
+    odd = tuple(t[:15] for t in (keys, payload))
+    _bitwise(bs.sort_runs(*odd), bs.sort_runs_reference(*odd))  # K3 at T = 13, odd R
     launches = (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES)
     runs = bs.sort_runs(keys, payload)  # K3
     _bitwise(runs, bs.sort_runs_reference(keys, payload))
@@ -246,16 +259,19 @@ def test_sort_kernels_match_their_twins(cuda_card, key_dtype, payload_dtype):
     m14 = bs.merge_stage_reference(*k8, 14)
     partial = bs.merge_stage(*m14, 15)
     _bitwise(partial, bs.merge_stage_reference(*m14, 15))
-    tile = bs._tile_log(keys.element_size(), payload.element_size())
     passes = sum(len(bs._merge_plan(stage, tile)) - 1 for stage in (14, 15, 15))
     assert (bs.RUNS_LAUNCHES, bs.EXCHANGE_LAUNCHES, bs.TAIL_LAUNCHES) == (
         launches[0] + 1, launches[1] + passes, launches[2] + 3,
     )
-    rows = (t.reshape(3, -1) for t in _sort_inputs(key_dtype, payload_dtype, (3, 100_000), 1))
-    rows = tuple(rows)
-    got = bs.bitonic_sort_rows(*rows)
-    _bitwise(got, bs.bitonic_sort_rows_reference(*rows))
-    _bitwise((got[0],), (torch.sort(rows[0], dim=1).values,))
+    # Rows of 100,000 (2^17 padded) and of 12,000 (2^14: at T = 14 stage 14
+    # is the last stage and runs inside K3's one launch).
+    for n, merges in ((100_000, 17 - tile), (12_000, 14 - tile)):
+        rows = tuple(t.reshape(3, -1) for t in _sort_inputs(key_dtype, payload_dtype, (3, n), 1))
+        launches = (bs.RUNS_LAUNCHES, bs.TAIL_LAUNCHES)
+        got = bs.bitonic_sort_rows(*rows)
+        assert (bs.RUNS_LAUNCHES, bs.TAIL_LAUNCHES) == (launches[0] + 1, launches[1] + merges)
+        _bitwise(got, bs.bitonic_sort_rows_reference(*rows))
+        _bitwise((got[0],), (torch.sort(rows[0], dim=1).values,))
 
 
 @pytest.mark.cuda
