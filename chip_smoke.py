@@ -5,12 +5,16 @@
 Drives the port's main paths through the hand-written CUDA kernels and
 checks them: sampling, correlated sampling, the bitonic row sort, and
 streamed estimation.  The flagship path, ``mixed_dag_20().sample(1e8,
-gc_strategy=[], executor="cuda")``, runs the graph megakernel:
+gc_strategy=[], executor="cuda")``, runs the graph megakernel, which
+``engine/cuda_exec.py::generate`` writes per graph structure from the
+hand-written headers in ``probabilit_tpu_torch/csrc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the kernels from ``probabilit_tpu_torch/csrc`` with nvcc, one
-   process per source, all started together, and prints ptxas's register
-   and spill-store bytes per kernel instance;
+2. builds the kernels with nvcc, one process per source, all started
+   together: ``csrc/corr_stats.cu``, ``csrc/bitonic_sort.cu`` and the
+   generated megakernel of every graph and keep set the script runs
+   (``generated_tapes``); prints each build's seconds and ptxas's registers and
+   spill-store bytes per kernel instance;
 3. samples the flagship graph at n = 1e8 and asserts that the kernel was
    launched, that the sink is finite, of shape (1e8,), and on the card;
 4. holds the kernel against its plain PyTorch twin (``run_reference``:
@@ -67,6 +71,13 @@ K5 of ``csrc/bitonic_sort.cu``):
 
 The streamed path, ``estimate`` and ``sample_streaming``:
 
+13. (run before phase 11) holds both kernels at a ``start`` and an ``n``
+    that are no multiples of 4 against their twins (the tolerances of
+    phases 4 and 8) and K1's rows bitwise against the rows of a longer
+    run from sample 0 (the float4 path), down to n = 1; and runs two
+    graphs that differ only in their constants, which must share one
+    library and each match its own twin.
+
 12. ``mixed_dag_20().estimate(1e9, quantiles, cvar, histogram)`` with
     ``executor="auto"`` must launch K1 once per 2^24-block (60 times), its
     mean and std must agree with a single-shot ``sample(1e8)`` within 5
@@ -85,7 +96,8 @@ Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
 instructions at 132 SMs x 64 lanes x 1.98 GHz; float32 operations, an FMA
-counting two, at 67 TFLOP/s), counted per sample by ``OP_COST`` below.
+counting two, at 67 TFLOP/s), counted per sample by ``OP_COST`` below; a
+draw costs a quarter of a Philox call, whatever implements it.
 The sort kernels' entries are per call of ``bitonic_sort_rows`` at
 (50, 1e7), summed over each kernel's launches: its time, its twin's for
 the same steps, and its bound: for K3 one read of the padded keys and
@@ -118,7 +130,8 @@ STATS_TOL = 1e-5  # per sum of n terms of magnitude ~1: |kernel - twin| <= STATS
 CORR_TOL = 2e-3
 KS_P_MIN = 0.01
 SE_MAX = 5.0
-KERNELS = ("graph_megakernel", "corr_stats", "bitonic_sort")
+SOURCES = ("corr_stats", "bitonic_sort")  # csrc/<name>.cu; K1 is generated per graph
+N_UNALIGNED = (5, (1 << 22) + 3)  # a start and an n that are no multiples of 4
 SORT_MAIN = (50, 10_000_000)  # the JAX package's Iman-Conover timing shape
 SORT_ROWS = (128, 1 << 17)  # one 2^24 block of the streamed quantile estimator
 SORT_CHECKS = (  # (K, N, key dtype, payload dtype)
@@ -142,16 +155,18 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM at the 1980 MHz max clock
 FP32_FLOPS = 67e12  # an FMA counts two
 
-# Per-sample work of one tape instruction: (32-bit integer instructions,
-# float32 flops).  A Philox4x32-10 draw is 10 rounds of two IMAD.WIDE and
-# two 3-input XORs, plus the counter and the bits-to-uniform map;
+# Per-sample work of one tape row: (32-bit integer instructions, float32
+# flops).  A Philox4x32-10 call is 10 rounds of two IMAD.WIDE and two
+# 3-input XORs, plus the counter, 43 integer instructions, and yields four
+# draws, so a draw is a quarter of it, plus the bits-to-uniform map;
 # ndtri_fast is about 50 flops (two 9-term Horner polynomials, a log, a
 # sqrt); ndtr_fast about 25 (a 5-term polynomial, a division, an exp).
-# Transcendentals count 4 flops.  This is a floor, not a model of the
-# instruction stream: the interpreter's own loads and branches are left out.
+# Transcendentals count 4 flops.  This is a floor for the function, not a
+# model of any kernel's instruction stream.
 _NDTRI, _NDTR = 50, 25
+_DRAW_INTS = 43 / 4
 OP_COST = {
-    "DRAW": (43, 3), "LOADK": (0, 0), "STORE": (0, 0),
+    "DRAW": (_DRAW_INTS, 3), "LOADK": (0, 0), "STORE": (0, 0),
     "SCORE": (0, _NDTRI), "NDTR": (0, _NDTR + 2),
     "PPF_UNIFORM": (0, 2), "PPF_NORM": (0, _NDTRI + 2), "PPF_EXPON": (0, 6),
     "PPF_LOGNORM": (0, _NDTRI + 7), "PPF_TRIANG": (0, 14),
@@ -185,7 +200,7 @@ def tape_cost(tape, cuda_exec):
 def stats_cost(k):
     """(integer instructions, float32 flops) per sample of the statistics
     kernel with k columns: k draws and scores, then k + k(k+1)/2 sums."""
-    return 43 * k, k * (3 + _NDTRI + 1) + 2 * (k * (k + 1) // 2)
+    return _DRAW_INTS * k, k * (3 + _NDTRI + 1) + 2 * (k * (k + 1) // 2)
 
 
 def bound(n, nbytes, cost):
@@ -205,7 +220,8 @@ def ptxas_instances(log):
     kernels = "sort_tiles_kernel|block_exchange_kernel|tail_kernel|corr_stats|graph_megakernel"
     out, name, spill = {}, None, 0
     for line in log.splitlines():
-        found = re.search(rf"Function properties for \S*?({kernels})(?:I(\w*?)EE)?", line)
+        # Greedy: the mangled name also carries the source file's name.
+        found = re.search(rf"Function properties for \S*\d({kernels})(?:I(\w*?)EE)?", line)
         if found:
             name, spill = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else ""), 0
         elif name and "spill stores" in line:
@@ -233,6 +249,53 @@ def cuda_time_ms(fn, repeats=5):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def priced(loc, scale):
+    """A small graph whose structure is fixed and whose constants are not."""
+    from probabilit_tpu_torch.models import graph as tg
+    from probabilit_tpu_torch.models.distributions import Distribution
+
+    x = Distribution("norm", loc=loc, scale=scale)
+    return tg.Exp(x * 0.5) + Distribution("expon", scale=scale)
+
+
+def node_keep(plan, corr_first=False):
+    """The sink and up to 15 more nodes that are no constants: a correlated
+    plan's drivers first, then the nodes nearest the sink."""
+    keep = {plan.sink._id} | ({v._id for v in plan.corr_vars} if corr_first else set())
+    others = [n._id for n in plan.topo if n._id not in keep and not hasattr(n, "value")]
+    return frozenset(keep | set(others[len(others) - (16 - len(keep)):]))
+
+
+def normal_drivers(plan):
+    return [v for v in plan.corr_vars if v.distr == "norm"]
+
+
+def generated_tapes(cuda_exec, _compile):
+    """{label: tape} for every graph and keep set the phases run, built on
+    fresh graphs: the kernels' text depends on structure alone, so the
+    phases' own graphs find these builds."""
+    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50, mixed_dag_20
+    from probabilit_tpu_torch.models.distributions import Distribution
+
+    def tape(sink, keep=lambda plan: {plan.sink._id}):
+        plan = _compile.get_plan(sink)
+        return cuda_exec.lower(plan, cuda_exec.keep_order(plan, frozenset(keep(plan))))
+
+    return {
+        "mixed_dag_20": tape(mixed_dag_20()),
+        "mixed_dag_20, 16 rows": tape(mixed_dag_20(), node_keep),
+        "norm": tape(Distribution("norm", loc=3.0, scale=2.0)),
+        "mixed_correlated_50": tape(mixed_correlated_50()),
+        "mixed_correlated_50, 16 rows": tape(
+            mixed_correlated_50(), lambda plan: node_keep(plan, corr_first=True)),
+        "mixed_correlated_50, normal drivers": tape(
+            mixed_correlated_50(),
+            lambda plan: {plan.sink._id} | {v._id for v in normal_drivers(plan)}),
+        "priced(1, 2)": tape(priced(1.0, 2.0)),
+        "priced(-3.5, 0.25)": tape(priced(-3.5, 0.25)),
+    }
 
 
 def main():
@@ -264,19 +327,44 @@ def main():
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    # Phase 2: build, one nvcc per source, all started together.
+    # Phase 2: build, one nvcc per source, all started together: the two
+    # sources of csrc/ and the generated megakernel of every graph structure
+    # and keep set the phases below run.
+    generated = generated_tapes(cuda_exec, _compile)
+    texts = {}  # one build per distinct text
+    for label, tape in generated.items():
+        texts.setdefault(tape.source, []).append(label)
+
+    def build_one(item):
+        t = time.perf_counter()
+        if item in SOURCES:
+            lib_path, log = _build.build(item)
+        else:
+            lib_path, log = _build.build_generated("graph_megakernel", item, cuda_exec._HEADERS)
+        return lib_path, log, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    jobs = [*SOURCES, *texts]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(build_one, jobs)))
     build_s = time.perf_counter() - t0
-    for name, (lib_path, log) in built.items():
-        record = {"phase": "build", "kernel": name, "seconds": build_s, "library": lib_path.name,
+    for job, (lib_path, log, seconds) in built.items():
+        record = {"phase": "build", "kernel": job if job in SOURCES else "graph_megakernel",
+                  "seconds": seconds, "all_builds_seconds": build_s, "library": lib_path.name,
                   "registers_and_spill_bytes": ptxas_instances(log)}
-        if name == "bitonic_sort":  # K3 and K5 hold a padded 2^tile_log tile
+        if job == "bitonic_sort":  # K3 and K5 hold a padded 2^tile_log tile
             record["dynamic_smem_bytes_k3_k5"] = {
                 f"{k}-byte keys, {p}-byte payload": (k + p) * (33 << bs._tile_log(k, p)) // 32
                 for k in (4, 8) for p in (4, 8)}
+        if job not in SOURCES:
+            tape = generated[texts[job][0]]
+            record.update(graphs=texts[job], rows=tape.n_instr, constants=len(tape.consts),
+                          kept_rows=tape.n_keep, correlated=tape.n_corr,
+                          text_lines=job.count("\n"))
+            check(list(record["registers_and_spill_bytes"]) == ["graph_megakernel"],
+                  f"ptxas reported no graph_megakernel for {texts[job]}")
         emit(record)
+    check(len(texts) < len(generated), "graphs that differ only in constants gave two texts")
 
     config.set_device("cuda")
     config.set_dtype(torch.float32)
@@ -299,7 +387,7 @@ def main():
     # Phase 4: kernel against its plain twin on identical Philox bits.
     plan = _compile.get_plan(sink)
     words = cuda_exec.seed_words(0)
-    main_tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, {sink._id})).to("cuda")
+    main_tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, {sink._id}), "cuda")
     twin = cuda_exec.run_reference(main_tape, words, N_MAIN)[0]
     main_err = (out - twin).abs().max().item()
     main_scale = twin.abs().max().item()
@@ -309,9 +397,8 @@ def main():
           "max_abs_twin": main_scale, "tolerance": REL_TOL * main_scale})
     del twin
 
-    keep = [node for node in plan.topo if not hasattr(node, "value")][-16:]
-    keep_ids = frozenset(node._id for node in keep) | {sink._id}
-    node_tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, keep_ids)).to("cuda")
+    keep_ids = node_keep(plan)
+    node_tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep_ids), "cuda")
     got, _ = cuda_exec.run(node_tape, words, N_NODES)
     U = cuda_exec.philox_uniforms(words, N_NODES, plan.d, device="cuda")
     ref = cuda_exec.run_tape(node_tape, U)
@@ -375,6 +462,7 @@ def main():
     del out
 
     corr = correlated_path(torch, np, cuda_exec, _compile, smi)
+    odd = unaligned_and_shared_path(torch, cuda_exec, _compile, _build)
     sort = sort_path(torch, np, smi)
     stream = streamed_path(torch, np, cuda_exec, _compile, smi)
 
@@ -382,10 +470,12 @@ def main():
         {
             "name": "graph_megakernel",
             "route": "cuda",
-            "source": "probabilit_tpu_torch/csrc/graph_megakernel.cu",
+            # Generated per graph by cuda_exec.generate from csrc/graph_ops.cuh
+            # and csrc/sampling_math.cuh.
+            "source": "probabilit_tpu_torch/engine/cuda_exec.py",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
             "launches": launches + corr["k1_launches"] + stream["k1_launches"],
-            "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"]),
+            "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"]),
             "ms": kernel_ms,
             "plain_ms": twin_ms,
             "bound_ms": main_bound,
@@ -398,7 +488,7 @@ def main():
             "source": "probabilit_tpu_torch/csrc/corr_stats.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:577",
             "launches": corr["k2_launches"] + stream["k2_launches"],
-            "max_abs_err": max(corr["k2_err"], stream["k2_err"]),
+            "max_abs_err": max(corr["k2_err"], stream["k2_err"], odd["k2_err"]),
             "ms": corr["k2_ms"],
             "plain_ms": corr["k2_twin_ms"],
             "bound_ms": corr["k2_bound_ms"],
@@ -445,7 +535,7 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
           "max_rel_err": ((sums - sums_twin).abs() / sums_twin.abs().clamp(min=1.0)).max().item()})
 
     ab = cuda_exec.recolor_transform(plan, words, N_MAIN, device="cuda")
-    main_tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, {sink._id})).to("cuda")
+    main_tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, {sink._id}), "cuda")
     twin = cuda_exec.run_reference(main_tape, words, N_MAIN, ab)[0]
     k1_err = (out - twin).abs().max().item()
     scale = twin.abs().max().item()
@@ -454,10 +544,8 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
           "max_abs_twin": scale, "tolerance": REL_TOL * scale})
     del twin
 
-    keep_ids = frozenset([sink._id] + [v._id for v in plan.corr_vars])
-    others = [n._id for n in plan.topo if n._id not in keep_ids and not hasattr(n, "value")]
-    keep_ids |= set(others[-(16 - len(keep_ids)):])
-    node_tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, keep_ids)).to("cuda")
+    keep_ids = node_keep(plan, corr_first=True)
+    node_tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep_ids), "cuda")
     ab_nodes = cuda_exec.recolor_transform(plan, words, N_NODES, device="cuda")
     got, _ = cuda_exec.run(node_tape, words, N_NODES, ab_nodes)
     ref = cuda_exec.run_reference(node_tape, words, N_NODES, ab_nodes)
@@ -475,7 +563,7 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     del got, ref
 
     # Phase 9: the induced correlation and the executors' moments at 1e7.
-    normals = [v for v in plan.corr_vars if v.distr == "norm"]
+    normals = normal_drivers(plan)
     idx = [plan.corr_vars.index(v) for v in normals]
     sink.sample(N_MOMENTS, random_state=2, gc_strategy=normals, executor="cuda")
     got_corr = torch.corrcoef(torch.stack([v.samples_ for v in normals]).double()).cpu().numpy()
@@ -542,6 +630,80 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k1_err": k1_err,
             "k2_err": k2_err, "k2_ms": k2_ms, "k2_twin_ms": k2_twin_ms,
             "k2_bound_ms": k2_bound_ms, "k2_bound_by": k2_bound_by}
+
+
+def unaligned_and_shared_path(torch, cuda_exec, _compile, _build):
+    """Phase 13: a ``start`` and an ``n`` that are no multiples of 4, and
+    one library for two graphs that differ only in their constants."""
+    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50, mixed_dag_20
+
+    start, n = N_UNALIGNED
+    words = cuda_exec.seed_words(9)
+    errs = {"k1": 0.0, "k2": 0.0}
+    for name, build in (("mixed_dag_20", mixed_dag_20), ("mixed_correlated_50", mixed_correlated_50)):
+        sink = build()
+        plan = _compile.get_plan(sink)
+        tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, {sink._id}), "cuda")
+        record = {"phase": "unaligned_vs_twin", "graph": name, "start": start, "n": n}
+        ab = None
+        if plan.corr_vars:
+            columns = [plan.col_of[v._id] for v in plan.corr_vars]
+            sums = cuda_exec.corr_stats(words, n, columns, "cuda", start=start)
+            sums_twin = cuda_exec.corr_stats_reference(words, n, columns, "cuda", start=start)
+            k2_err = (sums - sums_twin).abs().max().item()
+            check(k2_err <= STATS_TOL * n, f"{name}: statistics kernel at start {start}, n {n}: "
+                                           f"{k2_err} > {STATS_TOL} * n")
+            for tiny in (1, 2, 3, 6):  # launches of one or two partial groups
+                a = cuda_exec.corr_stats(words, tiny, columns, "cuda", start=3)
+                b = cuda_exec.corr_stats_reference(words, tiny, columns, "cuda", start=3)
+                check((a - b).abs().max().item() <= 1e-4, f"{name}: statistics of {tiny} samples")
+            record.update(k2_max_abs_err=k2_err, k2_tolerance=STATS_TOL * n)
+            errs["k2"] = max(errs["k2"], k2_err)
+            ab = cuda_exec.recolor_transform(plan, words, n, start=start)
+        got, flag = cuda_exec.run(tape, words, n, ab, start=start)
+        # A run from sample 0 over a multiple of 4 takes the float4 path.
+        whole, _ = cuda_exec.run(tape, words, -(-(start + n) // 4) * 4, ab)
+        twin = cuda_exec.run_reference(tape, words, n, ab, start=start)
+        bitwise = bool(torch.equal(got, whole[:, start:start + n]))
+        check(bitwise, f"{name}: rows {start}..{start + n} differ from the aligned run's")
+        check(int(flag) == 0, f"{name}: the unaligned run flagged non-finite values")
+        k1_err = (got - twin).abs().max().item()
+        scale = twin.abs().max().item()
+        check(k1_err <= REL_TOL * scale, f"{name}: unaligned kernel vs twin {k1_err}")
+        for tiny in (1, 2, 3, 6):
+            part, _ = cuda_exec.run(tape, words, tiny, ab, start=start - 2)
+            check(bool(torch.equal(part, whole[:, start - 2:start - 2 + tiny])),
+                  f"{name}: {tiny} samples from {start - 2} differ from the aligned run's")
+        record.update(k1_bitwise_rows_of_aligned_run=bitwise, k1_max_abs_err=k1_err,
+                      k1_max_abs_twin=scale, k1_tolerance=REL_TOL * scale,
+                      tiny_n_checked=[1, 2, 3, 6])
+        errs["k1"] = max(errs["k1"], k1_err)
+        emit(record)
+        del got, whole, twin
+
+    # Two graphs that differ only in their constants: one text, one library.
+    libraries = len(_build._LIBS)
+    tapes, outs = [], []
+    for params in ((1.0, 2.0), (-3.5, 0.25)):
+        sink = priced(*params)
+        plan = _compile.get_plan(sink)
+        tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+        got, _ = cuda_exec.run(tape, words, N_NODES)
+        twin = cuda_exec.run_reference(tape, words, N_NODES)
+        err, scale = (got - twin).abs().max().item(), twin.abs().max().item()
+        check(err <= REL_TOL * scale, f"priced{params}: kernel vs twin {err} > {REL_TOL} * {scale}")
+        errs["k1"] = max(errs["k1"], err)
+        tapes.append(tape)
+        outs.append(got)
+    keys = [_build.generated_key(t.source, cuda_exec._HEADERS) for t in tapes]
+    check(keys[0] == keys[1] and tapes[0].consts != tapes[1].consts,
+          "two constant sets of one structure gave two cache keys")
+    check(len(_build._LIBS) == libraries + 1, "two constant sets loaded two libraries")
+    check(not torch.equal(outs[0], outs[1]), "the constants did not reach the kernel")
+    emit({"phase": "shared_build", "graphs": ["priced(1, 2)", "priced(-3.5, 0.25)"],
+          "cache_key": keys[0], "libraries_loaded": len(_build._LIBS) - libraries,
+          "constants": [list(t.consts) for t in tapes]})
+    return {"k1_err": errs["k1"], "k2_err": errs["k2"]}
 
 
 def cuda_events(torch, n):
@@ -907,7 +1069,7 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
         # The kernels of one streamed block (start = BLOCK) against their
         # twins, then timed alone for the host share.
         plan = _compile.get_plan(sink)
-        tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, {sink._id})).to("cuda")
+        tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, {sink._id}), "cuda")
         words = cuda_exec.seed_words(0)
         record = {"phase": "streamed_kernels_vs_twin", "graph": name, "n": BLOCK, "start": BLOCK}
         ab = None
@@ -967,7 +1129,7 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
                       "host_share": (wall - kernel_ms) / wall})
 
         if correlated:
-            normals = [v for v in plan.corr_vars if v.distr == "norm"]
+            normals = normal_drivers(plan)
             idx = [plan.corr_vars.index(v) for v in normals]
             _, run = streaming._block_program(sink, 1 << 22, "cuda", extra=tuple(normals))
             blocks = [torch.stack(run(b, 2)[1]) for b in range(-(-N_MOMENTS // (1 << 22)))]

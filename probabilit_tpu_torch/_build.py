@@ -2,10 +2,15 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/probabilit_tpu_torch/<name>-<key>.so``
 beside the package, where ``<key>`` hashes the compiler flags and the
-sources of ``csrc/``.  A build writes to a temporary file and renames it
-into place, so a concurrent process never loads a half-written library.
-The libraries expose plain ``extern "C"`` entry points, loaded with
-``ctypes``.  Every failure raises: there is no fallback.
+sources of ``csrc/``.  A generated source (the graph megakernel that
+``engine/cuda_exec.py::generate`` writes per graph structure) is written
+to ``<name>-<key>.cu`` in the same directory and built the same way, with
+``csrc/`` on the include path; its ``<key>`` hashes the flags, the text
+and the headers the text includes.  A build writes to a temporary file
+and renames it into place, so a concurrent process never loads a
+half-written library.  The libraries expose plain ``extern "C"`` entry
+points, loaded with ``ctypes``.  Every failure raises: there is no
+fallback.  Deleting ``build/probabilit_tpu_torch/`` clears every build.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "nvcc_path"]
+__all__ = ["build", "load", "build_generated", "load_generated", "generated_key", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -56,19 +61,15 @@ def _key():
     return digest.hexdigest()[:16]
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless the current build exists.
-
-    Returns ``(path, log)``: the library's path and the compiler's output
-    (``-Xptxas=-v`` register and spill counts), empty when the library was
-    already built.
-    """
-    out = BUILD_DIR / f"{name}-{_key()}.so"
+def _compile(source, out):
+    """nvcc ``source`` into the library ``out`` unless it exists; returns
+    the compiler's output (``-Xptxas=-v`` register and spill counts), empty
+    when the library was already built."""
     if out.exists():
-        return out, ""
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [str(nvcc_path()), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [str(nvcc_path()), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
@@ -79,14 +80,65 @@ def build(name):
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
-    return out, proc.stdout + proc.stderr
+    return proc.stdout + proc.stderr
+
+
+def build(name):
+    """Compile ``csrc/<name>.cu`` unless the current build exists.
+
+    Returns ``(path, log)``: the library's path and the compiler's output,
+    empty when the library was already built.
+    """
+    out = BUILD_DIR / f"{name}-{_key()}.so"
+    return out, _compile(CSRC / f"{name}.cu", out)
+
+
+def generated_key(text, headers):
+    """The cache key of a generated source: the compiler flags, the text
+    and the bytes of the ``csrc/`` headers it includes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(text.encode())
+    for header in headers:
+        digest.update(header.encode())
+        digest.update((CSRC / header).read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def build_generated(name, text, headers):
+    """Write the generated CUDA ``text`` beside its library and compile it
+    unless that build exists.
+
+    Returns ``(path, log)`` as ``build`` does.
+    """
+    stem = BUILD_DIR / f"{name}-{generated_key(text, headers)}"
+    out, source = stem.with_suffix(".so"), stem.with_suffix(".cu")
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = source.with_name(f"{source.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        try:
+            tmp.write_text(text)
+            os.replace(tmp, source)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return out, _compile(source, out)
+
+
+def _load(key, build_library):
+    with _LOCK:
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = _LIBS[key] = ctypes.CDLL(str(build_library()[0]))
+        return lib
 
 
 def load(name):
     """The ``ctypes`` handle of ``csrc/<name>.cu``, built at first use."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            path, _ = build(name)
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
-        return lib
+    return _load(name, lambda: build(name))
+
+
+def load_generated(name, text, headers):
+    """The ``ctypes`` handle of a generated source, built at first use and
+    loaded once per process and key."""
+    return _load(
+        (name, generated_key(text, headers)), lambda: build_generated(name, text, headers)
+    )

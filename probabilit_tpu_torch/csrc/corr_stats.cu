@@ -3,32 +3,37 @@
 // Replaces probabilit_tpu/engine/pallas_exec.py::_make_stats_kernel (the
 // TPU's pass-1 kernel, called from _recolor_transform).  For every sample
 // i in [start, start + n) it redraws the uniforms of the K correlated
-// columns from the same Philox4x32-10 stream as graph_megakernel.cu
-// (counter = (i mod 2^32, i >> 32, column, 0)), turns them into normal
+// columns from the same Philox4x32-10 stream as the generated graph
+// megakernel (sample i is word i & 3 of the call at counter
+// (g mod 2^32, g >> 32, column, 0), g = i >> 2), turns them into normal
 // scores z = ndtri_fast(u), and sums z_k and z_j z_k (upper triangle,
 // row-major): P = K + K(K+1)/2 sums.  engine/cuda_exec.py::recolor_transform
 // reduces the per-block partials in float64 and solves the K x K recolour
-// transform (A, b) that the megakernel's RECOLOR instructions apply.
+// transform (A, b) that the megakernel's RECOLOR rows apply.
 //
 // Unlike the TPU kernel, it draws exactly the columns plan.col_of[v] of
 // the correlated variables (the counter carries the column), so the main
-// kernel needs no reordered draw; a grid-stride loop over i < n needs no
-// padded tail and no mask.
+// kernel needs no reordered draw.
 //
-// What bounds it on an H100: ALU work.  Per sample it does K Philox draws
-// (10 rounds of two 32x32->64-bit multiplies and two 3-input XORs, ~43
-// integer instructions) and K Giles ndtri evaluations (a log, a sqrt, two
-// 9-term polynomials, ~50 flops), then P multiply-adds; it reads nothing
-// and writes 4 * P bytes per block.
+// What bounds it on an H100: ALU work.  Per group of four samples it does K
+// Philox calls (10 rounds of two 32x32->64-bit multiplies and two 3-input
+// XORs, ~43 integer instructions, all four words used) and 4 K Giles ndtri
+// evaluations (a log, a sqrt, two 9-term polynomials, ~50 flops), then 4 P
+// multiply-adds; it reads nothing and writes 4 * P bytes per block.
 //
-// What the design does about it: every sum lives in a register of its
-// thread for the whole loop (K is a template parameter, so all indices are
-// compile-time and nothing is spilled by indexing); the only
-// communication is one warp-shuffle and shared-memory reduction per block
-// at the end.  No atomics: the block sums in a fixed order and writes one
-// row of partials, so a seed gives the same sums on every run of a card.
-// At K = 16 the 152 accumulators and 16 scores press on the 255-register
-// limit; chip_smoke.py prints ptxas's spill count for each K.
+// What the design does about it: a thread owns whole groups, so each Philox
+// call yields four scores and the four samples' dependent chains (ten
+// rounds, two Horner polynomials) interleave in the pipes.  Every sum
+// lives in a register of its thread for the whole loop (K is a template
+// parameter, so all indices are compile-time and nothing is spilled by
+// indexing); the only communication is one warp-shuffle and shared-memory
+// reduction per block at the end.  No atomics: the block sums in a fixed
+// order and writes one row of partials, so a seed gives the same sums on
+// every run of a card.  The first and the last group of a launch may be
+// partial (start or n no multiple of 4): their samples outside
+// [start, start + n) score 0 and add nothing.  A group holds 4 K scores
+// beside the P sums, so the largest K spill; chip_smoke.py prints ptxas's
+// registers and spill bytes for each K.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,20 +61,47 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int p = 0; p < P; ++p) acc[p] = 0.0f;
 
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    float z[K];
+  // Groups g_first .. g_end - 1 cover samples start .. start + n - 1.
+  const uint64_t first = static_cast<uint64_t>(start);
+  const uint64_t end = first + static_cast<uint64_t>(n);
+  const uint64_t g_end = ((end - 1) >> 2) + 1;
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
+  for (uint64_t g = (first >> 2) + static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       g < g_end; g += stride) {
+    const uint64_t i0 = g << 2;
+    const bool whole = i0 >= first && i0 + 3 < end;
+    float z[K][4];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      z[k] = sampling_math::ndtri_fast(sampling_math::bits_to_open_unit(
-          sampling_math::philox_word0(static_cast<uint64_t>(start + i), col[k], k0, k1)));
-      acc[k] += z[k];
+      const uint4 w = sampling_math::philox_group(g, col[k], k0, k1);
+      const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int lane = 0; lane < 4; ++lane) {
+        z[k][lane] = sampling_math::ndtri_fast(sampling_math::bits_to_open_unit(bits[lane]));
+      }
     }
+    if (!whole) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+      for (int lane = 0; lane < 4; ++lane) {
+        if (i0 + lane < first || i0 + lane >= end) {
 #pragma unroll
-      for (int k = j; k < K; ++k) acc[K + j * K - j * (j - 1) / 2 + (k - j)] += z[j] * z[k];
+          for (int k = 0; k < K; ++k) z[k][lane] = 0.0f;
+        }
+      }
+    }
+    // One multiply-add a term, the group's four samples in index order:
+    // the P sums are independent chains, so the pipes stay full.
+#pragma unroll
+    for (int lane = 0; lane < 4; ++lane) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] += z[k][lane];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+#pragma unroll
+        for (int k = j; k < K; ++k) {
+          acc[K + j * K - j * (j - 1) / 2 + (k - j)] += z[j][lane] * z[k][lane];
+        }
+      }
     }
   }
 
@@ -103,7 +135,8 @@ int blocks_for(int64_t n, int* blocks) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, corr_stats<K>, kThreads, 0);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t wanted = (n + kThreads - 1) / kThreads;
+  const int64_t groups = n / 4 + 2;  // at most: a partial group at either end
+  const int64_t wanted = (groups + kThreads - 1) / kThreads;
   const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   *blocks = static_cast<int>(wanted < resident ? (wanted > 0 ? wanted : 1) : resident);
   return 0;

@@ -1,24 +1,42 @@
-"""CUDA megakernel executor: the whole graph in one hand-written kernel.
+"""CUDA megakernel executor: the whole graph in one generated kernel.
 
 The port's counterpart of ``probabilit_tpu/engine/pallas_exec.py``.  The
 TPU kernel is specialised per graph by tracing ``Node._emit`` inside
-Pallas; a per-graph ``nvcc`` build would cost seconds for every new graph.
-So one compiled kernel (``csrc/graph_megakernel.cu``) interprets a small
-*tape* that ``lower`` makes from the plan:
+Pallas; here ``lower`` turns the plan into a *tape* and ``generate`` turns
+the tape into the CUDA C++ text of one kernel, which ``_build.py`` compiles
+with nvcc at the graph's first run and caches by the text (a few seconds,
+once per graph structure and machine, as a ``jit`` would cost).  A tape is
 
-* an ``int32 (n_instr, 6)`` array of ``[opcode, dst, a, b, c, d]`` rows;
-* an ``f32 (n_instr,)`` immediate per row (the value of ``LOADK``).
+* a value-numbered ``program``: rows ``(opcode, dst, a, b, c, d)``, one
+  value per row, which the generator writes out as straight-line code
+  (every value a named ``const float``, so the compiler allocates
+  registers and nothing is indexed at run time);
+* ``consts``: the immediates of its ``LOADK`` rows.  They reach the kernel
+  as a by-value parameter block, not as text, so graphs that differ only
+  in their constants share one build;
+* for the plain twin, the same rows mapped onto slots by liveness
+  (``code``, ``int32 (n_instr, 6)``) with an ``f32 (n_instr,)`` immediate.
 
 Opcodes: ``DRAW`` (one uniform column from Philox4x32-10), ``LOADK``, one
-per ppf family (parameters are slots, so Node-valued parameters work),
+per ppf family (parameters are values, so Node-valued parameters work),
 one per transform (variadic chains fold left, as ``functools.reduce``
-does), and ``STORE k``.  Values live in per-thread slots, reused by
-liveness.
+does), and ``STORE k``.  The hand-written bodies of the ops live in
+``csrc/graph_ops.cuh`` and ``csrc/sampling_math.cuh``; the generated text
+is those two includes, a grid-stride loop and one line per row and lane.
+
+Random bits: sample ``i`` (the global index, ``start`` + row) of column
+``c`` is word ``i & 3`` of Philox4x32-10 at counter
+``(g mod 2^32, g >> 32, c, 0)``, ``g = i >> 2``, under the two seed words:
+one call serves four consecutive samples, and a thread of either kernel
+owns whole groups of four.  The stream depends on the seed and ``i`` only,
+so a streamed block that starts at ``b * B`` draws rows ``b * B ..`` of
+the seed's one stream, for any ``start`` and ``n`` (a launch masks its
+partial first and last group).
 
 Correlated graphs (sort-free Gaussian-copula Iman-Conover, as the TPU
 kernel's recolour branch) add ``SCORE k`` (z_k = ndtri_fast of a drawn
-column, kept in the kernel's score registers, not in a slot),
-``RECOLOR i`` (y_i = b_i + sum_j A_ij z_j), ``SCORE_NORM`` /
+column, a named register like any value), ``RECOLOR i``
+(y_i = b_i + sum_j A_ij z_j, K unrolled multiply-adds), ``SCORE_NORM`` /
 ``SCORE_LOGNORM`` (``ppf(ndtr(y))`` in closed form) and ``NDTR``
 (``clamp_open_unit(ndtr_fast(y))`` into the variable's own ppf).  The
 recolour transform ``(A, b)`` comes from a second kernel,
@@ -26,25 +44,22 @@ recolour transform ``(A, b)`` comes from a second kernel,
 launches it, reduces its per-block partials in float64 and solves the
 K x K system in float64, on the host (``solve_recolor``, one sync) or on
 the same device (``solve_recolor_device``, no sync), as its caller asks.
-Every entry point takes ``start``, the first sample index: a
-streamed block b of size B draws samples ``[b*B, b*B + B)`` of the
-seed's one Philox stream.
 
 ``run`` and ``corr_stats`` are the wrappers: on tensors that lie on the
 CPU they use the plain versions (``run_reference``,
-``corr_stats_reference``); on CUDA tensors they launch the kernels,
-counting the launches in ``LAUNCHES`` and ``STATS_LAUNCHES``, or raise.
-``run_reference`` is ``philox_uniforms`` (the same random bits as the
-kernel) followed by ``run_tape`` (the same tape, interpreted with
+``corr_stats_reference``); on CUDA tensors they build (once) and launch
+the kernels, counting the launches in ``LAUNCHES`` and ``STATS_LAUNCHES``,
+or raise.  ``run_reference`` is ``philox_uniforms`` (the same random bits
+as the kernel) followed by ``run_tape`` (the same tape, interpreted with
 PyTorch ops on float32).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import inspect
 import itertools
-import math
 import numbers
 from dataclasses import dataclass
 
@@ -67,9 +82,12 @@ __all__ = [
     "environment_issue",
     "keep_order",
     "lower",
+    "lowered",
+    "generate",
     "seed_words",
     "philox_uniforms",
     "run_tape",
+    "run_program",
     "run_reference",
     "run",
     "corr_stats_reference",
@@ -84,15 +102,21 @@ __all__ = [
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 
-# MAX_SLOTS, MAX_INSTR and MAX_CORR_K must equal kMaxSlots, kMaxInstr and
-# kMaxCorr in csrc/graph_megakernel.cu (kMaxCorr in csrc/corr_stats.cu
-# too); MAX_KEEP and MAX_CORR_K are pallas_exec.supports' 16 outputs and
-# 16 correlated variables.
+# What a tape may hold.  MAX_KEEP and MAX_CORR_K are pallas_exec.supports'
+# 16 outputs and 16 correlated variables (MAX_CORR_K equals kMaxCorr in
+# csrc/corr_stats.cu).  MAX_INSTR bounds the generated kernel's text, four
+# lanes of straight-line code a row, so its build time and instruction
+# footprint; MAX_CONSTS the by-value parameter block, inside the 4 KB a
+# kernel's parameters may take.  MAX_SLOTS binds the plain twin's slot
+# file only: the generated kernel's values are the compiler's registers.
 MAX_SLOTS = 64
 MAX_INSTR = 1024
+MAX_CONSTS = 896
 MAX_KEEP = 16
 MAX_CORR_K = 16
+LANES = 4  # samples per Philox call, and per thread and loop turn
 _THREADS = 256
+_HEADERS = ("sampling_math.cuh", "graph_ops.cuh")
 
 # Score-linear families: ppf(ndtr(y)) has a closed form in the score y.
 _SCORE_OPS = {"norm": "SCORE_NORM", "lognorm": "SCORE_LOGNORM"}
@@ -151,8 +175,7 @@ _TRANSFORM_OPS = {
     _graph.Expm1: "EXPM1",
 }
 
-# Opcode numbering; the enum in csrc/graph_megakernel.cu lists the same
-# names in the same order.
+# Opcode numbering; ``_EMIT`` below gives each name its CUDA text.
 OPCODES = (
     ["DRAW", "LOADK", "STORE", "SCORE", "RECOLOR", "NDTR"]
     + list(_FAMILY_OPS.values())
@@ -249,14 +272,17 @@ def supports(plan, keep_ids):
     port has: graphs of Constants, the five closed-form families and the
     arithmetic transforms, with at most 16 correlated variables and at
     most 16 kept nodes including the sink, no ``NoOp``, no integer or
-    boolean arithmetic, and a tape within the kernel's instruction and
-    slot caps.
+    boolean arithmetic, and a tape within the caps that remain: at most
+    ``MAX_INSTR`` rows (the generated text and its build time grow with
+    them), ``MAX_CONSTS`` constants (they travel in the kernel's
+    parameters) and, for the plain twin alone, ``MAX_SLOTS`` values live
+    at once.
     """
     keep_ids = frozenset(keep_ids)
     if not _structure_ok(plan, keep_ids):
         return False
     try:
-        lower(plan, keep_order(plan, keep_ids))  # the tape's size caps
+        lowered(plan, keep_order(plan, keep_ids))  # the tape's size caps
     except ValueError:
         return False
     return True
@@ -302,12 +328,14 @@ def keep_order(plan, keep_ids):
 class Tape:
     """A lowered plan: the kernel's program and its shape."""
 
-    code: torch.Tensor  # int32 (n_instr, 6): [opcode, dst, a, b, c, d]
+    code: torch.Tensor  # int32 (n_instr, 6): [opcode, dst, a, b, c, d] on slots
     imm: torch.Tensor  # float32 (n_instr,)
     n_slots: int
     d: int  # uniform columns drawn
     keep_order: tuple  # node ids of the output rows
     n_corr: int = 0  # correlated variables: (A, b) holds n_corr^2 + n_corr floats
+    program: tuple = ()  # the rows of ``code`` on value numbers: what ``generate`` reads
+    consts: tuple = ()  # the LOADK rows' immediates (float32 values), in row order
 
     @property
     def n_instr(self):
@@ -320,8 +348,24 @@ class Tape:
     def to(self, device):
         return Tape(
             self.code.to(device), self.imm.to(device), self.n_slots, self.d,
-            self.keep_order, self.n_corr,
+            self.keep_order, self.n_corr, self.program, self.consts,
         )
+
+    @functools.cached_property
+    def source(self):
+        """The CUDA C++ text of this tape's kernel (``generate``)."""
+        return generate(self)
+
+    @functools.cached_property
+    def kernel(self):
+        """The launch function of this tape's kernel, built at first use."""
+        return _megakernel(self.source)
+
+    @functools.cached_property
+    def const_block(self):
+        """``consts`` as the C array the launch function copies into the
+        kernel's parameter block."""
+        return (ctypes.c_float * max(len(self.consts), 1))(*self.consts)
 
 
 def lower(plan, keep_order):
@@ -394,25 +438,42 @@ def lower(plan, keep_order):
 
     code, n_slots = _allocate_slots(rows)
     imm = np.array([float(r[6]) for r in rows], dtype=np.float32)
+    consts = tuple(float(k) for r, k in zip(rows, imm) if r[0] == _OPCODE["LOADK"])
     tape = Tape(
         torch.from_numpy(code), torch.from_numpy(imm), n_slots, plan.d,
-        tuple(keep_order), len(plan.corr_vars),
+        tuple(keep_order), len(plan.corr_vars), tuple(tuple(r[:6]) for r in rows), consts,
     )
-    if tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS:
+    if tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS or len(consts) > MAX_CONSTS:
         raise ValueError(
-            f"The tape needs {tape.n_instr} instructions and {tape.n_slots} "
-            f"slots; the kernel holds {MAX_INSTR} and {MAX_SLOTS}."
+            f"The tape needs {tape.n_instr} instructions, {len(consts)} constants "
+            f"and {tape.n_slots} slots; the caps are {MAX_INSTR}, {MAX_CONSTS} and "
+            f"{MAX_SLOTS}."
         )
+    return tape
+
+
+def lowered(plan, keep_order, device="cpu"):
+    """``lower(plan, keep_order).to(device)``, cached on the plan per keep
+    order and device, so one ``sample`` or ``estimate`` call lowers once and
+    every later call on the same graph reuses the tape and its loaded
+    kernel.  (A plan is itself cached per sink until the graph changes.)"""
+    cache = plan.__dict__.setdefault("_cuda_tapes", {})
+    device = torch.device(device)
+    key = (tuple(keep_order), device)
+    tape = cache.get(key)
+    if tape is None:
+        cpu_key = (key[0], torch.device("cpu"))
+        if cpu_key not in cache:
+            cache[cpu_key] = lower(plan, keep_order)
+        tape = cache[key] = cache[cpu_key] if key == cpu_key else cache[cpu_key].to(device)
     return tape
 
 
 def _register_fields(op):
     """(dst is a value, operand fields that are values) for an opcode."""
     name = OPCODES[op]
-    if name in ("DRAW", "RECOLOR"):
-        return True, ()  # a is a column number / a variable's index
-    if name == "LOADK":
-        return True, ()
+    if name in ("DRAW", "RECOLOR", "LOADK"):
+        return True, ()  # a, if any, is a column number / a variable's index
     if name in ("STORE", "SCORE"):
         return False, (2,)  # dst is the output row / the score's index
     return True, (2, 3, 4, 5)
@@ -454,6 +515,249 @@ def _allocate_slots(rows):
     return code, n_slots
 
 
+# The CUDA text of one value, per opcode: {a}..{d} are its operands (a lane's
+# named values, or a constant read from the parameter block).  The
+# functions are csrc/graph_ops.cuh's and CUDA's float32 libm.  DRAW, LOADK,
+# STORE, SCORE and RECOLOR have their own shapes (see ``generate``).
+_EMIT = {
+    "DRAW": "bits_to_open_unit({word})",
+    "LOADK": "k.v[{index}]",
+    "STORE": "store_group(out + {row} * n, r0, n, vec, {lanes}, bad);",
+    "SCORE": "ndtri_fast({a})",
+    "RECOLOR": "{b} + {terms}",
+    "NDTR": "ndtr_open({a})",
+    "PPF_UNIFORM": "ppf_uniform({a}, {b}, {c})",
+    "PPF_NORM": "ppf_norm({a}, {b}, {c})",
+    "PPF_EXPON": "ppf_expon({a}, {b}, {c})",
+    "PPF_LOGNORM": "ppf_lognorm({a}, {b}, {c}, {d})",
+    "PPF_TRIANG": "ppf_triang({a}, {b}, {c}, {d})",
+    "SCORE_NORM": "score_norm({a}, {b}, {c})",
+    "SCORE_LOGNORM": "score_lognorm({a}, {b}, {c}, {d})",
+    "ADD": "{a} + {b}",
+    "MUL": "{a} * {b}",
+    "MAX": "nan_max({a}, {b})",
+    "MIN": "nan_min({a}, {b})",
+    "AND": "truth({a} != 0.0f && {b} != 0.0f)",
+    "OR": "truth({a} != 0.0f || {b} != 0.0f)",
+    "FLOORDIV": "floor_divide({a}, {b})",
+    "MOD": "floor_mod({a}, {b})",
+    "DIV": "{a} / {b}",
+    "POW": "powf({a}, {b})",
+    "SUB": "{a} - {b}",
+    "EQ": "truth({a} == {b})",
+    "NE": "truth({a} != {b})",
+    "LT": "truth({a} < {b})",
+    "LE": "truth({a} <= {b})",
+    "GT": "truth({a} > {b})",
+    "GE": "truth({a} >= {b})",
+    "ISCLOSE": "truth(isclose({a}, {b}))",
+    "ATAN2": "atan2f({a}, {b})",
+    "NEG": "-{a}",
+    "ABS": "fabsf({a})",
+    "LOG": "logf({a})",
+    "EXP": "expf({a})",
+    "FLOOR": "floorf({a})",
+    "CEIL": "ceilf({a})",
+    "SIGN": "sign({a})",
+    "SQRT": "sqrtf({a})",
+    "SQUARE": "{a} * {a}",
+    "LOG10": "log10f({a})",
+    "SIN": "sinf({a})",
+    "COS": "cosf({a})",
+    "TAN": "tanf({a})",
+    "ASIN": "asinf({a})",
+    "ACOS": "acosf({a})",
+    "ATAN": "atanf({a})",
+    "SINH": "sinhf({a})",
+    "COSH": "coshf({a})",
+    "TANH": "tanhf({a})",
+    "ASINH": "asinhf({a})",
+    "ACOSH": "acoshf({a})",
+    "ATANH": "atanhf({a})",
+    "LOG1P": "log1pf({a})",
+    "EXPM1": "expm1f({a})",
+}
+
+_KERNEL_HEAD = """\
+// Generated by probabilit_tpu_torch/engine/cuda_exec.py::generate from a
+// lowered plan: the whole sampling pass of one graph structure.
+//
+// Replaces probabilit_tpu/engine/pallas_exec.py::_make_kernel (the TPU's
+// per-graph Pallas megakernel).  Like it, the kernel draws one uniform per
+// distribution node and sample, pushes it through the node's inverse CDF,
+// evaluates every transform in topological order, and writes only the
+// kept rows: no quantile matrix and no intermediate reaches device memory.
+//
+// What bounds it on an H100: float32 and integer ALU work, not memory (4
+// bytes a kept row and sample).  What the design does about it: the graph
+// is straight-line code, every value a register; a thread owns groups of
+// four consecutive samples, so each Philox4x32-10 call (counter
+// (g mod 2^32, g >> 32, column, 0), g = sample >> 2) serves four samples,
+// four independent chains fill the pipes, and a kept row's four values
+// leave in one 16-byte store; constants are read from the kernel's
+// parameter block as operands.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "sampling_math.cuh"
+#include "graph_ops.cuh"
+
+namespace {{
+
+using namespace sampling_math;
+using namespace graph_ops;
+
+constexpr int kThreads = {threads};
+constexpr int kCorr = {n_corr};      // correlated variables K
+constexpr int kKeep = {n_keep};      // kept rows
+constexpr int kConsts = {n_consts};  // LOADK immediates
+constexpr int kRowPad = {row_pad};   // floats a row of A takes in shared memory
+
+struct Consts {{
+  float v[kConsts > 0 ? kConsts : 1];
+}};
+
+__global__ void __launch_bounds__(kThreads)
+    graph_megakernel(const Consts k, const float* __restrict__ ab, uint32_t k0, uint32_t k1,
+                     int64_t start, int64_t n, float* __restrict__ out,
+                     int* __restrict__ nonfinite) {{
+"""
+
+# (A, b) is known only after the statistics pass, so it is a device array.
+# Each block copies it into shared memory once, every row of A padded to a
+# multiple of four floats: a RECOLOR row then reads it as 16-byte broadcast
+# loads at constant offsets (a quarter of the loads __ldg would issue, no
+# address arithmetic, and the same words serve the thread's four lanes).
+_KERNEL_RECOLOR = """\
+  __shared__ float4 s_a4[kCorr * kRowPad / 4];
+  __shared__ float s_b[kCorr];
+  float* s_a = reinterpret_cast<float*>(s_a4);
+  for (int t = threadIdx.x; t < kCorr * kRowPad; t += kThreads) {
+    const int i = t / kRowPad, j = t % kRowPad;
+    s_a[t] = j < kCorr ? ab[i * kCorr + j] : 0.0f;
+  }
+  for (int t = threadIdx.x; t < kCorr; t += kThreads) s_b[t] = ab[kCorr * kCorr + t];
+  __syncthreads();
+"""
+
+_KERNEL_LOOP = """\
+  // Groups g_first .. g_end - 1 cover samples start .. start + n - 1; when
+  // start and n are multiples of 4 every group is whole and aligned.
+  const bool vec = ((start | n) & 3) == 0;
+  const uint64_t g_first = static_cast<uint64_t>(start) >> 2;
+  const uint64_t g_end = ((static_cast<uint64_t>(start + n) - 1) >> 2) + 1;
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kThreads;
+  bool bad = false;
+  for (uint64_t g = g_first + static_cast<uint64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       g < g_end; g += stride) {
+    const int64_t r0 = static_cast<int64_t>(g << 2) - start;  // lane 0's output row
+"""
+
+_KERNEL_TAIL = """\
+  }
+  if (bad) atomicOr(nonfinite, 1);
+}
+
+}  // namespace
+
+// Launch on `stream` with one resident wave of blocks; returns
+// cudaGetLastError() (0 on success).  `consts` is the host array of the
+// kConsts LOADK immediates, `ab` float32 (kCorr^2 + kCorr,) on the device
+// (null when kCorr is 0), `out` float32 (kKeep, n) for samples
+// start..start+n-1, `nonfinite` one int32 that the caller has zeroed.
+// n_consts, n_corr and n_keep must be the kernel's own.
+extern "C" int graph_megakernel_launch(const float* consts, int n_consts, const void* ab,
+                                       int n_corr, int n_keep, uint32_t seed0, uint32_t seed1,
+                                       int64_t start, int64_t n, void* out, void* nonfinite,
+                                       void* stream) {
+  if (n_consts != kConsts || n_corr != kCorr || n_keep != kKeep || n < 0 || start < 0 ||
+      (kCorr > 0 && ab == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, graph_megakernel, kThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t groups = ((start + n - 1) >> 2) - (start >> 2) + 1;
+  const int64_t wanted = (groups + kThreads - 1) / kThreads;
+  const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  Consts k;
+  for (int j = 0; j < kConsts; ++j) k.v[j] = consts[j];
+  graph_megakernel<<<static_cast<int>(wanted < resident ? wanted : resident), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      k, static_cast<const float*>(ab), seed0, seed1, start, n, static_cast<float*>(out),
+      static_cast<int*>(nonfinite));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def generate(tape):
+    """The CUDA C++ text of ``tape``'s kernel: a pure function of the
+    tape's structure (``program``, ``n_corr``, the kept rows and the number
+    of constants), never of the constants' values.
+
+    Every row of ``tape.program`` becomes one ``const float`` a lane, named
+    after its value number (``v7_2``: value 7, lane 2; ``z3_0``: score 3,
+    lane 0); a ``LOADK`` row becomes no line, only the operand ``k.v[j]``
+    wherever its value is read.  The text holds no array indexed at run
+    time and prints no number that came from the graph's data.
+    """
+    K = tape.n_corr
+    row_pad = -(-K // 4) * 4
+    const_of = {}  # value number -> index into the parameter block
+    lines = []
+
+    def operand(v, lane):
+        if v in const_of:
+            return _EMIT["LOADK"].format(index=const_of[v])
+        return f"v{v}_{lane}"
+
+    for op, dst, a, b, c, d in tape.program:
+        name = OPCODES[op]
+        if name == "LOADK":
+            const_of[dst] = len(const_of)
+            continue
+        if name == "DRAW":
+            lines.append(f"const uint4 w{dst} = philox_group(g, {a}u, k0, k1);")
+            for lane, word in enumerate("xyzw"):
+                text = _EMIT[name].format(word=f"w{dst}.{word}")
+                lines.append(f"const float v{dst}_{lane} = {text};")
+        elif name == "STORE":
+            lanes = ", ".join(operand(a, lane) for lane in range(LANES))
+            lines.append(_EMIT[name].format(row=dst, lanes=lanes))
+        elif name == "SCORE":
+            for lane in range(LANES):
+                text = _EMIT[name].format(a=operand(a, lane))
+                lines.append(f"const float z{dst}_{lane} = {text};")
+        elif name == "RECOLOR":
+            # b_i, then + A_ij z_j for j = 0..K-1: the twin's order.
+            for q in range(row_pad // 4):
+                lines.append(f"const float4 a{dst}_{q} = s_a4[{a * row_pad // 4 + q}];")
+            for lane in range(LANES):
+                terms = " + ".join(
+                    f"a{dst}_{j // 4}.{'xyzw'[j % 4]} * z{j}_{lane}" for j in range(K)
+                )
+                text = _EMIT[name].format(b=f"s_b[{a}]", terms=terms)
+                lines.append(f"const float v{dst}_{lane} = {text};")
+        else:
+            for lane in range(LANES):
+                fields = {
+                    f: operand(v, lane) for f, v in zip("abcd", (a, b, c, d)) if v >= 0
+                }
+                lines.append(f"const float v{dst}_{lane} = {_EMIT[name].format(**fields)};")
+    head = _KERNEL_HEAD.format(
+        threads=_THREADS, n_corr=K, n_keep=tape.n_keep, n_consts=len(const_of), row_pad=row_pad
+    )
+    body = "".join(f"    {line}\n" for line in lines)
+    return head + (_KERNEL_RECOLOR if K else "") + _KERNEL_LOOP + body + _KERNEL_TAIL
+
+
 def seed_words(seed):
     """The kernel's two Philox key words from an integer seed."""
     seed = int(seed)
@@ -461,18 +765,25 @@ def seed_words(seed):
 
 
 def philox_uniforms(seed_words, n, d, device="cpu", columns=None, start=0):
-    """The ``(n, d)`` float32 uniforms the kernel draws: column ``c`` of
-    sample ``i`` is word 0 of Philox4x32-10 at counter
-    ``(i mod 2^32, i >> 32, c, 0)`` under key ``seed_words``.
+    """The ``(n, d)`` float32 uniforms the kernels draw: column ``c`` of
+    sample ``i`` is word ``i & 3`` of Philox4x32-10 at counter
+    ``(g mod 2^32, g >> 32, c, 0)``, ``g = i >> 2``, under key
+    ``seed_words``: one call per group of four samples and column.
 
     ``columns`` (default ``range(d)``) picks the columns; ``start`` the
-    first sample index.
+    first sample index ``i``.  Neither ``start`` nor ``n`` need be a
+    multiple of 4: the first and the last group are cut to the rows asked
+    for.
     """
     columns = range(d) if columns is None else columns
-    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    lo, hi = i & 0xFFFFFFFF, i >> 32
+    first = start // LANES
+    g = torch.arange(first, -(-(start + n) // LANES), dtype=torch.int64, device=device)
+    lo, hi = g & 0xFFFFFFFF, g >> 32
+    skip = start - first * LANES
     cols = [
-        _philox.bits_to_open_unit(_philox.philox4x32_10((lo, hi, c, 0), seed_words)[0])
+        _philox.bits_to_open_unit(
+            torch.stack(_philox.philox4x32_10((lo, hi, c, 0), seed_words), dim=1)
+        ).reshape(-1)[skip : skip + n]
         for c in columns
     ]
     if not cols:
@@ -498,15 +809,25 @@ def run_tape(tape, U, ab=None):
     """Interpret ``tape`` on the float32 quantile matrix ``U`` with PyTorch
     ops; returns the ``(n_keep, n)`` float32 outputs.  ``ab`` is the
     recolour transform of a correlated tape (``recolor_transform``)."""
+    return _interpret(tape, tape.code.cpu().tolist(), tape.n_slots, U, ab)
+
+
+def run_program(tape, U, ab=None):
+    """``run_tape`` on the value-numbered ``tape.program``, the rows the
+    generated kernel is written from, one slot per value: the same
+    arithmetic in the same order, so the two agree bitwise."""
+    return _interpret(tape, tape.program, len(tape.program), U, ab)
+
+
+def _interpret(tape, code, n_slots, U, ab):
     if config.float_dtype() != torch.float32:
         raise ValueError("The tape is float32-only.")
     _check_ab(tape, ab)
-    code = tape.code.cpu().tolist()
     imm = tape.imm.cpu().tolist()
     K = tape.n_corr
     ab = [] if ab is None else ab.cpu().tolist()
     n = U.shape[0]
-    slots = [None] * tape.n_slots
+    slots = [None] * n_slots
     z = [None] * K
     out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=U.device)
     for (op, dst, a, b, c, d), k in zip(code, imm):
@@ -553,7 +874,9 @@ def run(tape, seed_words, n, ab=None, start=0):
     is an int32 tensor, nonzero when any stored value is not finite.  A
     correlated tape takes its recolour transform ``ab`` (float32
     ``(K^2 + K,)``, from ``recolor_transform``).  A CPU tape runs the plain
-    version; a CUDA tape launches the kernel.
+    version; a CUDA tape launches its generated kernel, which the first
+    launch of a new graph structure builds with nvcc (``tape.kernel``).  A
+    build or a launch that fails raises.
     """
     global LAUNCHES
     device = tape.code.device
@@ -565,43 +888,39 @@ def run(tape, seed_words, n, ab=None, start=0):
     if issue is not None:
         raise RuntimeError(issue)
     if (
-        tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS or tape.n_keep > MAX_KEEP
+        tape.n_instr > MAX_INSTR or len(tape.consts) > MAX_CONSTS or tape.n_keep > MAX_KEEP
         or tape.n_corr > MAX_CORR_K
     ):
         raise ValueError("The tape exceeds the kernel's caps.")
-    if start < 0:
-        raise ValueError(f"start must be >= 0, got {start}.")
-    code = tape.code.to(torch.int32).contiguous()
-    imm = tape.imm.to(torch.float32).contiguous()
+    if start < 0 or n < 0:
+        raise ValueError(f"start and n must be >= 0, got {start} and {n}.")
+    launch = tape.kernel
     if tape.n_corr:
         ab = ab.to(device=device, dtype=torch.float32).contiguous()
     out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=device)
     flag = torch.zeros((1,), dtype=torch.int32, device=device)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = max(1, min(math.ceil(n / _THREADS), sms * (2048 // _THREADS)))
-    err = _megakernel()(
-        code.data_ptr(), imm.data_ptr(), tape.n_instr,
-        ab.data_ptr() if tape.n_corr else None, tape.n_corr,
-        seed_words[0], seed_words[1], start, n,
-        out.data_ptr(), flag.data_ptr(), blocks,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        err = launch(
+            tape.const_block, len(tape.consts),
+            ab.data_ptr() if tape.n_corr else None, tape.n_corr, tape.n_keep,
+            seed_words[0], seed_words[1], start, n,
+            out.data_ptr(), flag.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"graph_megakernel launch failed: CUDA error {err}.")
     LAUNCHES += 1
     return out, flag
 
 
-def _megakernel():
+def _megakernel(source):
     from probabilit_tpu_torch import _build
 
-    fn = _build.load("graph_megakernel").graph_megakernel_launch
+    fn = _build.load_generated("graph_megakernel", source, _HEADERS).graph_megakernel_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn

@@ -6,8 +6,9 @@ Port of ``probabilit_tpu/engine/sampler.py:45-257``.  Two executors:
   Uniforms come from a ``torch.Generator`` seeded by ``random_state``, and
   ``engine/compile.py::build_body`` evaluates the graph op by op;
   declared correlations take its sort-free recolouring branch.
-* ``executor="cuda"``: the whole graph in one CUDA kernel
-  (``engine/cuda_exec.py``), with Philox4x32-10 bits drawn inside it; a
+* ``executor="cuda"``: the whole graph in one CUDA kernel generated for
+  the graph's structure (``engine/cuda_exec.py``; the first call on a new
+  structure builds it with nvcc), with Philox4x32-10 bits drawn inside it; a
   correlated graph first runs the correlation-statistics kernel over the
   same bits.  The counterpart of the JAX package's ``executor="pallas"``.
 
@@ -121,7 +122,7 @@ def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
     _compile.check_rows(plan, size)
     words = cuda_exec.seed_words(seed)
     keep_order = cuda_exec.keep_order(plan, keep_ids)
-    tape = cuda_exec.lower(plan, keep_order).to(config.device())
+    tape = cuda_exec.lowered(plan, keep_order, config.device())
     ab = None
     if plan.corr_matrix is not None:
         ab = cuda_exec.recolor_transform(plan, words, size, device=config.device())

@@ -280,7 +280,7 @@ def _block_program(sink, block_size, executor="auto", correlator="imanconover", 
     device = config.device()
     if _resolve_executor(plan, keep, executor, correlator) == "cuda":
         order = cuda_exec.keep_order(plan, keep)
-        tape = cuda_exec.lower(plan, order).to(device)
+        tape = cuda_exec.lowered(plan, order, device)
 
         def run(b, seed):
             words = cuda_exec.seed_words(seed)

@@ -434,6 +434,39 @@ def _float_op(fn):
     return lambda x: fn(_as_float(x))
 
 
+def _bool_as_int(x):
+    # jnp computes //, %, ** and the square of bools in int32; torch
+    # refuses them or widens to int64.
+    return x.to(config.int_dtype()) if x.dtype == torch.bool else x
+
+
+def _integer_division(fn, by_zero):
+    """``fn`` (``torch.floor_divide`` or ``torch.remainder``) with jnp's
+    integer semantics: bools compute as integers, and a zero divisor gives
+    ``by_zero(dividend)``, XLA's value, where torch raises on the CPU.
+    Float operands go to ``fn`` as they are."""
+
+    def op(a, b):
+        if a.is_floating_point() or b.is_floating_point():
+            return fn(a, b)
+        a, b = _promote(_bool_as_int(a), _bool_as_int(b))
+        zero = b == 0
+        return torch.where(zero, by_zero(a), fn(a, torch.where(zero, torch.ones_like(b), b)))
+
+    return op
+
+
+def _power(a, b):
+    if a.dtype == torch.bool and b.dtype == torch.bool:
+        a, b = _bool_as_int(a), _bool_as_int(b)
+    return torch.pow(a, b)
+
+
+def _bool_is_fixed(fn):
+    """abs, floor and ceil leave a bool as it is (jnp); torch refuses it."""
+    return lambda x: x if x.dtype == torch.bool else fn(x)
+
+
 # =====================================================================
 # Transforms
 # =====================================================================
@@ -545,12 +578,16 @@ class BinaryTransform(Transform):
 
 
 class FloorDivide(BinaryTransform):
-    op = staticmethod(torch.floor_divide)
+    # Integers by zero: -1 for 0 // 0, else -2 (XLA's -1 quotient, floored).
+    op = staticmethod(
+        _integer_division(torch.floor_divide, lambda a: torch.where(a == 0, -1, -2).to(a.dtype))
+    )
 
 
 class Mod(BinaryTransform):
     # jnp.mod takes the divisor's sign: torch.remainder, not torch.fmod.
-    op = staticmethod(torch.remainder)
+    # Integers by zero give 0.
+    op = staticmethod(_integer_division(torch.remainder, torch.zeros_like))
 
 
 class Divide(BinaryTransform):
@@ -558,7 +595,7 @@ class Divide(BinaryTransform):
 
 
 class Power(BinaryTransform):
-    op = staticmethod(torch.pow)
+    op = staticmethod(_power)
 
 
 class Subtract(BinaryTransform):
@@ -618,7 +655,7 @@ class Negate(UnaryTransform):
 
 
 class Abs(UnaryTransform):
-    op = staticmethod(torch.abs)
+    op = staticmethod(_bool_is_fixed(torch.abs))
 
 
 class Log(UnaryTransform):
@@ -630,11 +667,11 @@ class Exp(UnaryTransform):
 
 
 class Floor(UnaryTransform):
-    op = staticmethod(torch.floor)
+    op = staticmethod(_bool_is_fixed(torch.floor))
 
 
 class Ceil(UnaryTransform):
-    op = staticmethod(torch.ceil)
+    op = staticmethod(_bool_is_fixed(torch.ceil))
 
 
 class Sign(UnaryTransform):
@@ -646,7 +683,7 @@ class Sqrt(UnaryTransform):
 
 
 class Square(UnaryTransform):
-    op = staticmethod(torch.square)
+    op = staticmethod(lambda x: torch.square(_bool_as_int(x)))
 
 
 class Log10(UnaryTransform):

@@ -1,6 +1,6 @@
 """Philox4x32-10 counter-based random bits, in plain PyTorch.
 
-The plain twin of the generator inside ``csrc/graph_megakernel.cu``, which
+The plain twin of the generator inside ``csrc/sampling_math.cuh``, which
 stands in for the TPU kernel's hardware PRNG (``pltpu.prng_seed`` /
 ``prng_random_bits`` in ``probabilit_tpu/engine/pallas_exec.py``).  The
 TPU's bits cannot be reproduced; these are Salmon et al.'s Philox4x32

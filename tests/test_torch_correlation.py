@@ -513,8 +513,12 @@ def test_device_defaults_to_cuda_and_raises_without_a_card():
 
 def test_kernel_sources_share_the_caps_and_the_math():
     csrc = ROOT / "probabilit_tpu_torch" / "csrc"
-    for name in ("graph_megakernel.cu", "corr_stats.cu"):
-        src = (csrc / name).read_text()
-        assert f"kMaxCorr = {cuda_exec.MAX_CORR_K};" in src
+    sink = benchmarks.mixed_correlated_50()
+    generated = cuda_exec.lowered(tcompile.get_plan(sink), [sink._id]).source
+    stats = (csrc / "corr_stats.cu").read_text()
+    assert f"kMaxCorr = {cuda_exec.MAX_CORR_K};" in stats and "kCorr = 10;" in generated
+    for src in (generated, stats):
         assert '#include "sampling_math.cuh"' in src
-        assert "philox_word0(uint64_t" not in src and "float ndtri_fast(" not in src
+        # Both kernels draw whole groups from the one shared generator.
+        assert "philox_group(g, " in src and "philox_group(uint64_t" not in src
+        assert "float ndtri_fast(" not in src

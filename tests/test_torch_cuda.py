@@ -12,14 +12,16 @@ the statistics kernel, each sum within 1e-5 * n of the twin's (every sum
 is of n terms of magnitude about 1: z_k, z_j z_k).  They differ only where
 nvcc contracts a*b+c into FMAs, where CUDA's libm rounds differently from
 PyTorch's, and in the order of float32 partial sums.  The three sort
-kernels move bits and compare, so they equal their twins bitwise.
+kernels move bits and compare, so they equal their twins bitwise.  The
+megakernel is generated and built per graph structure at its first run
+here (a few seconds each).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from probabilit_tpu_torch import config
+from probabilit_tpu_torch import _build, config
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.models import benchmarks, graph as tg
@@ -95,7 +97,7 @@ def test_kernel_matches_twin(cuda_card, name):
     plan = tcompile.get_plan(sink)
     others = [node._id for node in plan.topo if node is not sink][-15:]
     order = cuda_exec.keep_order(plan, frozenset(others + [sink._id]))
-    tape = cuda_exec.lower(plan, order).to("cuda")
+    tape = cuda_exec.lowered(plan, order, "cuda")
     launches = cuda_exec.LAUNCHES
     got, nonfinite = cuda_exec.run(tape, (3, 4), N)
     ref = cuda_exec.run_reference(tape, (3, 4), N)
@@ -199,6 +201,71 @@ def test_kernels_match_their_twins_at_a_later_start(cuda_card, name):
     assert (got - ref).abs().max().item() <= REL_TOL * scale
     first = cuda_exec.run_reference(tape, words, N, ab)
     assert not torch.equal(ref, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,n", [(5, (1 << 18) + 3), (3, 1), (2, 3), (7, 6), (4, 1 << 18)])
+@pytest.mark.parametrize("name", ["mixed_dag_20", "mixed_correlated_50"])
+def test_kernels_at_a_start_and_n_that_are_no_multiples_of_four(cuda_card, name, start, n):
+    sink = getattr(benchmarks, name)()
+    plan = tcompile.get_plan(sink)
+    others = [node._id for node in plan.topo if node is not sink][-3:]
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, frozenset(others + [sink._id])), "cuda")
+    words, ab = (13, 14), None
+    if plan.corr_vars:
+        columns = [plan.col_of[v._id] for v in plan.corr_vars]
+        got = cuda_exec.corr_stats(words, n, columns, "cuda", start=start)
+        ref = cuda_exec.corr_stats_reference(words, n, columns, "cuda", start=start)
+        assert (got - ref).abs().max().item() <= max(STATS_TOL * n, 1e-4)
+        ab = cuda_exec.recolor_transform(plan, words, 1 << 18)
+    got, flag = cuda_exec.run(tape, words, n, ab, start=start)
+    ref = cuda_exec.run_reference(tape, words, n, ab, start=start)
+    assert got.shape == (4, n) and int(flag) == 0
+    for k in range(tape.n_keep):
+        scale = ref[k].abs().max().item()
+        assert (got[k] - ref[k]).abs().max().item() <= REL_TOL * scale
+    # The same samples as rows of a run from 0 over a multiple of 4 (one
+    # float4 store a row and group there): bitwise.
+    whole, _ = cuda_exec.run(tape, words, -(-(start + n) // 4) * 4, ab)
+    torch.testing.assert_close(got, whole[:, start:start + n], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_graphs_that_differ_in_constants_share_one_build(cuda_card):
+    def priced(loc, scale):
+        x = Distribution("norm", loc=loc, scale=scale)
+        return tg.Exp(x * 0.25) - Distribution("expon", scale=scale)
+
+    outs, tapes = [], []
+    for params in ((1.0, 2.0), (-3.5, 0.25)):
+        sink = priced(*params)
+        tape = cuda_exec.lowered(tcompile.get_plan(sink), [sink._id], "cuda")
+        got, _ = cuda_exec.run(tape, (1, 2), N)
+        ref = cuda_exec.run_reference(tape, (1, 2), N)
+        assert (got - ref).abs().max().item() <= REL_TOL * ref.abs().max().item()
+        if not tapes:
+            libraries = len(_build._LIBS)  # the first run built and loaded the structure
+        outs.append(got)
+        tapes.append(tape)
+    assert tapes[0].source == tapes[1].source and tapes[0].consts != tapes[1].consts
+    assert len(_build._LIBS) == libraries and not torch.equal(outs[0], outs[1])
+    key = _build.generated_key(tapes[0].source, cuda_exec._HEADERS)
+    assert (_build.BUILD_DIR / f"graph_megakernel-{key}.so").exists()
+
+
+@pytest.mark.cuda
+def test_a_failed_build_raises_and_runs_nothing_else(cuda_card, monkeypatch, tmp_path):
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(cuda_exec, "run_reference", forbidden)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "--no-such-flag"))
+    sink = tg.Tanh(Distribution("norm")) * 3.0
+    launches = cuda_exec.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sink.sample(N, random_state=0, gc_strategy=[], executor="cuda")
+    assert cuda_exec.LAUNCHES == launches and not list(tmp_path.glob("*.so"))
 
 
 def _sort_inputs(key_dtype, payload_dtype, shape, seed=0):

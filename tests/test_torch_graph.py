@@ -101,6 +101,9 @@ def _assert_same(ref, got):
     if ref.dtype.kind in "biu":
         np.testing.assert_array_equal(got, ref)
         return
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(got[~finite], ref[~finite])  # the same inf and nan
+    ref, got = ref[finite], got[finite]
     scale = np.maximum(np.abs(ref), 1.0).astype(ref.dtype)
     assert np.all(np.abs(got - ref) <= ULP_TOL * np.spacing(scale))
 
@@ -158,6 +161,68 @@ def test_constant_types_follow_jnp(name, values):
     ref = getattr(jg, name)(*[jg.Constant(v) for v in values])._emit(_Ctx({}))
     got = getattr(tg, name)(*[tg.Constant(v) for v in values])._emit(_Ctx({}))
     _assert_same(ref, got)
+
+
+def _emit_both(name, xs):
+    """``name``'s ``_emit`` on the numpy inputs ``xs`` in both packages; the
+    JAX package's result is None where it refuses the operand types."""
+    jax_parents = [jg.Constant(0.0) for _ in xs]
+    port_parents = [tg.Constant(0.0) for _ in xs]
+    port = getattr(tg, name)(*port_parents)
+    port_ctx = _Ctx({p._id: torch.from_numpy(x) for p, x in zip(port_parents, xs)})
+    try:
+        ref = getattr(jg, name)(*jax_parents)._emit(
+            _Ctx({p._id: jnp.asarray(x) for p, x in zip(jax_parents, xs)})
+        )
+    except TypeError:
+        return None, port, port_ctx
+    return ref, port, port_ctx
+
+
+@pytest.mark.parametrize("name", [n for n in ARITY if n != "NoOp"])
+def test_transform_on_bool_inputs_matches_jax(name):
+    # jnp keeps abs, floor and ceil of a bool as bool and computes //, % and
+    # ** of bools in int32 (a False divisor as an integer zero).
+    rng = np.random.default_rng(zlib.crc32(name.encode()) + 1)
+    xs = [rng.random(N) < 0.5 for _ in range(ARITY[name])]
+    ref, port, ctx = _emit_both(name, xs)
+    if ref is None:  # jnp refuses bool here (neg, sign, bool - bool): no value to match
+        assert name in ("Negate", "Sign", "Subtract")
+        return
+    _assert_same(ref, port._emit(ctx))
+
+
+ZERO_DIVISOR_CASES = {
+    "roadmap": ([-3, 0, 2, 7], [2, 0, -3, 0]),
+    "seeded": None,
+    "extremes": ([-(2**31), 2**31 - 1, -(2**31), 5, 0], [0, 0, -1, -1, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(ZERO_DIVISOR_CASES))
+@pytest.mark.parametrize("name", ["FloorDivide", "Mod"])
+def test_integer_division_by_zero_matches_jax(name, case):
+    if ZERO_DIVISOR_CASES[case] is None:
+        rng = np.random.default_rng(zlib.crc32(name.encode()) + 2)
+        a, b = rng.integers(-9, 10, N), rng.integers(-2, 3, N)  # a fifth of the divisors are 0
+    else:
+        a, b = ZERO_DIVISOR_CASES[case]
+    xs = [np.asarray(a, np.int32), np.asarray(b, np.int32)]
+    ref, port, ctx = _emit_both(name, xs)
+    got = port._emit(ctx)
+    _assert_same(ref, got)
+    if case == "roadmap":
+        expected = {"FloorDivide": [-2, -1, -1, -2], "Mod": [1, 0, -1, 0]}[name]
+        assert got.tolist() == expected
+
+
+def test_integer_power_matches_jax_for_non_negative_exponents():
+    # Negative integer exponents are left out: jnp's values there are the
+    # reference's own defect (3 ** -2 = 703701817 on int32).
+    rng = np.random.default_rng(5)
+    xs = [rng.integers(-5, 6, N).astype(np.int32), rng.integers(0, 6, N).astype(np.int32)]
+    ref, port, ctx = _emit_both("Power", xs)
+    _assert_same(ref, port._emit(ctx))
 
 
 def _expression(mod, x, y):

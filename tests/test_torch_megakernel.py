@@ -2,7 +2,9 @@
 
 On the CPU: Philox4x32-10's known-answer vectors, the bits-to-uniform
 map, ``run_tape(lower(plan), U)`` against the plain executor on the same
-``U`` (bitwise after casting both to float32), ``supports`` against
+``U`` (bitwise after casting both to float32), the four-word layout of
+the stream, the generator of the per-graph kernel text (what it reads,
+what it writes, its cache key), ``supports`` against
 ``pallas_exec.supports``, and the package's import hygiene.  The kernel
 itself is held against the twin on the card by ``test_torch_cuda.py``
 and ``chip_smoke.py``.
@@ -23,7 +25,7 @@ from probabilit_tpu.engine import pallas_exec
 from probabilit_tpu.models import benchmarks as jax_benchmarks
 from probabilit_tpu.models import graph as jg
 from probabilit_tpu.models.distributions import Distribution as JaxDistribution
-from probabilit_tpu_torch import config, interop
+from probabilit_tpu_torch import _build, config, interop
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models import benchmarks, graph as tg
@@ -33,7 +35,7 @@ from test_torch_cuda import GRAPHS  # the same graphs the card tests run
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "probabilit_tpu_torch"
-KERNEL_SRC = PKG / "csrc" / "graph_megakernel.cu"
+CSRC = PKG / "csrc"
 
 
 @pytest.fixture(autouse=True)
@@ -99,10 +101,62 @@ def test_philox_uniforms_depend_on_the_seed_and_not_on_n():
     a = cuda_exec.philox_uniforms(words, 1000, 3)
     b = cuda_exec.philox_uniforms(words, 400, 3)
     torch.testing.assert_close(a[:400], b, rtol=0, atol=0)
+    # ... nor on where a run starts, aligned to a group of four or not.
+    for start, n in ((7, 10), (8, 9), (399, 5), (1, 2)):
+        part = cuda_exec.philox_uniforms(words, n, 3, start=start)
+        torch.testing.assert_close(part, a[start:start + n], rtol=0, atol=0)
     c = cuda_exec.philox_uniforms(cuda_exec.seed_words(18), 400, 3)
     assert not torch.equal(b, c)
     assert float(a.min()) >= 2.0**-24 and float(a.max()) <= 1.0 - 2.0**-24
     assert abs(float(a.mean()) - 0.5) < 0.03
+
+
+def test_philox_uniforms_are_the_four_words_of_each_group():
+    key, start, n, columns = (0x9ABCDEF0, 7), 2**34 + 5, 11, [0, 6]  # g > 2^32: both words
+    got = cuda_exec.philox_uniforms(key, n, 7, columns=columns, start=start)
+    assert got.shape == (n, 2) and got.dtype == torch.float32
+    for row in range(n):
+        i = start + row
+        g = i >> 2
+        for j, c in enumerate(columns):
+            word = _philox_python((g & 0xFFFFFFFF, g >> 32, c, 0), key)[i & 3]
+            want = philox.bits_to_open_unit(torch.tensor([word], dtype=torch.int64))
+            assert got[row, j] == want[0], (row, c)
+
+
+CORRELATED = {"mixed_correlated_50": benchmarks.mixed_correlated_50}
+
+
+def _tape_and_ab(name, words, n_for_ab=4096):
+    sink = {**GRAPHS, **CORRELATED}[name]()
+    plan = tcompile.get_plan(sink)
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, _keep(plan, 4)))
+    ab = cuda_exec.recolor_transform(plan, words, n_for_ab, device="cpu") if plan.corr_vars else None
+    return plan, tape, ab
+
+
+@pytest.mark.parametrize("start,n", [(1, 5), (6, 3), (7, 1030), (4, 8), (1023, 2)])
+@pytest.mark.parametrize("name", ["mixed_dag_20", "mixed_correlated_50"])
+def test_run_reference_at_any_start_equals_rows_of_a_longer_run(name, start, n):
+    words = (21, 22)
+    _, tape, ab = _tape_and_ab(name, words)
+    whole = cuda_exec.run_reference(tape, words, start + n, ab)
+    part = cuda_exec.run_reference(tape, words, n, ab, start=start)
+    torch.testing.assert_close(part, whole[:, start:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["mixed_dag_20", "mixed_correlated_50", "height_model"])
+def test_value_program_equals_the_tape_bitwise(name):
+    words = (31, 32)
+    plan, tape, ab = _tape_and_ab(name, words)
+    U = cuda_exec.philox_uniforms(words, 4096, plan.d)
+    assert len(tape.program) == tape.n_instr
+    dsts = [row[1] for row in tape.program
+            if cuda_exec.OPCODES[row[0]] not in ("STORE", "SCORE")]
+    assert dsts == sorted(set(dsts))  # one value per row, never written twice
+    torch.testing.assert_close(
+        cuda_exec.run_program(tape, U, ab), cuda_exec.run_tape(tape, U, ab), rtol=0, atol=0
+    )
 
 
 def _keep(plan, width):
@@ -242,13 +296,151 @@ def test_supports_accepts_float_valued_ops_of_integers():
     )
 
 
+def _hand_tape(rows, n_corr=0):
+    """A tape around hand-written value-numbered rows (the generator reads
+    ``program``, ``n_corr``, the kept rows and the number of constants)."""
+    op = {name: i for i, name in enumerate(cuda_exec.OPCODES)}
+    program = tuple((op[r[0]], *r[1:], *[-1] * (6 - len(r))) for r in rows)
+    consts = tuple(0.5 for r in rows if r[0] == "LOADK")
+    keep = tuple(r[1] for r in rows if r[0] == "STORE")
+    code = torch.tensor(program, dtype=torch.int32)
+    return cuda_exec.Tape(code, torch.zeros(len(rows)), len(rows), 2, keep, n_corr, program, consts)
+
+
+def _loop_body(text):
+    """The generated lines: from the group loop to the end of the kernel."""
+    return text[text.index("const int64_t r0"):text.index("if (bad) atomicOr")]
+
+
+@pytest.mark.parametrize("name", cuda_exec.OPCODES)
+def test_every_opcode_has_an_emitter(name):
+    assert set(cuda_exec._EMIT) == set(cuda_exec.OPCODES)
+    # Values 0, 1: draws; 2, 3: constants 0 and 1 of the parameter block.
+    head = [("DRAW", 0, 0), ("DRAW", 1, 4), ("LOADK", 2), ("LOADK", 3),
+            ("SCORE", 0, 0), ("SCORE", 1, 1)]
+    if name == "RECOLOR":
+        body = _loop_body(_hand_tape(head + [("RECOLOR", 4, 1), ("STORE", 0, 4)], 2).source)
+        assert "const float4 a4_0 = s_a4[1];" in body  # row 1 of A, padded to 4 floats
+        assert "const float v4_2 = s_b[1] + a4_0.x * z0_2 + a4_0.y * z1_2;" in body
+        return
+    if name in ("DRAW", "LOADK", "STORE", "SCORE"):
+        body = _loop_body(_hand_tape(head + [("ADD", 4, 1, 3), ("STORE", 0, 4), ("STORE", 1, 2)], 2).source)
+        assert "const uint4 w1 = philox_group(g, 4u, k0, k1);" in body
+        assert "const float v1_3 = bits_to_open_unit(w1.w);" in body
+        assert "const float z1_0 = ndtri_fast(v1_0);" in body
+        assert "const float v4_1 = v1_1 + k.v[1];" in body  # a constant is an operand
+        assert "v2_" not in body and "v3_" not in body  # ... and never a line
+        assert "store_group(out + 0 * n, r0, n, vec, v4_0, v4_1, v4_2, v4_3, bad);" in body
+        assert "store_group(out + 1 * n, r0, n, vec, k.v[0], k.v[0], k.v[0], k.v[0], bad);" in body
+        return
+    template = cuda_exec._EMIT[name]
+    arity = sum(f"{{{f}}}" in template for f in "abcd")
+    assert arity >= 1 and "{" not in template.format(a="", b="", c="", d="")
+    body = _loop_body(_hand_tape(head + [(name, 4, *(0, 2, 1, 3)[:arity]), ("STORE", 0, 4)]).source)
+    for lane in range(cuda_exec.LANES):
+        operands = dict(zip("abcd", (f"v0_{lane}", "k.v[0]", f"v1_{lane}", "k.v[1]")))
+        assert f"const float v4_{lane} = {template.format(**operands)};" in body
+
+
 def test_opcodes_and_caps_match_the_kernel_source():
-    src = KERNEL_SRC.read_text()
-    enum = re.search(r"enum Op : int \{(.*?)\};", src, re.S).group(1)
-    names = [n.strip()[3:] for n in enum.split(",") if n.strip()]
-    assert names == cuda_exec.OPCODES
-    assert f"kMaxSlots = {cuda_exec.MAX_SLOTS};" in src
-    assert f"kMaxInstr = {cuda_exec.MAX_INSTR};" in src
+    headers = {name: (CSRC / name).read_text() for name in cuda_exec._HEADERS}
+    sink = benchmarks.mixed_correlated_50()
+    text = cuda_exec.lowered(tcompile.get_plan(sink), [sink._id]).source
+    for name in headers:
+        assert f'#include "{name}"' in text
+    assert f"kThreads = {cuda_exec._THREADS};" in text
+    assert f"kMaxCorr = {cuda_exec.MAX_CORR_K};" in (CSRC / "corr_stats.cu").read_text()
+    assert not (CSRC / "graph_megakernel.cu").exists()  # no interpreter beside the generator
+    # Every function an emitter calls is CUDA's float32 libm or defined,
+    # by hand, in one of the two headers.
+    libm = {"powf", "atan2f", "fabsf", "logf", "expf", "floorf", "ceilf", "sqrtf", "log10f",
+            "sinf", "cosf", "tanf", "asinf", "acosf", "atanf", "sinhf", "coshf", "tanhf",
+            "asinhf", "acoshf", "atanhf", "log1pf", "expm1f"}
+    defined = set(re.findall(r"__device__ __forceinline__ \w+ (\w+)\(", "".join(headers.values())))
+    called = set(re.findall(r"(\w+)\(", " ".join(cuda_exec._EMIT.values())))
+    assert called <= libm | defined, called - libm - defined
+    assert {"philox_group", "store_group", "ndtri_fast", "floor_divide", "ppf_triang"} <= defined
+    # A 4 KB parameter space holds the constants beside the other arguments.
+    assert 4 * cuda_exec.MAX_CONSTS + 64 <= 4096
+
+
+def test_many_ops_runs_every_transform_opcode():
+    # The card tests hold the generated kernel to its twin on this graph.
+    sink = GRAPHS["many_ops"]()
+    tape = cuda_exec.lower(tcompile.get_plan(sink), [sink._id])
+    used = {cuda_exec.OPCODES[row[0]] for row in tape.program}
+    assert set(cuda_exec._TRANSFORM_OPS.values()) <= used
+
+
+def _fresh(name):
+    """(plan, sink-only tape) of a newly built graph: new node ids each time."""
+    sink = {**GRAPHS, **CORRELATED}[name]()
+    plan = tcompile.get_plan(sink)
+    return plan, cuda_exec.lower(plan, [sink._id])
+
+
+@pytest.mark.parametrize("name", ["mixed_dag_20", "mixed_correlated_50", "many_ops"])
+def test_generated_text_is_deterministic_and_straight_line(name):
+    plan, tape = _fresh(name)
+    text = cuda_exec.generate(tape)
+    assert text == tape.source == cuda_exec.generate(_fresh(name)[1])
+    kernel = text[text.index("__global__"):text.index("}  // namespace")]
+    assert "switch" not in kernel and "case " not in kernel
+    # No per-thread array: the only arrays are the shared copy of (A, b),
+    # and the generated lines subscript with integer literals alone.
+    assert len(re.findall(r"__shared__ \w+ \w+\[", kernel)) == (2 if plan.corr_vars else 0)
+    assert re.findall(r"^\s*(?:const )?(?:float|int|uint32_t)\s+\w+\[", kernel, re.M) == []
+    body = _loop_body(text)
+    assert set(re.findall(r"\[([^\]]*)\]", body)) <= {str(i) for i in range(1024)}
+    lines = [line.strip() for line in body.splitlines()[1:] if line.strip() and line.strip() != "}"]
+    assert all(re.match(r"(const (float|float4|uint4) \w+ = .*;|store_group\(.*\);)$", line)
+               for line in lines), [l for l in lines if not l.startswith(("const", "store"))]
+    # K, the kept rows and the constants are the text's compile-time shape.
+    assert f"kCorr = {len(plan.corr_vars)};" in text and f"kKeep = {tape.n_keep};" in text
+    assert f"kConsts = {len(tape.consts)};" in text
+    assert body.count("store_group(") == tape.n_keep == 1
+    assert body.count("philox_group(") == plan.d  # one call per column and group of four
+    # Nothing of the graph's data is printed: the only float literals are
+    # the emitters' own 0.0f.
+    assert set(re.findall(r"\d+\.\d+f?", body)) <= {"0.0f"}
+
+
+def _priced(loc, scale, wiring="add"):
+    x = Distribution("norm", loc=loc, scale=scale)
+    y = Distribution("expon", scale=scale)
+    return tg.Exp(x * 0.5) + y if wiring == "add" else tg.Exp(x * 0.5) * y
+
+
+def test_cache_key_is_the_structure_not_the_constants():
+    def key(sink, keep=()):
+        plan = tcompile.get_plan(sink)
+        order = cuda_exec.keep_order(plan, frozenset({sink._id, *keep}))
+        tape = cuda_exec.lower(plan, order)
+        return _build.generated_key(tape.source, cuda_exec._HEADERS), tape
+
+    (a, tape_a), (b, tape_b) = key(_priced(1.0, 2.0)), key(_priced(-3.5, 0.25))
+    assert a == b and tape_a.source == tape_b.source and tape_a.consts != tape_b.consts
+    assert key(_priced(1.0, 2.0, wiring="mul"))[0] != a  # another opcode
+    assert key(Distribution("norm", loc=1.0, scale=2.0) + _priced(1.0, 2.0))[0] != a  # another column
+    kept = _priced(1.0, 2.0)
+    assert key(kept, keep=[kept.parents[0]._id])[0] != a  # another kept row
+    # The key follows the headers' bytes and the compiler flags too.
+    assert _build.generated_key(tape_a.source, cuda_exec._HEADERS[:1]) != a
+
+
+def test_lowering_is_cached_on_the_plan_per_keep_order(monkeypatch):
+    sink = benchmarks.mixed_dag_20()
+    plan = tcompile.get_plan(sink)
+    calls = []
+    real = cuda_exec.lower
+    monkeypatch.setattr(cuda_exec, "lower", lambda *a: calls.append(a) or real(*a))
+    assert cuda_exec.supports(plan, frozenset({sink._id}))
+    tape = cuda_exec.lowered(plan, [sink._id])
+    assert cuda_exec.lowered(plan, [sink._id]) is tape and len(calls) == 1
+    assert cuda_exec.lowered(plan, [sink._id], "meta") is cuda_exec.lowered(plan, [sink._id], "meta")
+    other = cuda_exec.lowered(plan, [plan.topo[-2]._id, sink._id])
+    assert other is not tape and len(calls) == 2
+    assert tcompile.get_plan(benchmarks.mixed_dag_20()) is not plan  # a new graph, a new cache
 
 
 def _imports(path):
@@ -286,12 +478,33 @@ def test_import_calls_no_compiler():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_run_on_a_non_cpu_tape_never_falls_back(monkeypatch):
+def test_run_on_a_non_cpu_tape_never_falls_back(monkeypatch, tmp_path):
     def forbidden(*args, **kwargs):
         raise AssertionError("the plain version ran")
 
     monkeypatch.setattr(cuda_exec, "run_reference", forbidden)
+    monkeypatch.setattr(cuda_exec, "run_tape", forbidden)
     sink = benchmarks.mixed_dag_20()
     tape = cuda_exec.lower(tcompile.get_plan(sink), [sink._id]).to("meta")
     with pytest.raises(RuntimeError, match="executor='cuda'"):
         cuda_exec.run(tape, (0, 0), 1024)
+    # A build that fails raises too: past the environment check, without a
+    # compiler and with one that exits non-zero.
+    monkeypatch.setattr(cuda_exec, "environment_issue", lambda device=None: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    launches = cuda_exec.LAUNCHES
+
+    def no_compiler():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH).")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_compiler)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_exec.run(tape, (0, 0), 1024)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: Path("/bin/false"))
+    with pytest.raises(RuntimeError, match="nvcc failed with exit code 1"):
+        cuda_exec.run(tape, (0, 0), 1024)
+    assert cuda_exec.LAUNCHES == launches and _build._LIBS == {}
+    written = sorted(p.name for p in tmp_path.iterdir())
+    key = _build.generated_key(tape.source, cuda_exec._HEADERS)
+    assert written == [f"graph_megakernel-{key}.cu"]  # the text stays for reading; no library
+    assert (tmp_path / written[0]).read_text() == tape.source

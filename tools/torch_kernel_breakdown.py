@@ -2,18 +2,19 @@
 
     python3 tools/torch_kernel_breakdown.py [--n 100000000] [--streamed-n 268435456]
 
-Times the graph megakernel on tapes cut down from the two main paths'
-graphs, each alone, with CUDA events (median of 10 after one warm-up),
+Times generated graph megakernels of graphs cut down from the two main
+paths' graphs (each its own nvcc build of a few seconds, all started
+together), each alone, with CUDA events (median of 10 after one warm-up),
 and profiles one ``sample(executor="cuda")`` call of each path with
 ``torch.profiler`` for its device time and idle share, then one streamed
 ``estimate(quantiles, cvar)`` of each graph (``--streamed-n`` draws in
 2^24-blocks), its device time grouped by what the kernels do.  The cut-down
 graphs keep the main paths' distributions and drop the rest:
 
-* ``mixed_dag_20``: a store-only tape and the 8 draws summed (Philox:
-  tapes written by hand, ``LOADK``/``STORE`` and ``DRAW``/``ADD``/
-  ``STORE``), 8 normals summed, and the full graph;
-* ``mixed_correlated_50``: the 10 draws summed (by hand); the 10 drivers
+* ``mixed_dag_20``: a sum of two constants (the store alone), 8 standard
+  uniforms summed (Philox, the bits-to-uniform map and one multiply-add a
+  draw), 8 normals summed, and the full graph;
+* ``mixed_correlated_50``: 10 standard uniforms summed; the 10 drivers
   with their own families, summed, uncorrelated (plus the ppfs); the
   same, correlated (plus ``SCORE``/``RECOLOR``/``NDTR``); and the full
   graph (plus the transform lattice).  The statistics kernel is
@@ -31,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -70,7 +72,8 @@ def main():
     from probabilit_tpu_torch import config
     from probabilit_tpu_torch.engine import compile as _compile
     from probabilit_tpu_torch.engine import cuda_exec
-    from probabilit_tpu_torch.models import benchmarks
+    from probabilit_tpu_torch import _build
+    from probabilit_tpu_torch.models import benchmarks, graph
     from probabilit_tpu_torch.models.distributions import Distribution
 
     smi = subprocess.run(
@@ -81,28 +84,21 @@ def main():
     config.set_device("cuda")
     words = cuda_exec.seed_words(0)
 
-    def kernel_ms(sink):
+    def tape_of(sink):
         plan = _compile.get_plan(sink)
-        tape = cuda_exec.lower(plan, [sink._id]).to("cuda")
+        return plan, cuda_exec.lowered(plan, [sink._id], "cuda")
+
+    def kernel_ms(sink):
+        plan, tape = tape_of(sink)
         ab = cuda_exec.recolor_transform(plan, words, n) if plan.corr_vars else None
         ms = time_ms(torch, lambda: cuda_exec.run(tape, words, n, ab))
-        return {"instructions": tape.n_instr, "slots": tape.n_slots, "ms": ms}
+        return {"rows": tape.n_instr, "constants": len(tape.consts), "ms": ms}
 
-    opcode = {name: i for i, name in enumerate(cuda_exec.OPCODES)}
-
-    def hand_ms(k):
-        """k draws summed (k = 0: one constant), stored."""
+    def uniforms(k):
+        """k standard uniforms summed (k = 0: two constants summed)."""
         if k == 0:
-            rows = [["LOADK", 0, -1, -1], ["STORE", 0, 0, -1]]
-        else:
-            rows = [["DRAW", 0, 0, -1]]
-            for c in range(1, k):
-                rows += [["DRAW", 1, c, -1], ["ADD", 0, 0, 1]]
-            rows.append(["STORE", 0, 0, -1])
-        code = torch.tensor([[opcode[r[0]], *r[1:], -1, -1] for r in rows], dtype=torch.int32)
-        tape = cuda_exec.Tape(code, torch.zeros(len(rows)), 2, k, (0,)).to("cuda")
-        ms = time_ms(torch, lambda: cuda_exec.run(tape, words, n))
-        return {"instructions": tape.n_instr, "slots": tape.n_slots, "ms": ms}
+            return graph.Constant(1.5) + graph.Constant(2.0)
+        return total([Distribution("uniform") for _ in range(k)])
 
     def total(nodes):
         out = nodes[0]
@@ -110,37 +106,52 @@ def main():
             out = out + node
         return out
 
-    # mixed_dag_20: the first slice's breakdown, from this script.
     dag = benchmarks.mixed_dag_20()
     dag_plan = _compile.get_plan(dag)
-    rows = {
-        "store_only": hand_ms(0),
-        "draws_8": hand_ms(8),
-        "draws_8_norm": kernel_ms(total([Distribution("norm") for _ in range(8)])),
-        "full": kernel_ms(dag),
-    }
-    emit({"graph": "mixed_dag_20", "distributions": dag_plan.d, "tapes": rows})
-
-    # mixed_correlated_50: draws, ppfs, recolouring, transforms.
     corr = benchmarks.mixed_correlated_50()
     plan = _compile.get_plan(corr)
 
     def drivers():
         return [Distribution(v.distr, *v.args, **v.kwargs) for v in plan.corr_vars]
 
-    plain = drivers()
     recoloured = drivers()
-    summed = total(recoloured).correlate(*recoloured, corr_mat=plan.corr_matrix)
-    columns = [plan.col_of[v._id] for v in plan.corr_vars]
-    rows = {
-        "draws_10": hand_ms(10),
-        "draws_10_ppf": kernel_ms(total(plain)),
-        "draws_10_ppf_recolour": kernel_ms(summed),
-        "full": kernel_ms(corr),
-        "stats_kernel": {"ms": time_ms(
-            torch, lambda: cuda_exec.corr_stats(words, n, columns, "cuda"))},
+    dag_cuts = {
+        "store_only": uniforms(0),
+        "draws_8": uniforms(8),
+        "draws_8_norm": total([Distribution("norm") for _ in range(8)]),
+        "full": dag,
     }
-    emit({"graph": "mixed_correlated_50", "k": len(columns), "tapes": rows})
+    corr_cuts = {
+        "draws_10": uniforms(10),
+        "draws_10_ppf": total(drivers()),
+        "draws_10_ppf_recolour": total(recoloured).correlate(
+            *recoloured, corr_mat=plan.corr_matrix),
+        "full": corr,
+    }
+
+    # Every cut is its own generated kernel: build them all at once.
+    texts = [tape_of(sink)[1].source for sink in (*dag_cuts.values(), *corr_cuts.values())]
+    def timed_build(text):
+        t = time.perf_counter()
+        _build.build_generated("graph_megakernel", text, cuda_exec._HEADERS)
+        return time.perf_counter() - t
+
+    start = time.perf_counter()
+    with ThreadPoolExecutor(len(texts) + 1) as pool:
+        stats_build = pool.submit(_build.build, "corr_stats")
+        seconds_each = list(pool.map(timed_build, texts))
+        stats_build.result()
+    emit({"builds": len(texts) + 1, "seconds_all": time.perf_counter() - start,
+          "seconds_each_generated": seconds_each})
+
+    rows = {name: kernel_ms(sink) for name, sink in dag_cuts.items()}
+    emit({"graph": "mixed_dag_20", "distributions": dag_plan.d, "kernels": rows})
+
+    columns = [plan.col_of[v._id] for v in plan.corr_vars]
+    rows = {name: kernel_ms(sink) for name, sink in corr_cuts.items()}
+    rows["stats_kernel"] = {"ms": time_ms(
+        torch, lambda: cuda_exec.corr_stats(words, n, columns, "cuda"))}
+    emit({"graph": "mixed_correlated_50", "k": len(columns), "kernels": rows})
 
     # One sample() call of each path under the profiler: device time by
     # kernel, and the share of the call's wall time the card sat idle.
