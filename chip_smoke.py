@@ -92,6 +92,37 @@ The streamed path, ``estimate`` and ``sample_streaming``:
     share (wall - kernel time) / wall; the correlated one with each
     block's recolour system solved on the card and on the host.
 
+The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
+``csrc/special_ops.cuh``):
+
+14. ``benchmarks.family_graphs()``: the 72 family branches beside the
+    first five, in five graphs of at most 15 family nodes (four of closed
+    forms, one of the incomplete gamma/beta Newton families), each summed
+    into its sink, at the parameters of the JAX package's family sweep.
+    Each is sampled at 1e8 through ``sample(executor="cuda")`` (K1 must
+    launch; the sink finite); each kept node is held against the twin at
+    n = 2^22 within 1e-4 of its largest value (a Newton node on the samples
+    whose uniforms lie in [0.001, 0.999], the sink of the Newton graph
+    there within the sum of its terms' tolerances; the whole range is
+    printed); each family's column at 2^20 (one keep-all sample) is
+    KS-tested against ``scipy.stats`` (a chi-square test for bernoulli,
+    geom and randint), p > 1e-4 each; K1 of each graph is timed at 1e8
+    with its bound (``OP_COST``: a Newton op at the twin's mean trip count
+    on the phase's draws times one trip's floating-point operations), the
+    twin at 2^22.
+15. ``benchmarks.portfolio_var()``, the correlated portfolio of
+    ``examples/03_portfolio_var.py`` (a t(df = 4), a lognormal and a
+    normal; the analyst's guess repaired by ``nearest_correlation_matrix``):
+    ``sample(1e8, executor="cuda")`` must launch K2 and K1; K2's sums and
+    K1's rows (t branch included) are held against their twins; the three
+    drivers' normal scores (the t's through scipy's CDF on the host, then
+    ``ndtri``) must carry the repaired target within 2e-3 at 1e7; the
+    sink's mean and std through ``cuda`` and ``None`` must agree within 5
+    standard errors; ``estimate(1e9, quantiles=(0.01, 0.05, 0.5),
+    executor="auto")`` must launch K1 and K2 60 times each and agree with
+    the one-shot run within 5 standard errors; both calls are timed, with
+    the host share.
+
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
@@ -149,6 +180,10 @@ K3_TYPES = (  # (key dtype, payload dtype): K3 timed alone for every pair width
 )
 N_STREAM = 1_000_000_000
 BLOCK = 1 << 24
+N_FAMILY_KS = 1 << 20
+FAMILY_P_MIN = 1e-4
+NEWTON_CENTRAL = (0.001, 0.999)  # the uniforms on which a Newton node is held to its twin
+PORTFOLIO_QUANTILES = (0.01, 0.05, 0.5)
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -168,11 +203,43 @@ _DRAW_INTS = 43 / 4
 OP_COST = {
     "DRAW": (_DRAW_INTS, 3), "LOADK": (0, 0), "STORE": (0, 0),
     "SCORE": (0, _NDTRI), "NDTR": (0, _NDTR + 2),
-    "PPF_UNIFORM": (0, 2), "PPF_NORM": (0, _NDTRI + 2), "PPF_EXPON": (0, 6),
-    "PPF_LOGNORM": (0, _NDTRI + 7), "PPF_TRIANG": (0, 14),
+    "PPF_UNIFORM": (0, 0), "PPF_NORM": (0, _NDTRI), "PPF_EXPON": (0, 4),
+    "PPF_LOGNORM": (0, _NDTRI + 5), "PPF_TRIANG": (0, 12),
     "SCORE_NORM": (0, 2), "SCORE_LOGNORM": (0, 7),
     "DIV": (0, 4), "POW": (0, 8), "EXP": (0, 4), "LOG": (0, 4), "SQRT": (0, 4),
+    "AFFINE": (0, 2),
 }
+# The family branches' standard variates, float32 operations per sample:
+# a transcendental or a division counts 4, a power 8 (a log, a multiply,
+# an exp), expm1_safe 14 (its Taylor branch), ndtri_fast_wide 100 (two
+# logs and the Giles branch, or the asymptotic series).
+_WIDE, _EXPM1 = 100, 14
+FAMILY_FLOPS = {
+    "truncnorm": 2 * _NDTR + _WIDE + 6, "cauchy": 6, "laplace": 7, "logistic": 9,
+    "gumbel_r": 9, "gumbel_l": 9, "rayleigh": 9, "halfnorm": _WIDE + 2, "pareto": 13,
+    "weibull_min": 16, "weibull_max": 16, "powerlaw": 12, "loguniform": 19, "arcsine": 6,
+    "hypsecant": 11, "fisk": 16, "genpareto": 10 + _EXPM1, "genextreme": 12 + _EXPM1,
+    "bernoulli": 2, "geom": 13, "randint": 6, "alpha": _NDTR + _WIDE + 6,
+    "bradford": 9 + _EXPM1, "burr": 20 + _EXPM1, "burr12": 20 + _EXPM1, "dweibull": 19,
+    "exponpow": 20, "exponweib": 24 + _EXPM1, "fatiguelife": _NDTRI + 10,
+    "genhalflogistic": 18, "genlogistic": 12 + _EXPM1, "gibrat": _NDTRI + 4, "gompertz": 12,
+    "halfcauchy": 10, "halflogistic": 9, "invweibull": 16, "johnsonsb": _NDTRI + 14,
+    "johnsonsu": _NDTRI + 15, "kappa3": 26 + _EXPM1, "laplace_asymmetric": 16,
+    "levy": _WIDE + 5, "levy_l": _WIDE + 6, "loglaplace": 14, "lomax": 8 + _EXPM1,
+    "mielke": 28 + _EXPM1, "moyal": _WIDE + 6, "powerlognorm": 16 + _EXPM1 + _WIDE,
+    "powernorm": 12 + _EXPM1 + _WIDE, "trapezoid": 22, "truncexpon": 5 + _EXPM1,
+    "truncpareto": 24, "truncweibull_min": 40, "tukeylambda": 22, "reciprocal": 19,
+    "skewcauchy": 16, "kappa4": 16 + 2 * _EXPM1, "crystalball": _NDTR + _WIDE + 45,
+}
+OP_COST.update({f"PPF_{name.upper()}": (0, flops) for name, flops in FAMILY_FLOPS.items()})
+# The Newton families: a guess (ndtri_fast_wide and Lanczos log-gammas,
+# about 40 operations each), then per trip one incomplete function and a
+# step.  A gamma trip is priced at the series branch (48 terms of a
+# multiply, a division and an add; the continued fraction costs more), a
+# beta trip at 40 pairs of the continued fraction (29 operations a half:
+# the partial numerator with its division, two guarded reciprocals).
+GAMMA_GUESS, GAMMA_TRIP = _WIDE + 2 * 40 + 20, 48 * 7 + 20
+BETA_GUESS, BETA_TRIP = _WIDE + 3 * 40 + 30, 40 * 58 + 40
 
 
 def emit(obj):
@@ -184,17 +251,71 @@ def check(cond, message):
         raise AssertionError(message)
 
 
-def tape_cost(tape, cuda_exec):
-    """(integer instructions, float32 flops) per sample of ``tape``."""
+def tape_cost(tape, cuda_exec, newton=None):
+    """(integer instructions, float32 flops) per sample of ``tape``;
+    ``newton`` prices this run's Newton ops (``newton_cost``)."""
     ints = flops = 0
     for op in tape.code[:, 0].tolist():
         name = cuda_exec.OPCODES[op]
         if name == "RECOLOR":
             i, f = 0, 2 * tape.n_corr
+        elif newton and name in newton:
+            i, f = 0, newton[name]
         else:
             i, f = OP_COST.get(name, (0, 1))
         ints, flops = ints + i, flops + f
     return ints, flops
+
+
+def newton_inverses(torch, name, args, q):
+    """The incomplete-function inverses ``ppf_<name>`` (csrc/ppf_ops.cuh)
+    calls on the quantiles ``q``: ``(kind, a, b, p)``."""
+    from probabilit_tpu_torch.ops import special
+
+    def full(v):
+        return torch.full_like(q, float(v))
+
+    if name in ("gamma", "loggamma", "nakagami"):
+        return "gamma", full(args[0]), None, q
+    if name == "invgamma":
+        return "gamma", full(args[0]), None, 1.0 - q
+    if name in ("chi2", "chi"):
+        return "gamma", full(0.5 * args[0]), None, q
+    if name == "maxwell":
+        return "gamma", full(1.5), None, q
+    if name == "dgamma":
+        p = torch.where(q < 0.5, 1.0 - (2.0 * q).clamp(1e-7, 1.0), (2.0 * q - 1.0).clamp(0.0, 0.9999999))
+        return "gamma", full(args[0]), None, p
+    if name == "gengamma":
+        return "gamma", full(args[0]), None, q if args[1] > 0 else 1.0 - q
+    if name == "argus":
+        p_chi = special.gammainc_kernel(torch.tensor(1.5), torch.tensor(0.5 * args[0] ** 2))
+        return "gamma", full(1.5), None, (1.0 - q) * p_chi.to(q.device)
+    if name in ("beta", "betaprime"):
+        return "beta", full(args[0]), full(args[1]), q
+    if name == "t":
+        return "beta", full(0.5 * args[0]), full(0.5), 2.0 * torch.minimum(q, 1.0 - q)
+    if name == "f":
+        return "beta", full(0.5 * args[0]), full(0.5 * args[1]), q
+    if name == "rdist":
+        return "beta", full(0.5 * args[0]), full(0.5 * args[0]), q
+    raise KeyError(name)
+
+
+def newton_cost(torch, name, args, q):
+    """(mean trips, float32 operations per sample) of a Newton family's
+    op on the quantiles ``q``: the twin's trips (``special.newton_*``, under
+    ``kernel_safe_special``, each lane's own) times one trip's operations,
+    plus the guess."""
+    from probabilit_tpu_torch.ops import special
+
+    kind, a, b, p = newton_inverses(torch, name, args, q)
+    with special.kernel_safe_special():
+        if kind == "gamma":
+            trips = special.newton_gammaincinv(a, p)[1] / q.numel()
+            return trips, GAMMA_GUESS + trips * GAMMA_TRIP
+        trips = special.newton_betaincinv(a, b, p)[1] / q.numel()
+        return trips, BETA_GUESS + trips * BETA_TRIP
 
 
 def stats_cost(k):
@@ -272,17 +393,34 @@ def normal_drivers(plan):
     return [v for v in plan.corr_vars if v.distr == "norm"]
 
 
+def family_keep(nodes):
+    return lambda plan: {plan.sink._id} | {node._id for _, node in nodes}
+
+
+def portfolio_keep(plan):
+    return {plan.sink._id} | {v._id for v in plan.corr_vars}
+
+
 def generated_tapes(cuda_exec, _compile):
     """{label: tape} for every graph and keep set the phases run, built on
     fresh graphs: the kernels' text depends on structure alone, so the
     phases' own graphs find these builds."""
-    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50, mixed_dag_20
+    from probabilit_tpu_torch.models.benchmarks import (
+        family_graphs,
+        mixed_correlated_50,
+        mixed_dag_20,
+        portfolio_var,
+    )
     from probabilit_tpu_torch.models.distributions import Distribution
 
     def tape(sink, keep=lambda plan: {plan.sink._id}):
         plan = _compile.get_plan(sink)
         return cuda_exec.lower(plan, cuda_exec.keep_order(plan, frozenset(keep(plan))))
 
+    families = {}
+    for label, (sink, nodes) in family_graphs().items():
+        families[label] = tape(sink)
+        families[f"{label}, all nodes"] = tape(sink, family_keep(nodes))
     return {
         "mixed_dag_20": tape(mixed_dag_20()),
         "mixed_dag_20, 16 rows": tape(mixed_dag_20(), node_keep),
@@ -295,6 +433,9 @@ def generated_tapes(cuda_exec, _compile):
             lambda plan: {plan.sink._id} | {v._id for v in normal_drivers(plan)}),
         "priced(1, 2)": tape(priced(1.0, 2.0)),
         "priced(-3.5, 0.25)": tape(priced(-3.5, 0.25)),
+        **families,
+        "portfolio_var": tape(portfolio_var()[0]),
+        "portfolio_var, drivers": tape(portfolio_var()[0], portfolio_keep),
     }
 
 
@@ -465,6 +606,8 @@ def main():
     odd = unaligned_and_shared_path(torch, cuda_exec, _compile, _build)
     sort = sort_path(torch, np, smi)
     stream = streamed_path(torch, np, cuda_exec, _compile, smi)
+    families = family_path(torch, np, scipy.stats, cuda_exec, _compile, smi)
+    portfolio = portfolio_path(torch, np, scipy, cuda_exec, _compile, smi)
 
     emit({"kernels": [
         {
@@ -474,21 +617,28 @@ def main():
             # and csrc/sampling_math.cuh.
             "source": "probabilit_tpu_torch/engine/cuda_exec.py",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
-            "launches": launches + corr["k1_launches"] + stream["k1_launches"],
-            "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"]),
+            "launches": launches + corr["k1_launches"] + stream["k1_launches"]
+            + families["k1_launches"] + portfolio["k1_launches"],
+            "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"],
+                               portfolio["k1_err"]),
             "ms": kernel_ms,
             "plain_ms": twin_ms,
             "bound_ms": main_bound,
             "bound_by": main_by,
             "library_ms": None,
+            # The family branches: per graph at 1e8, the twin at 2^22, and
+            # the largest error relative to each node's largest value.
+            "family_graphs": families["graphs"],
+            "portfolio_var": portfolio["record"],
         },
         {
             "name": "corr_stats",
             "route": "cuda",
             "source": "probabilit_tpu_torch/csrc/corr_stats.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:577",
-            "launches": corr["k2_launches"] + stream["k2_launches"],
-            "max_abs_err": max(corr["k2_err"], stream["k2_err"], odd["k2_err"]),
+            "launches": corr["k2_launches"] + stream["k2_launches"] + portfolio["k2_launches"],
+            "max_abs_err": max(corr["k2_err"], stream["k2_err"], odd["k2_err"],
+                               portfolio["k2_err"]),
             "ms": corr["k2_ms"],
             "plain_ms": corr["k2_twin_ms"],
             "bound_ms": corr["k2_bound_ms"],
@@ -1152,6 +1302,264 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
     return {"k1_launches": sum(k1 for k1, _ in results.values()),
             "k2_launches": sum(k2 for _, k2 in results.values()),
             "k1_err": stream_errs["k1"], "k2_err": stream_errs["k2"]}
+
+
+def moments_of(x, np):
+    """(mean, std, standard error of the mean, of the std) of a float64
+    tensor (the std's by the delta method)."""
+    m, sd = x.mean().item(), x.std().item()
+    m4 = ((x - m) ** 4).mean().item()
+    n = x.numel()
+    return m, sd, sd / np.sqrt(n), np.sqrt((m4 - sd**4) / n) / (2 * sd)
+
+
+def family_fit(np, stats, name, args, kwargs, x):
+    """p-value of the column ``x`` against ``scipy.stats``: KS for a
+    continuous family, chi-square over the observed values (bins expecting
+    fewer than 20 merged into the last) for a discrete one."""
+    dist = getattr(stats, name)(*args, **kwargs)
+    if name not in ("bernoulli", "geom", "randint"):
+        return "ks", stats.kstest(x, dist.cdf).pvalue
+    values, counts = np.unique(x, return_counts=True)
+    expected = dist.pmf(values) * x.size
+    keep = np.cumsum(expected[::-1])[::-1] >= 20  # a tail of small bins is merged
+    last = max(int(keep.sum()) - 1, 1)
+    counts = np.append(counts[:last], counts[last:].sum())
+    expected = np.append(expected[:last], expected[last:].sum())
+    return "chi2", stats.chisquare(counts, expected * counts.sum() / expected.sum()).pvalue
+
+
+def family_path(torch, np, stats, cuda_exec, _compile, smi):
+    """Phase 14: the family branches, five graphs of at most 15 families."""
+    from probabilit_tpu_torch.models.benchmarks import FAMILY_SWEEP, family_graphs
+
+    sweep = {name: (args, kwargs) for name, args, kwargs in FAMILY_SWEEP}
+    words = cuda_exec.seed_words(4)
+    launches_total, graphs = 0, {}
+    for index, (label, (sink, nodes)) in enumerate(family_graphs().items()):
+        plan = _compile.get_plan(sink)
+        newton = label == "newton"
+        # The entry point a user calls, sink only, at 1e8.
+        cuda_exec.LAUNCHES = 0
+        out = sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda")
+        torch.cuda.synchronize()
+        launches = cuda_exec.LAUNCHES
+        check(launches >= 1, f"{label}: the family graph launched no kernel")
+        check(tuple(out.shape) == (N_MAIN,) and bool(torch.isfinite(out).all()),
+              f"{label}: the sink is not finite or not of shape (1e8,)")
+        launches_total += launches
+        del out
+
+        # Every kept node against the twin at 2^22.
+        keep = family_keep(nodes)(plan)
+        tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+        got, flag = cuda_exec.run(tape, words, N_NODES)
+        check(int(flag) == 0, f"{label}: non-finite values on the family graph")
+        U = cuda_exec.philox_uniforms(words, N_NODES, plan.d, device="cuda")
+        t0 = time.perf_counter()
+        ref = cuda_exec.run_tape(tape, U)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        central = ((U >= NEWTON_CENTRAL[0]) & (U <= NEWTON_CENTRAL[1])).all(dim=1)
+        name_of = {node._id: name for name, node in nodes}
+        term_scale = sum(ref[k].abs().max().item() for k, nid in enumerate(tape.keep_order)
+                         if nid != sink._id)
+        rows, worst = [], 0.0
+        for k, nid in enumerate(tape.keep_order):
+            err = (got[k] - ref[k]).abs()
+            scale = ref[k].abs().max().item()
+            name = name_of.get(nid, "sink")
+            if newton:
+                col = central if nid == sink._id else (
+                    (U[:, plan.col_of[nid]] >= NEWTON_CENTRAL[0])
+                    & (U[:, plan.col_of[nid]] <= NEWTON_CENTRAL[1]))
+                held = err[col].max().item()
+                tol = REL_TOL * (term_scale if nid == sink._id else scale)
+            else:
+                held, tol = err.max().item(), REL_TOL * scale
+            row = {"node": name, "max_abs_err": err.max().item(), "held_err": held,
+                   "tolerance": tol, "max_abs_twin": scale, "rel_err": held / max(scale, 1e-30)}
+            rows.append(row)
+            worst = max(worst, row["rel_err"])
+            check(held <= tol, f"{label}: kernel vs twin per node: {row}")
+        emit({"phase": "family_kernel_vs_twin", "graph": label, "n": N_NODES,
+              "rel_tolerance": REL_TOL, "held_on": (
+                  f"uniforms in {list(NEWTON_CENTRAL)}; the sink within the sum of its "
+                  "terms' tolerances" if newton else "every sample"),
+              "twin_seconds": twin_s, "nodes": rows})
+
+        # Newton ops priced at the twin's mean trips on these draws.
+        newton_ops, trips = {}, {}
+        if newton:
+            for name, node in nodes:
+                trips[name], newton_ops[cuda_exec._FAMILY_OPS[name]] = newton_cost(
+                    torch, name, sweep[name][0], U[:, plan.col_of[node._id]])
+        del got, ref, U
+
+        # Each family's column at 2^20 against scipy.stats (a seed per
+        # graph: a KS statistic is the same for every monotone map of the
+        # same uniforms).
+        sink.sample(N_FAMILY_KS, random_state=11 + index, gc_strategy=[n for _, n in nodes],
+                    executor="cuda")
+        fits = {}
+        for name, node in nodes:
+            test, p = family_fit(np, stats, name, *sweep[name],
+                                 node.samples_.double().cpu().numpy())
+            fits[name] = {"test": test, "p": p}
+            check(p > FAMILY_P_MIN, f"{label}: {name} fails its {test} test, p = {p}")
+        emit({"phase": "family_fit", "graph": label, "n": N_FAMILY_KS, "p_min": FAMILY_P_MIN,
+              "families": fits})
+
+        # K1 at 1e8, sink only, and its bound.
+        sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+        k1_ms = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, N_MAIN),
+                             repeats=3 if newton else 5)
+        twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(sink_tape, words, N_NODES),
+                               repeats=1)
+        cost = tape_cost(sink_tape, cuda_exec, newton_ops)
+        bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+        record = {"families": [name for name, _ in nodes], "launches": launches,
+                  "ms": k1_ms, "twin_ms_at_2^22": twin_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "flops_per_sample": cost[1],
+                  "int_instr_per_sample": cost[0], "max_rel_err": worst}
+        if newton:
+            record["mean_newton_trips"] = trips
+        graphs[label] = record
+        emit({"phase": "family_timing", "graph": label, "card": smi, "n": N_MAIN, **record})
+    return {"k1_launches": launches_total, "graphs": graphs}
+
+
+def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
+    """Phase 15: the correlated portfolio of examples/03_portfolio_var.py."""
+    from probabilit_tpu_torch.models.benchmarks import portfolio_var
+
+    sink, assets = portfolio_var()
+    plan = _compile.get_plan(sink)
+    K = len(plan.corr_vars)
+    words = cuda_exec.seed_words(0)
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    out = sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda")
+    torch.cuda.synchronize()
+    k1_launches, k2_launches = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    check(k1_launches >= 1 and k2_launches >= 1, "the portfolio launched no K1 or no K2")
+    check(tuple(out.shape) == (N_MAIN,) and bool(torch.isfinite(out).all()),
+          "the portfolio's sink is not finite or not of shape (1e8,)")
+    del out
+
+    # K2 at 1e8 and K1's rows (the t branch included) at 2^22 against their twins.
+    columns = [plan.col_of[v._id] for v in plan.corr_vars]
+    sums = cuda_exec.corr_stats(words, N_MAIN, columns, "cuda")
+    sums_twin = cuda_exec.corr_stats_reference(words, N_MAIN, columns, "cuda")
+    k2_err = (sums - sums_twin).abs().max().item()
+    check(k2_err <= STATS_TOL * N_MAIN, f"portfolio: K2 vs twin {k2_err} > {STATS_TOL} * n")
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, portfolio_keep(plan)), "cuda")
+    ab = cuda_exec.recolor_transform(plan, words, N_NODES, device="cuda")
+    got, _ = cuda_exec.run(tape, words, N_NODES, ab)
+    ref = cuda_exec.run_reference(tape, words, N_NODES, ab)
+    names = {v._id: v.distr for v in plan.corr_vars}
+    rows, k1_err = [], 0.0
+    for k, nid in enumerate(tape.keep_order):
+        err = (got[k] - ref[k]).abs().max().item()
+        scale = ref[k].abs().max().item()
+        rows.append({"node": names.get(nid, "sink"), "max_abs_err": err, "max_abs_twin": scale,
+                     "rel_err": err / scale})
+        check(err <= REL_TOL * scale, f"portfolio: K1 vs twin per node: {rows[-1]}")
+        k1_err = max(k1_err, err)
+    emit({"phase": "portfolio_kernels_vs_twin", "n_k2": N_MAIN, "k2_max_abs_err": k2_err,
+          "k2_tolerance": STATS_TOL * N_MAIN, "n_k1": N_NODES, "rel_tolerance": REL_TOL,
+          "nodes": rows})
+    del got, ref
+
+    # The drivers' normal scores carry the repaired target at 1e7.
+    sink.sample(N_MOMENTS, random_state=2, gc_strategy=plan.corr_vars, executor="cuda")
+    scores = []
+    for v in plan.corr_vars:
+        x = v.samples_.double().cpu().numpy()
+        u = getattr(scipy.stats, v.distr)(*v.args, **v.kwargs).cdf(x)
+        scores.append(scipy.special.ndtri(u))
+    corr_err = float(np.abs(np.corrcoef(np.stack(scores)) - plan.corr_matrix).max())
+    check(corr_err <= CORR_TOL, f"portfolio drivers' correlation off the target by {corr_err}")
+
+    # cuda against None, then the streamed estimate against the one-shot run.
+    moments = {}
+    for executor in ("cuda", None):
+        x = sink.sample(N_MOMENTS, random_state=1, gc_strategy=[], executor=executor).double()
+        moments[str(executor)] = moments_of(x, np)
+    (m1, s1, se_m1, se_s1), (m2, s2, se_m2, se_s2) = moments["cuda"], moments["None"]
+    se_mean, se_std = np.hypot(se_m1, se_m2), np.hypot(se_s1, se_s2)
+    check(abs(m1 - m2) <= SE_MAX * se_mean, f"portfolio mean {m1} vs {m2}")
+    check(abs(s1 - s2) <= SE_MAX * se_std, f"portfolio std {s1} vs {s2}")
+    emit({"phase": "portfolio_statistics", "n": N_MOMENTS, "target": plan.corr_matrix.tolist(),
+          "corr_max_abs_err": corr_err, "corr_tolerance": CORR_TOL,
+          "mean_cuda": m1, "mean_plain": m2, "mean_diff_se": abs(m1 - m2) / se_mean,
+          "std_cuda": s1, "std_plain": s2, "std_diff_se": abs(s1 - s2) / se_std})
+
+    n_blocks = -(-N_STREAM // BLOCK)
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    st = sink.estimate(N_STREAM, random_state=0, quantiles=PORTFOLIO_QUANTILES, executor="auto")
+    k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    check(k1 == n_blocks and k2 == n_blocks, f"portfolio estimate: K1 {k1}, K2 {k2} launches")
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    x = sink.sample(N_MAIN, random_state=1, gc_strategy=[], executor="cuda").double()
+    m, sd, _, _ = moments_of(x, np)
+    kurt = ((x - m) ** 4).mean().item() / sd**4 - 3.0
+    del x
+    se_mean = np.hypot(st["sem"], sd / np.sqrt(N_MAIN))
+    se_std = np.hypot(st["std"] * np.sqrt((kurt + 2) / (4 * N_STREAM)),
+                      sd * np.sqrt((kurt + 2) / (4 * N_MAIN)))
+    check(abs(st["mean"] - m) <= SE_MAX * se_mean, f"portfolio estimate mean {st['mean']} vs {m}")
+    check(abs(st["std"] - sd) <= SE_MAX * se_std, f"portfolio estimate std {st['std']} vs {sd}")
+    emit({"phase": "portfolio_estimate", "n": N_STREAM, "block": BLOCK, "k1_launches": k1,
+          "k2_launches": k2, "mean": st["mean"], "std": st["std"], "single_shot_mean": m,
+          "single_shot_std": sd, "mean_diff_se": abs(st["mean"] - m) / se_mean,
+          "std_diff_se": abs(st["std"] - sd) / se_std,
+          **{f"q{q:g}": st[f"q{q:g}"] for q in PORTFOLIO_QUANTILES}})
+
+    # Timings: the kernels alone, sample(1e8) and estimate(1e9), host share.
+    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    ab = cuda_exec.recolor_transform(plan, words, N_MAIN, device="cuda")
+    k1_ms = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, N_MAIN, ab))
+    k2_ms = cuda_time_ms(lambda: cuda_exec.corr_stats(words, N_MAIN, columns, "cuda"))
+    twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(sink_tape, words, N_NODES, ab),
+                           repeats=1)
+    sample_ms = cuda_time_ms(
+        lambda: sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda"))
+    plain_ms = cuda_time_ms(
+        lambda: sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor=None), repeats=1)
+    block_k1 = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, BLOCK, ab, start=BLOCK))
+    block_k2 = cuda_time_ms(lambda: cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sink.estimate(N_STREAM, random_state=0, quantiles=PORTFOLIO_QUANTILES)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    stream_kernel_ms = n_blocks * (block_k1 + block_k2)
+    # The t op priced on its own column's uniforms (its recoloured
+    # quantiles are uniform too).
+    t_col = cuda_exec.philox_uniforms(
+        words, N_NODES, plan.d, device="cuda", columns=[plan.col_of[assets["commodities"]._id]])
+    trips, t_flops = newton_cost(torch, "t", (4,), t_col[:, 0])
+    del t_col
+    cost = tape_cost(sink_tape, cuda_exec, {"PPF_T": t_flops})
+    bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+    k2_bytes = 4 * cuda_exec._stats_width(K) * cuda_exec.stats_grid(K, N_MAIN)
+    k2_bound_ms, k2_bound_by = bound(N_MAIN, k2_bytes, stats_cost(K))
+    record = {"launches": k1_launches, "ms": k1_ms, "twin_ms_at_2^22": twin_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "flops_per_sample": cost[1],
+              "mean_newton_trips_t": trips, "k2_ms": k2_ms, "k2_bound_ms": k2_bound_ms,
+              "k2_bound_by": k2_bound_by, "sample_cuda_ms": sample_ms,
+              "sample_plain_ms": plain_ms,
+              "sample_host_share": (sample_ms - k1_ms - k2_ms) / sample_ms,
+              "estimate_1e9_ms": wall, "estimate_block_k1_ms": block_k1,
+              "estimate_block_k2_ms": block_k2,
+              "estimate_host_share": (wall - stream_kernel_ms) / wall}
+    emit({"phase": "portfolio_timing", "card": smi, "n": N_MAIN, "k": K, **record})
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k1_err": k1_err,
+            "k2_err": k2_err, "record": record}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 // graph_ops.cuh: the hand-written bodies of the graph megakernel's ops.
 //
 // engine/cuda_exec.py::generate writes one kernel per graph structure:
-// this file, sampling_math.cuh, a grid-stride loop over groups of four
-// samples, and one line per tape row and lane that calls into here.  Each
-// function transcribes its plain PyTorch twin: ops/ppf.py (the inverse
-// CDFs and their score forms), models/graph.py (the transforms with
-// jax.numpy semantics).  Parameters arrive as values, so a node-valued
+// this file, ppf_ops.cuh (the families' inverse CDFs), special_ops.cuh,
+// sampling_math.cuh, a grid-stride loop over groups of four samples, and
+// one line per tape row and lane that calls into here.  Each function
+// transcribes its plain PyTorch twin: ops/ppf.py (the score forms of the
+// inverse CDFs), models/graph.py (the transforms with jax.numpy
+// semantics).  Parameters arrive as values, so a node-valued
 // parameter costs nothing extra.
 
 #pragma once
@@ -58,31 +59,6 @@ __device__ __forceinline__ bool isclose(float a, float b) {
 // jnp.sign: NaN stays NaN, zeros keep their value.
 __device__ __forceinline__ float sign(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
-}
-
-// ops/ppf.py: the quantile q, then the family's parameters in signature
-// order.
-__device__ __forceinline__ float ppf_uniform(float q, float loc, float scale) {
-  return loc + scale * q;
-}
-
-__device__ __forceinline__ float ppf_norm(float q, float loc, float scale) {
-  return loc + scale * sampling_math::ndtri_fast(q);
-}
-
-__device__ __forceinline__ float ppf_expon(float q, float loc, float scale) {
-  return loc - scale * log1pf(-q);
-}
-
-__device__ __forceinline__ float ppf_lognorm(float q, float s, float loc, float scale) {
-  return loc + scale * expf(s * sampling_math::ndtri_fast(q));
-}
-
-// The square roots are the hardware's (sampling_math::sqrt_approx).
-__device__ __forceinline__ float ppf_triang(float q, float c, float loc, float scale) {
-  const float left = sampling_math::sqrt_approx(q * c);
-  const float right = 1.0f - sampling_math::sqrt_approx((1.0f - q) * (1.0f - c));
-  return loc + scale * (q <= c ? left : right);
 }
 
 // ppf(ndtr(y)) in closed form for the score-linear families: y is the

@@ -59,6 +59,35 @@ __device__ __forceinline__ float sqrt_approx(float x) {
   return r;
 }
 
+// The Giles (2012) erfinv polynomials: the central branch (fit for w < 5)
+// in w - 2.5, the tail branch (fit up to w ~ 16.6) in ws = sqrt(w) - 3.
+__device__ __forceinline__ float giles_central(float w) {
+  const float wc = w - 2.5f;
+  float p1 = 2.81022636e-08f;
+  p1 = 3.43273939e-07f + p1 * wc;
+  p1 = -3.5233877e-06f + p1 * wc;
+  p1 = -4.39150654e-06f + p1 * wc;
+  p1 = 0.00021858087f + p1 * wc;
+  p1 = -0.00125372503f + p1 * wc;
+  p1 = -0.00417768164f + p1 * wc;
+  p1 = 0.246640727f + p1 * wc;
+  p1 = 1.50140941f + p1 * wc;
+  return p1;
+}
+
+__device__ __forceinline__ float giles_tail(float ws) {
+  float p2 = -0.000200214257f;
+  p2 = 0.000100950558f + p2 * ws;
+  p2 = 0.00134934322f + p2 * ws;
+  p2 = -0.00367342844f + p2 * ws;
+  p2 = 0.00573950773f + p2 * ws;
+  p2 = -0.0076224613f + p2 * ws;
+  p2 = 0.00943887047f + p2 * ws;
+  p2 = 1.00167406f + p2 * ws;
+  p2 = 2.83297682f + p2 * ws;
+  return p2;
+}
+
 // Giles (2012) single-precision inverse error function.  The logarithm
 // and the square root are the hardware's approximations (__logf: 2^-21.4
 // absolute on [0.5, 2], 2 ulps elsewhere; sqrt.approx): the argument of
@@ -72,26 +101,8 @@ __device__ __forceinline__ float sqrt_approx(float x) {
 __device__ __forceinline__ float erfinv_f32(float x) {
   float w = -__logf(fmaxf((1.0f - x) * (1.0f + x), 1e-37f));
   w = fminf(w, 16.64f);
-  const float wc = w - 2.5f;
-  float p1 = 2.81022636e-08f;
-  p1 = 3.43273939e-07f + p1 * wc;
-  p1 = -3.5233877e-06f + p1 * wc;
-  p1 = -4.39150654e-06f + p1 * wc;
-  p1 = 0.00021858087f + p1 * wc;
-  p1 = -0.00125372503f + p1 * wc;
-  p1 = -0.00417768164f + p1 * wc;
-  p1 = 0.246640727f + p1 * wc;
-  p1 = 1.50140941f + p1 * wc;
-  const float ws = sqrt_approx(w) - 3.0f;
-  float p2 = -0.000200214257f;
-  p2 = 0.000100950558f + p2 * ws;
-  p2 = 0.00134934322f + p2 * ws;
-  p2 = -0.00367342844f + p2 * ws;
-  p2 = 0.00573950773f + p2 * ws;
-  p2 = -0.0076224613f + p2 * ws;
-  p2 = 0.00943887047f + p2 * ws;
-  p2 = 1.00167406f + p2 * ws;
-  p2 = 2.83297682f + p2 * ws;
+  const float p1 = giles_central(w);
+  const float p2 = giles_tail(sqrt_approx(w) - 3.0f);
   return (w < 5.0f ? p1 : p2) * x;
 }
 

@@ -20,9 +20,14 @@ once per graph structure and machine, as a ``jit`` would cost).  A tape is
 Opcodes: ``DRAW`` (one uniform column from Philox4x32-10), ``LOADK``, one
 per ppf family (parameters are values, so Node-valued parameters work),
 one per transform (variadic chains fold left, as ``functools.reduce``
-does), and ``STORE k``.  The hand-written bodies of the ops live in
-``csrc/graph_ops.cuh`` and ``csrc/sampling_math.cuh``; the generated text
-is those two includes, a grid-stride loop and one line per row and lane.
+does), and ``STORE k``.  A row holds four operands, so a family is a
+row that computes its standard variate from ``(q, shapes)`` (truncnorm,
+beta, burr and their kind have two shapes, truncweibull_min three) and
+an ``AFFINE`` row ``loc + scale * x`` (``ADD`` for the discrete
+families, which have no scale).  The hand-written bodies of the ops live in
+``csrc/graph_ops.cuh``, ``csrc/ppf_ops.cuh``, ``csrc/special_ops.cuh``
+and ``csrc/sampling_math.cuh``; the generated text is those includes, a
+grid-stride loop and one line per row and lane.
 
 Random bits: sample ``i`` (the global index, ``start`` + row) of column
 ``c`` is word ``i & 3`` of Philox4x32-10 at counter
@@ -116,17 +121,45 @@ MAX_KEEP = 16
 MAX_CORR_K = 16
 LANES = 4  # samples per Philox call, and per thread and loop turn
 _THREADS = 256
-_HEADERS = ("sampling_math.cuh", "graph_ops.cuh")
+_HEADERS = ("sampling_math.cuh", "special_ops.cuh", "ppf_ops.cuh", "graph_ops.cuh")
 
 # Score-linear families: ppf(ndtr(y)) has a closed form in the score y.
 _SCORE_OPS = {"norm": "SCORE_NORM", "lognorm": "SCORE_LOGNORM"}
 
+# The TPU kernel's closed-form whitelist (pallas_exec._SAFE_FAMILIES).  It
+# leaves out on purpose the families whose bodies it cannot lower: anglit,
+# wrapcauchy, the safeguarded-Newton tier (semicircular, cosine, foldnorm,
+# foldcauchy, exponnorm, invgauss, wald, recipinvgauss, genexpon,
+# kstwobign, rel_breitwigner), pearson3, gennorm and halfgennorm (their
+# gammaincinv argument escapes the trip caps) and erlang.  The port
+# follows it: those run on the plain path.
+_CLOSED_FORM_FAMILIES = (
+    "uniform", "norm", "expon", "lognorm", "triang", "truncnorm", "cauchy", "laplace",
+    "logistic", "gumbel_r", "gumbel_l", "rayleigh", "halfnorm", "pareto", "weibull_min",
+    "weibull_max", "powerlaw", "loguniform", "arcsine", "hypsecant", "fisk", "genpareto",
+    "genextreme", "bernoulli", "geom", "randint", "alpha", "bradford", "burr", "burr12",
+    "dweibull", "exponpow", "exponweib", "fatiguelife", "genhalflogistic", "genlogistic",
+    "gibrat", "gompertz", "halfcauchy", "halflogistic", "invweibull", "johnsonsb",
+    "johnsonsu", "kappa3", "laplace_asymmetric", "levy", "levy_l", "loglaplace", "lomax",
+    "mielke", "moyal", "powerlognorm", "powernorm", "trapezoid", "truncexpon",
+    "truncpareto", "truncweibull_min", "tukeylambda", "reciprocal", "skewcauchy", "kappa4",
+    "crystalball",
+)
+
+# Families solved by Newton on the incomplete gamma and beta functions
+# (pallas_exec._INCOMPLETE_FAMILY_CAPS): the series and continued-fraction
+# trip counts are sized for shape parameters in (0, cap], so a node whose
+# shape parameter is a Node, a bool or outside that range is refused.
+# None: the shape is fixed (maxwell's a = 1.5).
+INCOMPLETE_FAMILY_CAPS = {
+    "gamma": 30.0, "invgamma": 30.0, "chi2": 60.0, "chi": 60.0, "maxwell": None,
+    "nakagami": 30.0, "beta": 30.0, "betaprime": 30.0, "t": 60.0, "f": 60.0,
+    "dgamma": 30.0, "loggamma": 30.0, "gengamma": 30.0, "rdist": 60.0, "argus": 60.0,
+}
+
 _FAMILY_OPS = {
-    "uniform": "PPF_UNIFORM",
-    "norm": "PPF_NORM",
-    "expon": "PPF_EXPON",
-    "lognorm": "PPF_LOGNORM",
-    "triang": "PPF_TRIANG",
+    family: f"PPF_{family.upper()}"
+    for family in (*_CLOSED_FORM_FAMILIES, *INCOMPLETE_FAMILY_CAPS)
 }
 
 _TRANSFORM_OPS = {
@@ -177,7 +210,7 @@ _TRANSFORM_OPS = {
 
 # Opcode numbering; ``_EMIT`` below gives each name its CUDA text.
 OPCODES = (
-    ["DRAW", "LOADK", "STORE", "SCORE", "RECOLOR", "NDTR"]
+    ["DRAW", "LOADK", "STORE", "SCORE", "RECOLOR", "NDTR", "AFFINE"]
     + list(_FAMILY_OPS.values())
     + list(_SCORE_OPS.values())
     + list(_TRANSFORM_OPS.values())
@@ -240,6 +273,27 @@ def _ppf_params(node):
     return list(bound.arguments.values())[1:]
 
 
+def _n_shapes(family):
+    """The number of shape parameters of a family: its ppf's parameters
+    between ``q`` and ``loc`` (and ``scale``)."""
+    names = list(inspect.signature(_ppf.lookup(family)).parameters)
+    return len(names) - (3 if "scale" in names else 2)
+
+
+def _incomplete_family_ok(node):
+    """``pallas_exec._incomplete_family_ok``: every shape parameter the node
+    was given (its arguments but loc and scale) is a real number, no bool,
+    in (0, cap]."""
+    cap = INCOMPLETE_FAMILY_CAPS[node.distr]
+    shapes = list(node.args) + [v for k, v in node.kwargs.items() if k not in ("loc", "scale")]
+    for v in shapes:
+        if not isinstance(v, numbers.Real) or isinstance(v, bool):
+            return False
+        if not 0 < float(v) <= (cap if cap is not None else float("inf")):
+            return False
+    return True
+
+
 def _structure_ok(plan, keep_ids):
     """Can every node and the keep-set be expressed on the tape?"""
     if len(plan.corr_vars) > MAX_CORR_K:
@@ -256,6 +310,8 @@ def _structure_ok(plan, keep_ids):
         elif isinstance(node, Distribution):
             if node.distr not in _FAMILY_OPS:
                 return False
+            if node.distr in INCOMPLETE_FAMILY_CAPS and not _incomplete_family_ok(node):
+                return False
             try:
                 _ppf_params(node)
             except TypeError:
@@ -269,7 +325,9 @@ def supports(plan, keep_ids):
     """True if this graph can run as the CUDA megakernel.
 
     The counterpart of ``pallas_exec.supports`` restricted to what the
-    port has: graphs of Constants, the five closed-form families and the
+    port has: graphs of Constants, the TPU kernel's closed-form families
+    (``_CLOSED_FORM_FAMILIES``) and Newton families within their caps
+    (``INCOMPLETE_FAMILY_CAPS``; not yet its CDF-table families), and the
     arithmetic transforms, with at most 16 correlated variables and at
     most 16 kept nodes including the sink, no ``NoOp``, no integer or
     boolean arithmetic, and a tape within the caps that remain: at most
@@ -394,6 +452,14 @@ def lower(plan, keep_order):
     def operand(x):
         return value_of[x._id] if isinstance(x, _graph.Node) else emit("LOADK", imm=x)
 
+    def emit_ppf(node, q):
+        params = [operand(p) for p in _ppf_params(node)]
+        k = _n_shapes(node.distr)
+        x = emit(_FAMILY_OPS[node.distr], [q, *params[:k]])
+        if len(params) == k + 1:  # a discrete family: loc, no scale
+            return emit("ADD", [x, params[k]])
+        return emit("AFFINE", [x, params[k], params[k + 1]])
+
     corr_index = {v._id: i for i, v in enumerate(plan.corr_vars)}
     for i, var in enumerate(plan.corr_vars):
         u = emit("DRAW")
@@ -406,16 +472,14 @@ def lower(plan, keep_order):
         elif node._id in corr_index:
             y = emit("RECOLOR")
             rows[-1][2] = corr_index[node._id]  # a: the variable's index (a literal)
-            params = [operand(p) for p in _ppf_params(node)]
             if node.distr in _SCORE_OPS:
-                v = emit(_SCORE_OPS[node.distr], [y, *params])
+                v = emit(_SCORE_OPS[node.distr], [y, *(operand(p) for p in _ppf_params(node))])
             else:
-                v = emit(_FAMILY_OPS[node.distr], [emit("NDTR", [y]), *params])
+                v = emit_ppf(node, emit("NDTR", [y]))
         elif isinstance(node, Distribution):
             q = emit("DRAW")
             rows[-1][2] = plan.col_of[node._id]  # a: the column (a literal)
-            params = [operand(p) for p in _ppf_params(node)]
-            v = emit(_FAMILY_OPS[node.distr], [q, *params])
+            v = emit_ppf(node, q)
         elif isinstance(node, _graph.Avg):
             vals = [value_of[p._id] for p in node.parents]
             acc = vals[0]
@@ -517,8 +581,10 @@ def _allocate_slots(rows):
 
 # The CUDA text of one value, per opcode: {a}..{d} are its operands (a lane's
 # named values, or a constant read from the parameter block).  The
-# functions are csrc/graph_ops.cuh's and CUDA's float32 libm.  DRAW, LOADK,
-# STORE, SCORE and RECOLOR have their own shapes (see ``generate``).
+# functions are csrc/graph_ops.cuh's and csrc/ppf_ops.cuh's and CUDA's
+# float32 libm.  DRAW, LOADK, STORE, SCORE and RECOLOR have their own
+# shapes (see ``generate``).  A family's row calls ``ppf_<family>`` on q
+# and its shapes.
 _EMIT = {
     "DRAW": "bits_to_open_unit({word})",
     "LOADK": "k.v[{index}]",
@@ -526,11 +592,11 @@ _EMIT = {
     "SCORE": "ndtri_fast({a})",
     "RECOLOR": "{b} + {terms}",
     "NDTR": "ndtr_open({a})",
-    "PPF_UNIFORM": "ppf_uniform({a}, {b}, {c})",
-    "PPF_NORM": "ppf_norm({a}, {b}, {c})",
-    "PPF_EXPON": "ppf_expon({a}, {b}, {c})",
-    "PPF_LOGNORM": "ppf_lognorm({a}, {b}, {c}, {d})",
-    "PPF_TRIANG": "ppf_triang({a}, {b}, {c}, {d})",
+    "AFFINE": "{b} + {c} * {a}",
+    **{
+        op: f"ppf_{family}(" + ", ".join("{%s}" % f for f in "abcd"[: 1 + _n_shapes(family)]) + ")"
+        for family, op in _FAMILY_OPS.items()
+    },
     "SCORE_NORM": "score_norm({a}, {b}, {c})",
     "SCORE_LOGNORM": "score_lognorm({a}, {b}, {c}, {d})",
     "ADD": "{a} + {b}",
@@ -600,12 +666,12 @@ _KERNEL_HEAD = """\
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "sampling_math.cuh"
-#include "graph_ops.cuh"
+{includes}
 
 namespace {{
 
 using namespace sampling_math;
+using namespace ppf_ops;
 using namespace graph_ops;
 
 constexpr int kThreads = {threads};
@@ -752,7 +818,8 @@ def generate(tape):
                 }
                 lines.append(f"const float v{dst}_{lane} = {_EMIT[name].format(**fields)};")
     head = _KERNEL_HEAD.format(
-        threads=_THREADS, n_corr=K, n_keep=tape.n_keep, n_consts=len(const_of), row_pad=row_pad
+        threads=_THREADS, n_corr=K, n_keep=tape.n_keep, n_consts=len(const_of), row_pad=row_pad,
+        includes="\n".join(f'#include "{h}"' for h in _HEADERS),
     )
     body = "".join(f"    {line}\n" for line in lines)
     return head + (_KERNEL_RECOLOR if K else "") + _KERNEL_LOOP + body + _KERNEL_TAIL
@@ -791,6 +858,8 @@ def philox_uniforms(seed_words, n, d, device="cpu", columns=None, start=0):
     return torch.stack(cols, dim=1)
 
 
+# The twin's ppf per opcode: a family's row is its ppf at the default loc
+# (and scale), its standard variate.
 _PPF_FN = {op: _ppf.lookup(family) for family, op in _FAMILY_OPS.items()}
 _SCORE_FAMILY = {op: family for family, op in _SCORE_OPS.items()}
 _OP_FN = {op: cls.op for cls, op in _TRANSFORM_OPS.items()}
@@ -848,12 +917,15 @@ def _interpret(tape, code, n_slots, U, ab):
             slots[dst] = y
         elif name == "NDTR":
             slots[dst] = clamp_open_unit(_special.ndtr_fast(slots[a]))
+        elif name == "AFFINE":
+            slots[dst] = slots[b] + slots[c] * slots[a]
         elif name in _SCORE_FAMILY:
             args = [slots[s] for s in (a, b, c, d) if s >= 0]
             slots[dst] = _ppf.score_call(_SCORE_FAMILY[name], *args)
         elif name in _PPF_FN:
             args = [slots[s] for s in (a, b, c, d) if s >= 0]
-            slots[dst] = _PPF_FN[name](*args)
+            with _special.kernel_safe_special():  # the kernel's own functions
+                slots[dst] = _PPF_FN[name](*args)
         else:
             args = [slots[s] for s in (a, b) if s >= 0]
             slots[dst] = _OP_FN[name](*args).to(torch.float32)

@@ -4,6 +4,11 @@ The README height model, the 10-asset correlated portfolio, the
 headline 20-node mixed DAG and the 50-node correlated DAG.  Nodes are
 created in the JAX package's order, so ``interop.from_reference`` and
 these builders give the same columns and the same correlated variables.
+
+Besides them: ``portfolio_var``, the correlated three-asset model of
+``examples/03_portfolio_var.py``, and ``family_graphs``, one sum per group
+of the megakernel's family branches at the parameters of the JAX
+package's family sweep (``tests/test_distributions.py``).
 """
 
 from __future__ import annotations
@@ -11,9 +16,17 @@ from __future__ import annotations
 import numpy as np
 
 from probabilit_tpu_torch.models.distributions import Distribution
-from probabilit_tpu_torch.models.graph import Exp, Max, Sqrt
+from probabilit_tpu_torch.models.graph import Add, Exp, Max, Sqrt
 
-__all__ = ["height_model", "portfolio_model", "mixed_dag_20", "mixed_correlated_50"]
+__all__ = [
+    "height_model",
+    "portfolio_model",
+    "mixed_dag_20",
+    "mixed_correlated_50",
+    "portfolio_var",
+    "FAMILY_SWEEP",
+    "family_graphs",
+]
 
 
 def height_model():
@@ -100,3 +113,126 @@ def mixed_correlated_50():
         total = Max(total, term) + Sqrt(Exp(term * 0.01))
     total = total.correlate(*drivers, corr_mat=corr)
     return total
+
+
+def portfolio_var():
+    """``examples/03_portfolio_var.py::build_portfolio``: equities
+    (lognormal), bonds (normal) and commodities (Student t, df = 4) with
+    an analyst's pairwise correlations, repaired to the nearest
+    correlation matrix.  Returns ``(portfolio, {name: asset})``."""
+    from probabilit_tpu_torch.ops.ncm import nearest_correlation_matrix
+    from probabilit_tpu_torch.utils.helpers import build_corrmat
+
+    equities = Distribution("lognorm", s=0.25, scale=1.0)
+    bonds = Distribution("norm", loc=1.02, scale=0.05)
+    commodities = Distribution("t", df=4, loc=1.0, scale=0.15)
+    guess = build_corrmat(
+        [
+            ((0, 1), np.array([[1.0, 0.4], [0.4, 1.0]])),
+            ((0, 2), np.array([[1.0, 0.6], [0.6, 1.0]])),
+            ((1, 2), np.array([[1.0, -0.3], [-0.3, 1.0]])),
+        ]
+    )
+    target = nearest_correlation_matrix(guess)
+    portfolio = 0.5 * equities + 0.3 * bonds + 0.2 * commodities
+    portfolio.correlate(equities, bonds, commodities, corr_mat=target)
+    return portfolio, {"equities": equities, "bonds": bonds, "commodities": commodities}
+
+
+# (family, args, kwargs): the first sweep entry of every family the
+# megakernel takes beside the first five, in tests/test_distributions.py's
+# order (Newton families within their shape caps).
+FAMILY_SWEEP = (
+    ("truncnorm", (-1.0, 2.0), {"loc": 0.5, "scale": 1.5}),
+    ("cauchy", (), {"loc": 1, "scale": 2}),
+    ("laplace", (), {"loc": 0, "scale": 1.5}),
+    ("logistic", (), {"loc": 2, "scale": 0.5}),
+    ("gumbel_r", (), {"loc": 1, "scale": 2}),
+    ("gumbel_l", (), {"loc": 1, "scale": 2}),
+    ("rayleigh", (), {"scale": 2}),
+    ("halfnorm", (), {"scale": 1.5}),
+    ("pareto", (2.5,), {}),
+    ("weibull_min", (1.7,), {"scale": 2}),
+    ("weibull_max", (1.7,), {"scale": 2}),
+    ("powerlaw", (2.0,), {}),
+    ("loguniform", (0.01, 10.0), {}),
+    ("arcsine", (), {}),
+    ("hypsecant", (), {}),
+    ("fisk", (2.0,), {}),
+    ("genpareto", (0.3,), {}),
+    ("genextreme", (0.2,), {}),
+    ("alpha", (2.0,), {}),
+    ("bradford", (1.5,), {}),
+    ("burr", (2.5, 1.5), {}),
+    ("burr12", (2.0, 3.0), {}),
+    ("dweibull", (1.8,), {}),
+    ("exponpow", (1.7,), {}),
+    ("exponweib", (2.0, 1.5), {}),
+    ("fatiguelife", (0.5,), {}),
+    ("genhalflogistic", (0.8,), {}),
+    ("genlogistic", (2.5,), {}),
+    ("gibrat", (), {}),
+    ("gompertz", (1.2,), {}),
+    ("halfcauchy", (), {}),
+    ("halflogistic", (), {}),
+    ("invweibull", (2.5,), {}),
+    ("johnsonsb", (1.0, 2.0), {}),
+    ("johnsonsu", (1.0, 2.0), {}),
+    ("kappa3", (2.0,), {}),
+    ("laplace_asymmetric", (1.5,), {}),
+    ("levy", (), {}),
+    ("levy_l", (), {}),
+    ("loglaplace", (2.5,), {}),
+    ("lomax", (2.5,), {}),
+    ("mielke", (3.0, 2.0), {}),
+    ("moyal", (), {}),
+    ("powerlognorm", (2.0, 0.8), {}),
+    ("powernorm", (2.5,), {}),
+    ("trapezoid", (0.2, 0.7), {}),
+    ("truncexpon", (3.0,), {}),
+    ("truncpareto", (2.0, 5.0), {}),
+    ("truncweibull_min", (1.5, 0.5, 3.0), {}),
+    ("tukeylambda", (0.5,), {}),
+    ("reciprocal", (0.01, 10.0), {}),
+    ("skewcauchy", (0.5,), {}),
+    ("kappa4", (1.0, 2.0), {}),
+    ("crystalball", (1.5, 3.0), {}),
+    ("bernoulli", (0.3,), {}),
+    ("geom", (0.25,), {}),
+    ("randint", (2, 9), {}),
+    ("gamma", (2.5,), {"scale": 1.5}),
+    ("chi2", (5.0,), {}),
+    ("chi", (3.0,), {}),
+    ("maxwell", (), {}),
+    ("invgamma", (3.0,), {}),
+    ("nakagami", (2.0,), {}),
+    ("beta", (2.0, 3.0), {}),
+    ("betaprime", (3.0, 4.0), {}),
+    ("t", (7.0,), {}),
+    ("f", (5.0, 9.0), {}),
+    ("dgamma", (2.5,), {}),
+    ("gengamma", (3.0, 1.5), {}),
+    ("loggamma", (2.0,), {}),
+    ("rdist", (3.0,), {}),
+    ("argus", (2.0,), {}),
+)
+
+_NEWTON_SWEEP = {
+    "gamma", "chi2", "chi", "maxwell", "invgamma", "nakagami", "beta", "betaprime", "t", "f",
+    "dgamma", "gengamma", "loggamma", "rdist", "argus",
+}
+
+
+def family_graphs():
+    """Five graphs whose nodes are the ``FAMILY_SWEEP`` families, each the
+    sum of at most 15 of them: four of closed forms, one of the Newton
+    families.  Returns ``{label: (sink, [(family, node), ...])}``."""
+    closed = [f for f in FAMILY_SWEEP if f[0] not in _NEWTON_SWEEP]
+    newton = [f for f in FAMILY_SWEEP if f[0] in _NEWTON_SWEEP]
+    groups = {f"closed_form_{i}": closed[i::4] for i in range(4)}
+    groups["newton"] = newton
+    graphs = {}
+    for label, group in groups.items():
+        nodes = [(name, Distribution(name, *args, **kwargs)) for name, args, kwargs in group]
+        graphs[label] = (Add(*(node for _, node in nodes)), nodes)
+    return graphs

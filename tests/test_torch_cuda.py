@@ -7,7 +7,10 @@ machine with the card it runs without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the megakernel, per kept node, max |kernel - twin| <=
-1e-4 * max |twin| (correlated graphs given the same recolour transform);
+1e-4 * max |twin| (correlated graphs given the same recolour transform;
+a Newton family's node on the samples whose uniforms lie in
+[0.001, 0.999], the sum of such nodes within the sum of their
+tolerances);
 the statistics kernel, each sum within 1e-5 * n of the twin's (every sum
 is of n terms of magnitude about 1: z_k, z_j z_k).  They differ only where
 nvcc contracts a*b+c into FMAs, where CUDA's libm rounds differently from
@@ -378,3 +381,53 @@ def test_estimate_runs_the_kernels_block_by_block(cuda_card):
     assert h["counts"].sum() + h["underflow"] + h["overflow"] == 5 * N
     plan = tcompile.get_plan(sink)
     assert streaming._resolve_executor(plan, frozenset({sink._id}), "auto", "imanconover") == "cuda"
+
+
+FAMILY_GRAPHS = list(benchmarks.family_graphs())
+NEWTON_CENTRAL = (0.001, 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", FAMILY_GRAPHS)
+def test_family_branches_match_twin(cuda_card, label):
+    """Every kept node of a family graph; a Newton node on the samples
+    whose uniforms lie in [0.001, 0.999] (in the float32 tails the kernel's
+    and the twin's rounding freeze a lane at different points)."""
+    sink, nodes = benchmarks.family_graphs()[label]
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {node._id for _, node in nodes}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    words = cuda_exec.seed_words(8)
+    got, flag = cuda_exec.run(tape, words, N)
+    U = cuda_exec.philox_uniforms(words, N, plan.d, device="cuda")
+    ref = cuda_exec.run_tape(tape, U)
+    assert int(flag) == 0
+    central = (U >= NEWTON_CENTRAL[0]) & (U <= NEWTON_CENTRAL[1])
+    terms = sum(ref[k].abs().max() for k, nid in enumerate(tape.keep_order) if nid != sink._id)
+    for k, nid in enumerate(tape.keep_order):
+        err = (got[k] - ref[k]).abs()
+        if label != "newton":
+            assert err.max() <= REL_TOL * ref[k].abs().max(), k
+        elif nid == sink._id:
+            assert err[central.all(dim=1)].max() <= REL_TOL * terms
+        else:
+            assert err[central[:, plan.col_of[nid]]].max() <= REL_TOL * ref[k].abs().max(), k
+
+
+@pytest.mark.cuda
+def test_portfolio_through_both_kernels(cuda_card):
+    sink, _ = benchmarks.portfolio_var()
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {v._id for v in plan.corr_vars}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    words = cuda_exec.seed_words(2)
+    ab = cuda_exec.recolor_transform(plan, words, N, device="cuda")
+    got, flag = cuda_exec.run(tape, words, N, ab)
+    ref = cuda_exec.run_reference(tape, words, N, ab)
+    assert int(flag) == 0
+    for k in range(tape.n_keep):
+        assert (got[k] - ref[k]).abs().max() <= REL_TOL * ref[k].abs().max(), k
+    launches, stats = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    x = sink.sample(N, random_state=0, gc_strategy=[], executor="cuda")
+    assert cuda_exec.LAUNCHES == launches + 1 and cuda_exec.STATS_LAUNCHES == stats + 1
+    assert x.device.type == "cuda" and bool(torch.isfinite(x).all())

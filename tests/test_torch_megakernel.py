@@ -187,7 +187,7 @@ def test_slots_are_reused_by_liveness():
     sink = benchmarks.mixed_dag_20()
     plan = tcompile.get_plan(sink)
     tape = cuda_exec.lower(plan, [sink._id])
-    assert tape.n_instr == 55 and tape.n_slots <= 12
+    assert tape.n_instr == 63 and tape.n_slots <= 12
     # A chain far longer than the slot cap still fits: values die young.
     x = Distribution("norm")
     for _ in range(300):
@@ -257,13 +257,13 @@ def test_supports_refuses_what_the_port_lacks():
     a, b = JaxDistribution("norm"), JaxDistribution("norm")
     corr_sink = (a + b).correlate(a, b, corr_mat=np.eye(2))
     assert _supports_pair(corr_sink) == (True, True)  # ported since: ROADMAP A6
-    gamma = JaxDistribution("gamma", a=2.0) + 0
-    assert _supports_pair(gamma) == (True, False)  # ROADMAP A8
-    cauchy = JaxDistribution("cauchy") * 2
-    assert _supports_pair(cauchy) == (True, False)  # ROADMAP A8
-    c = JaxDistribution("cauchy")
-    corr_cauchy = (a + c).correlate(a, c, corr_mat=np.eye(2))
-    assert _supports_pair(corr_cauchy) == (True, False)
+    poisson = JaxDistribution("poisson", mu=3.5) + 0
+    assert _supports_pair(poisson) == (True, False)  # the table branch: ROADMAP B3
+    hypergeom = JaxDistribution("hypergeom", 30, 25, 20) * 2
+    assert _supports_pair(hypergeom) == (True, False)  # ROADMAP B3
+    c = JaxDistribution("poisson", mu=3.5)
+    corr_poisson = (a + c).correlate(a, c, corr_mat=np.eye(2))
+    assert _supports_pair(corr_poisson) == (True, False)
 
 
 @pytest.mark.parametrize(

@@ -129,7 +129,7 @@ def test_ppf_takes_tensor_parameters():
 
 def test_unported_family_names_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="A8"):
-        ppf.call("gamma", torch.full((4,), 0.5), a=2.0)
+        ppf.call("poisson", torch.full((4,), 0.5), mu=2.0)
 
 
 def test_clamp_open_unit_matches_jax():

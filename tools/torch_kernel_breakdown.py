@@ -18,7 +18,11 @@ graphs keep the main paths' distributions and drop the rest:
   with their own families, summed, uncorrelated (plus the ppfs); the
   same, correlated (plus ``SCORE``/``RECOLOR``/``NDTR``); and the full
   graph (plus the transform lattice).  The statistics kernel is
-  timed beside them.
+  timed beside them;
+* the family branches: the Newton family graph of ``chip_smoke.py``
+  phase 14 built alone first (its nvcc seconds without other builds),
+  then one gamma(2.5), one beta(2, 3) and one t(7) node each alone, and
+  the Newton and first closed-form family graphs, sink only.
 
 Prints one JSON object per line, the card's ``nvidia-smi`` name and
 power limit first.  Needs a CUDA card; run from the repository root.
@@ -129,12 +133,27 @@ def main():
         "full": corr,
     }
 
-    # Every cut is its own generated kernel: build them all at once.
-    texts = [tape_of(sink)[1].source for sink in (*dag_cuts.values(), *corr_cuts.values())]
+    families = benchmarks.family_graphs()
+    family_cuts = {
+        "gamma_1": Distribution("gamma", 2.5) + 0.0,
+        "beta_1": Distribution("beta", 2.0, 3.0) + 0.0,
+        "t_1": Distribution("t", 7.0) + 0.0,
+        "newton_graph": families["newton"][0],
+        "closed_form_0_graph": families["closed_form_0"][0],
+    }
+
     def timed_build(text):
         t = time.perf_counter()
         _build.build_generated("graph_megakernel", text, cuda_exec._HEADERS)
         return time.perf_counter() - t
+
+    # The Newton family graph alone, before any other build runs.
+    emit({"build_alone": "newton_graph",
+          "seconds": timed_build(tape_of(family_cuts["newton_graph"])[1].source)})
+
+    # Every cut is its own generated kernel: build them all at once.
+    texts = [tape_of(sink)[1].source
+             for sink in (*dag_cuts.values(), *corr_cuts.values(), *family_cuts.values())]
 
     start = time.perf_counter()
     with ThreadPoolExecutor(len(texts) + 1) as pool:
@@ -152,6 +171,9 @@ def main():
     rows["stats_kernel"] = {"ms": time_ms(
         torch, lambda: cuda_exec.corr_stats(words, n, columns, "cuda"))}
     emit({"graph": "mixed_correlated_50", "k": len(columns), "kernels": rows})
+
+    rows = {name: kernel_ms(sink) for name, sink in family_cuts.items()}
+    emit({"graph": "family_branches", "kernels": rows})
 
     # One sample() call of each path under the profiler: device time by
     # kernel, and the share of the call's wall time the card sat idle.
