@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths through the hand-written CUDA kernels and
-checks them: sampling, correlated sampling, the bitonic row sort, and
-streamed estimation.  The flagship path, ``mixed_dag_20().sample(1e8,
+checks them: sampling, correlated sampling, the bitonic row sort,
+streamed estimation, the distribution families and the table nodes.  The flagship path, ``mixed_dag_20().sample(1e8,
 gc_strategy=[], executor="cuda")``, runs the graph megakernel, which
 ``engine/cuda_exec.py::generate`` writes per graph structure from the
 hand-written headers in ``probabilit_tpu_torch/csrc``:
@@ -123,6 +123,41 @@ The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
     the one-shot run within 5 standard errors; both calls are timed, with
     the host share.
 
+The table branch (K1's ``TABLE_CDF``, ``TABLE_DISCRETE`` and
+``TABLE_INTERP`` rows, ``csrc/table_ops.cuh``) and the plain path's table
+tiers:
+
+16. ``benchmarks.large_table()`` (bench.py's 471-knot
+    ``poisson(mu=2000) + 0.0``) through ``sample(executor="cuda")`` at 1e8
+    and 4e8, each timed (median of 5) with the slope in ns/sample between
+    the two; K1 bitwise against its twin at 2^22; the column chi-squared
+    against ``scipy.stats.poisson(2000)`` at 2^20; K1 at 1e8 with its
+    bound and, as the library call, ``torch.searchsorted`` of 1e8
+    uniforms drawn beforehand plus loc.  ``benchmarks.table_risk()`` (a
+    Poisson, a binomial, a negative binomial, the generic hypergeom
+    table, a 512-value Discrete, a 512-point Empirical and an elicited
+    Cumulative on one tape) at 1e8: every table node bitwise against the
+    twin at 2^22, the sink within 1e-4; each column against its exact law
+    at 2^20 (chi-square, or KS against the piecewise-linear CDF), p >
+    1e-4; ``cuda`` against ``None`` within 5 standard errors at 1e7; K1
+    timed with its bound, registers, spills and shared-memory bytes.
+    ``benchmarks.table_risk_correlated()`` (an Empirical, a Cumulative and
+    a Poisson driver correlated with a normal one): K2 and K1's recolour
+    branch into the table rows against their twins (the count within 1 on
+    at most 1e-3 of the samples, its quantile having gone through the
+    hardware's ``ndtr_fast``; the rest within 1e-4 where the counts
+    agree), the drivers' normal scores (through their exact CDFs; the
+    count's correlation with them scaled by corr(F^-1(Phi(Y)), Y)) on the
+    repaired target within 2e-3 at 1e7, ``cuda`` against ``None`` and
+    streamed ``estimate(1e9)`` against one-shot within 5 standard errors,
+    each timed with its host share.  The plain path on the card at 1e7:
+    ``bird_survival()``'s mean 1.2 within 5 standard errors (and
+    ``executor="cuda"`` refuses its composite binomial), ``skewnorm(3)``
+    through its PCHIP table KS-tested against scipy's CDF, a string
+    ``DiscreteDistribution`` through ``sample`` and ``sample_streaming``
+    (its values' shares within 5 standard errors), and ``estimate`` on it
+    refused.
+
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
@@ -240,6 +275,17 @@ OP_COST.update({f"PPF_{name.upper()}": (0, flops) for name, flops in FAMILY_FLOP
 # the partial numerator with its division, two guarded reciprocals).
 GAMMA_GUESS, GAMMA_TRIP = _WIDE + 2 * 40 + 20, 48 * 7 + 20
 BETA_GUESS, BETA_TRIP = _WIDE + 3 * 40 + 30, 40 * 58 + 40
+# The table rows, per sample: a search over nb boundaries takes
+# ceil(log2(nb + 1)) steps of a shared load, a compare and a select (3
+# operations); TABLE_CDF then converts the count (1), TABLE_DISCRETE loads
+# the value (1), TABLE_INTERP loads its interval (3 loads), subtracts,
+# multiplies, adds and selects the right end (4).
+TABLE_STEP = 3
+TABLE_TAIL = {"TABLE_CDF": 1, "TABLE_DISCRETE": 1, "TABLE_INTERP": 7}
+
+
+def table_flops(name, nb):
+    return TABLE_STEP * max(int(nb), 0).bit_length() + TABLE_TAIL[name]
 
 
 def emit(obj):
@@ -255,10 +301,12 @@ def tape_cost(tape, cuda_exec, newton=None):
     """(integer instructions, float32 flops) per sample of ``tape``;
     ``newton`` prices this run's Newton ops (``newton_cost``)."""
     ints = flops = 0
-    for op in tape.code[:, 0].tolist():
+    for op, _, _, _, nb, _ in tape.program:
         name = cuda_exec.OPCODES[op]
         if name == "RECOLOR":
             i, f = 0, 2 * tape.n_corr
+        elif name in TABLE_TAIL:
+            i, f = 0, table_flops(name, nb)
         elif newton and name in newton:
             i, f = 0, newton[name]
         else:
@@ -407,9 +455,12 @@ def generated_tapes(cuda_exec, _compile):
     phases' own graphs find these builds."""
     from probabilit_tpu_torch.models.benchmarks import (
         family_graphs,
+        large_table,
         mixed_correlated_50,
         mixed_dag_20,
         portfolio_var,
+        table_risk,
+        table_risk_correlated,
     )
     from probabilit_tpu_torch.models.distributions import Distribution
 
@@ -436,6 +487,14 @@ def generated_tapes(cuda_exec, _compile):
         **families,
         "portfolio_var": tape(portfolio_var()[0]),
         "portfolio_var, drivers": tape(portfolio_var()[0], portfolio_keep),
+        "large_table": tape(large_table()),
+        "large_table, 2 rows": tape(
+            large_table(), lambda plan: {plan.sink._id, plan.dist_nodes[0]._id}),
+        "table_risk": tape(table_risk()[0]),
+        "table_risk, all nodes": tape(
+            table_risk()[0], lambda plan: {plan.sink._id} | {n._id for n in plan.dist_nodes}),
+        "table_risk_correlated": tape(table_risk_correlated()[0]),
+        "table_risk_correlated, drivers": tape(table_risk_correlated()[0], portfolio_keep),
     }
 
 
@@ -489,6 +548,7 @@ def main():
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(build_one, jobs)))
     build_s = time.perf_counter() - t0
+    registers = {}  # label: [registers, spill bytes] of its generated kernel
     for job, (lib_path, log, seconds) in built.items():
         record = {"phase": "build", "kernel": job if job in SOURCES else "graph_megakernel",
                   "seconds": seconds, "all_builds_seconds": build_s, "library": lib_path.name,
@@ -504,6 +564,9 @@ def main():
                           text_lines=job.count("\n"))
             check(list(record["registers_and_spill_bytes"]) == ["graph_megakernel"],
                   f"ptxas reported no graph_megakernel for {texts[job]}")
+            record["shared_bytes"] = tape.shared_bytes
+            for label in texts[job]:
+                registers[label] = record["registers_and_spill_bytes"]["graph_megakernel"]
         emit(record)
     check(len(texts) < len(generated), "graphs that differ only in constants gave two texts")
 
@@ -564,23 +627,9 @@ def main():
     ).double().cpu().numpy()
     ks = scipy.stats.kstest(s, scipy.stats.norm(loc=3.0, scale=2.0).cdf)
     check(ks.pvalue > KS_P_MIN, f"KS p-value {ks.pvalue}")
-    moments = {}
-    for executor in ("cuda", None):
-        x = sink.sample(N_MOMENTS, random_state=1, gc_strategy=[], executor=executor).double()
-        m, sd = x.mean().item(), x.std().item()
-        m4 = ((x - m) ** 4).mean().item()
-        # Standard errors of the mean and of the std (delta method).
-        moments[str(executor)] = (m, sd, sd / np.sqrt(N_MOMENTS),
-                                  np.sqrt((m4 - sd**4) / N_MOMENTS) / (2 * sd))
-    (m1, s1, se_m1, se_s1), (m2, s2, se_m2, se_s2) = moments["cuda"], moments["None"]
-    se_mean, se_std = np.hypot(se_m1, se_m2), np.hypot(se_s1, se_s2)
-    check(abs(m1 - m2) <= SE_MAX * se_mean, f"sink mean {m1} vs {m2}")
-    check(abs(s1 - s2) <= SE_MAX * se_std, f"sink std {s1} vs {s2}")
     emit({"phase": "statistics", "ks_n": N_KS, "ks_pvalue": ks.pvalue,
           "ks_mean_err": abs(s.mean() - 3.0), "ks_std_err": abs(s.std() - 2.0),
-          "moments_n": N_MOMENTS, "mean_cuda": m1, "mean_plain": m2,
-          "mean_diff_se": abs(m1 - m2) / se_mean, "std_cuda": s1, "std_plain": s2,
-          "std_diff_se": abs(s1 - s2) / se_std})
+          "moments_n": N_MOMENTS, **executors_agree(np, sink, "sink")})
 
     # Phase 6: timings at the main path's shape, on this card.
     kernel_ms = cuda_time_ms(lambda: cuda_exec.run(main_tape, words, N_MAIN))
@@ -608,6 +657,7 @@ def main():
     stream = streamed_path(torch, np, cuda_exec, _compile, smi)
     families = family_path(torch, np, scipy.stats, cuda_exec, _compile, smi)
     portfolio = portfolio_path(torch, np, scipy, cuda_exec, _compile, smi)
+    tables = table_path(torch, np, scipy, cuda_exec, _compile, smi, registers)
 
     emit({"kernels": [
         {
@@ -618,7 +668,7 @@ def main():
             "source": "probabilit_tpu_torch/engine/cuda_exec.py",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
             "launches": launches + corr["k1_launches"] + stream["k1_launches"]
-            + families["k1_launches"] + portfolio["k1_launches"],
+            + families["k1_launches"] + portfolio["k1_launches"] + tables["k1_launches"],
             "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"],
                                portfolio["k1_err"]),
             "ms": kernel_ms,
@@ -630,15 +680,22 @@ def main():
             # the largest error relative to each node's largest value.
             "family_graphs": families["graphs"],
             "portfolio_var": portfolio["record"],
+            # The table branch: large_table's K1 with its twin, bound and
+            # library call (torch.searchsorted + loc on drawn uniforms), the
+            # other table graphs' records, and the largest error relative
+            # to each node's largest value (table nodes are bitwise).
+            "table_branch": {**tables["main"], "max_rel_err": tables["k1_err"],
+                             "graphs": tables["records"]},
         },
         {
             "name": "corr_stats",
             "route": "cuda",
             "source": "probabilit_tpu_torch/csrc/corr_stats.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:577",
-            "launches": corr["k2_launches"] + stream["k2_launches"] + portfolio["k2_launches"],
+            "launches": corr["k2_launches"] + stream["k2_launches"] + portfolio["k2_launches"]
+            + tables["k2_launches"],
             "max_abs_err": max(corr["k2_err"], stream["k2_err"], odd["k2_err"],
-                               portfolio["k2_err"]),
+                               portfolio["k2_err"], tables["k2_err"]),
             "ms": corr["k2_ms"],
             "plain_ms": corr["k2_twin_ms"],
             "bound_ms": corr["k2_bound_ms"],
@@ -720,21 +777,9 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     target = plan.corr_matrix[np.ix_(idx, idx)]
     corr_err = float(np.abs(got_corr - target).max())
     check(corr_err <= CORR_TOL, f"normal drivers' correlation off the target by {corr_err}")
-    moments = {}
-    for executor in ("cuda", None):
-        x = sink.sample(N_MOMENTS, random_state=1, gc_strategy=[], executor=executor).double()
-        m, sd = x.mean().item(), x.std().item()
-        m4 = ((x - m) ** 4).mean().item()
-        moments[str(executor)] = (m, sd, sd / np.sqrt(N_MOMENTS),
-                                  np.sqrt((m4 - sd**4) / N_MOMENTS) / (2 * sd))
-    (m1, s1, se_m1, se_s1), (m2, s2, se_m2, se_s2) = moments["cuda"], moments["None"]
-    se_mean, se_std = np.hypot(se_m1, se_m2), np.hypot(se_s1, se_s2)
-    check(abs(m1 - m2) <= SE_MAX * se_mean, f"correlated sink mean {m1} vs {m2}")
-    check(abs(s1 - s2) <= SE_MAX * se_std, f"correlated sink std {s1} vs {s2}")
     emit({"phase": "correlated_statistics", "n": N_MOMENTS, "normal_drivers": len(normals),
           "corr_max_abs_err": corr_err, "corr_tolerance": CORR_TOL,
-          "mean_cuda": m1, "mean_plain": m2, "mean_diff_se": abs(m1 - m2) / se_mean,
-          "std_cuda": s1, "std_plain": s2, "std_diff_se": abs(s1 - s2) / se_std})
+          **executors_agree(np, sink, "correlated sink")})
 
     # Phase 10: timings at the main path's shape, on this card.
     k2_ms = cuda_time_ms(lambda: cuda_exec.corr_stats(words, N_MAIN, columns, "cuda"))
@@ -1198,20 +1243,8 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
         h = st["histogram"]
         counted = int(h["counts"].sum() + h["underflow"] + h["overflow"])
         check(counted == N_STREAM, f"{name}: the histogram counts {counted}")
-        x = sink.sample(N_MAIN, random_state=1, gc_strategy=[], executor="cuda").double()
-        m, sd = x.mean().item(), x.std().item()
-        kurt = ((x - m) ** 4).mean().item() / sd**4 - 3.0
-        del x
-        se_mean = np.hypot(st["sem"], sd / np.sqrt(N_MAIN))
-        se_std = np.hypot(st["std"] * np.sqrt((kurt + 2) / (4 * N_STREAM)),
-                          sd * np.sqrt((kurt + 2) / (4 * N_MAIN)))
-        check(abs(st["mean"] - m) <= SE_MAX * se_mean, f"{name}: mean {st['mean']} vs {m}")
-        check(abs(st["std"] - sd) <= SE_MAX * se_std, f"{name}: std {st['std']} vs {sd}")
         emit({"phase": "streamed_estimate", "graph": name, "n": N_STREAM, "block": BLOCK,
-              "k1_launches": k1, "k2_launches": k2, "mean": st["mean"], "std": st["std"],
-              "single_shot_mean": m, "single_shot_std": sd,
-              "mean_diff_se": abs(st["mean"] - m) / se_mean,
-              "std_diff_se": abs(st["std"] - sd) / se_std,
+              "k1_launches": k1, "k2_launches": k2, **estimate_agrees(np, sink, st, name),
               **{k: st[k] for k in ("q0.5", "q0.99", "cvar0.99", "min", "max")},
               "histogram_counted": counted})
         results[name] = (k1, k2)
@@ -1313,20 +1346,45 @@ def moments_of(x, np):
     return m, sd, sd / np.sqrt(n), np.sqrt((m4 - sd**4) / n) / (2 * sd)
 
 
+def executors_agree(np, sink, label):
+    """The sink's mean and std through ``executor="cuda"`` and ``None`` at
+    N_MOMENTS, within SE_MAX standard errors; returns their record."""
+    x1, x2 = (sink.sample(N_MOMENTS, random_state=1, gc_strategy=[], executor=executor).double()
+              for executor in ("cuda", None))
+    (m1, s1, se_m1, se_s1), (m2, s2, se_m2, se_s2) = moments_of(x1, np), moments_of(x2, np)
+    se_mean, se_std = np.hypot(se_m1, se_m2), np.hypot(se_s1, se_s2)
+    check(abs(m1 - m2) <= SE_MAX * se_mean, f"{label}: mean {m1} vs {m2}")
+    check(abs(s1 - s2) <= SE_MAX * se_std, f"{label}: std {s1} vs {s2}")
+    return {"mean_cuda": m1, "mean_plain": m2, "mean_diff_se": abs(m1 - m2) / se_mean,
+            "std_cuda": s1, "std_plain": s2, "std_diff_se": abs(s1 - s2) / se_std}
+
+
+def estimate_agrees(np, sink, st, label):
+    """A streamed ``estimate(N_STREAM)``'s mean and std against a one-shot
+    ``sample(N_MAIN, executor="cuda")``, within SE_MAX standard errors (the
+    std's by its kurtosis); returns their record."""
+    x = sink.sample(N_MAIN, random_state=1, gc_strategy=[], executor="cuda").double()
+    m, sd, _, _ = moments_of(x, np)
+    kurt = ((x - m) ** 4).mean().item() / sd**4 - 3.0
+    del x
+    se_mean = np.hypot(st["sem"], sd / np.sqrt(N_MAIN))
+    se_std = np.hypot(st["std"] * np.sqrt((kurt + 2) / (4 * N_STREAM)),
+                      sd * np.sqrt((kurt + 2) / (4 * N_MAIN)))
+    check(abs(st["mean"] - m) <= SE_MAX * se_mean, f"{label}: estimate mean {st['mean']} vs {m}")
+    check(abs(st["std"] - sd) <= SE_MAX * se_std, f"{label}: estimate std {st['std']} vs {sd}")
+    return {"mean": st["mean"], "std": st["std"], "single_shot_mean": m, "single_shot_std": sd,
+            "mean_diff_se": abs(st["mean"] - m) / se_mean,
+            "std_diff_se": abs(st["std"] - sd) / se_std}
+
+
 def family_fit(np, stats, name, args, kwargs, x):
     """p-value of the column ``x`` against ``scipy.stats``: KS for a
-    continuous family, chi-square over the observed values (bins expecting
-    fewer than 20 merged into the last) for a discrete one."""
+    continuous family, ``discrete_fit``'s chi-square for a discrete one."""
     dist = getattr(stats, name)(*args, **kwargs)
-    if name not in ("bernoulli", "geom", "randint"):
+    if not isinstance(dist.dist, stats.rv_discrete):
         return "ks", stats.kstest(x, dist.cdf).pvalue
-    values, counts = np.unique(x, return_counts=True)
-    expected = dist.pmf(values) * x.size
-    keep = np.cumsum(expected[::-1])[::-1] >= 20  # a tail of small bins is merged
-    last = max(int(keep.sum()) - 1, 1)
-    counts = np.append(counts[:last], counts[last:].sum())
-    expected = np.append(expected[:last], expected[last:].sum())
-    return "chi2", stats.chisquare(counts, expected * counts.sum() / expected.sum()).pvalue
+    support = np.arange(dist.ppf(1e-12), dist.ppf(1 - 1e-12) + 1)
+    return "chi2", discrete_fit(np, stats, x, support, dist.pmf(support))
 
 
 def family_path(torch, np, stats, cuda_exec, _compile, smi):
@@ -1482,18 +1540,9 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
     check(corr_err <= CORR_TOL, f"portfolio drivers' correlation off the target by {corr_err}")
 
     # cuda against None, then the streamed estimate against the one-shot run.
-    moments = {}
-    for executor in ("cuda", None):
-        x = sink.sample(N_MOMENTS, random_state=1, gc_strategy=[], executor=executor).double()
-        moments[str(executor)] = moments_of(x, np)
-    (m1, s1, se_m1, se_s1), (m2, s2, se_m2, se_s2) = moments["cuda"], moments["None"]
-    se_mean, se_std = np.hypot(se_m1, se_m2), np.hypot(se_s1, se_s2)
-    check(abs(m1 - m2) <= SE_MAX * se_mean, f"portfolio mean {m1} vs {m2}")
-    check(abs(s1 - s2) <= SE_MAX * se_std, f"portfolio std {s1} vs {s2}")
     emit({"phase": "portfolio_statistics", "n": N_MOMENTS, "target": plan.corr_matrix.tolist(),
           "corr_max_abs_err": corr_err, "corr_tolerance": CORR_TOL,
-          "mean_cuda": m1, "mean_plain": m2, "mean_diff_se": abs(m1 - m2) / se_mean,
-          "std_cuda": s1, "std_plain": s2, "std_diff_se": abs(s1 - s2) / se_std})
+          **executors_agree(np, sink, "portfolio")})
 
     n_blocks = -(-N_STREAM // BLOCK)
     cuda_exec.LAUNCHES = 0
@@ -1502,19 +1551,8 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
     k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
     check(k1 == n_blocks and k2 == n_blocks, f"portfolio estimate: K1 {k1}, K2 {k2} launches")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
-    x = sink.sample(N_MAIN, random_state=1, gc_strategy=[], executor="cuda").double()
-    m, sd, _, _ = moments_of(x, np)
-    kurt = ((x - m) ** 4).mean().item() / sd**4 - 3.0
-    del x
-    se_mean = np.hypot(st["sem"], sd / np.sqrt(N_MAIN))
-    se_std = np.hypot(st["std"] * np.sqrt((kurt + 2) / (4 * N_STREAM)),
-                      sd * np.sqrt((kurt + 2) / (4 * N_MAIN)))
-    check(abs(st["mean"] - m) <= SE_MAX * se_mean, f"portfolio estimate mean {st['mean']} vs {m}")
-    check(abs(st["std"] - sd) <= SE_MAX * se_std, f"portfolio estimate std {st['std']} vs {sd}")
     emit({"phase": "portfolio_estimate", "n": N_STREAM, "block": BLOCK, "k1_launches": k1,
-          "k2_launches": k2, "mean": st["mean"], "std": st["std"], "single_shot_mean": m,
-          "single_shot_std": sd, "mean_diff_se": abs(st["mean"] - m) / se_mean,
-          "std_diff_se": abs(st["std"] - sd) / se_std,
+          "k2_launches": k2, **estimate_agrees(np, sink, st, "portfolio"),
           **{f"q{q:g}": st[f"q{q:g}"] for q in PORTFOLIO_QUANTILES}})
 
     # Timings: the kernels alone, sample(1e8) and estimate(1e9), host share.
@@ -1560,6 +1598,346 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
     emit({"phase": "portfolio_timing", "card": smi, "n": N_MAIN, "k": K, **record})
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k1_err": k1_err,
             "k2_err": k2_err, "record": record}
+
+
+def discrete_fit(np, stats, x, support, pmf):
+    """Chi-square p-value of the integer-valued column ``x`` against the law
+    with ``pmf`` on ``support`` (sorted); support points expecting fewer
+    than 20 samples are merged into one bin."""
+    values, counts = np.unique(x, return_counts=True)
+    where = np.searchsorted(support, values)
+    check(bool(np.all(support[np.minimum(where, len(support) - 1)] == values)),
+          "a sampled value lies outside the law's support")
+    observed = np.zeros(len(support))
+    observed[where] = counts
+    expected = pmf * x.size
+    small = expected < 20
+    if small.any():
+        observed = np.append(observed[~small], observed[small].sum())
+        expected = np.append(expected[~small], expected[small].sum())
+    return stats.chisquare(observed, expected * observed.sum() / expected.sum()).pvalue
+
+
+def table_laws(np, stats, nodes):
+    """{name: (test, exact law)} of ``table_risk``'s columns: a discrete
+    column's (support, pmf), an interpolated column's CDF."""
+    laws = {}
+    for name, node in nodes.items():
+        kind = type(node).__name__
+        if kind == "Distribution":
+            dist = getattr(stats, node.distr)(*node.args, **node.kwargs)
+            support = np.arange(dist.ppf(1e-12), dist.ppf(1 - 1e-12) + 1)
+            laws[name] = ("chi2", (support, dist.pmf(support)))
+        elif kind == "DiscreteDistribution":
+            order = np.argsort(node.values)
+            laws[name] = ("chi2", (node.values[order].astype(np.float64),
+                                   node.probabilities[order]))
+        elif kind == "EmpiricalDistribution":
+            data = np.sort(node.data)
+            grid = np.linspace(0.0, 1.0, len(data))
+            laws[name] = ("ks", lambda x, data=data, grid=grid: np.interp(x, data, grid))
+        else:
+            laws[name] = ("ks", lambda x, node=node: np.interp(x, node.cumulatives, node.q))
+    return laws
+
+
+def fit_p(np, stats, law, x):
+    test, exact = law
+    if test == "chi2":
+        return discrete_fit(np, stats, x, *exact)
+    return stats.kstest(x, exact).pvalue
+
+
+def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
+    """Phase 16: K1's table branch (large_table, table_risk,
+    table_risk_correlated) and the plain path's table, PCHIP and string
+    tiers."""
+    from probabilit_tpu_torch.models.benchmarks import (
+        bird_survival,
+        large_table,
+        table_risk,
+        table_risk_correlated,
+    )
+    from probabilit_tpu_torch.models.distributions import DiscreteDistribution, Distribution
+
+    stats = scipy.stats
+    launches, k1_err, k2_err, records = 0, 0.0, 0.0, {}
+
+    # large_table(): bench.py's poisson(2000) + 0.0 at 1e8 and 4e8.
+    sink = large_table()
+    plan = _compile.get_plan(sink)
+    poisson = plan.dist_nodes[0]
+    record = {}
+    for n, label in ((N_MAIN, "sample_ms_1e8"), (4 * N_MAIN, "sample_ms_4e8")):
+        cuda_exec.LAUNCHES = 0
+        out = sink.sample(n, random_state=0, gc_strategy=[], executor="cuda")
+        torch.cuda.synchronize()
+        check(cuda_exec.LAUNCHES >= 1, "large_table: K1 was not launched")
+        check(tuple(out.shape) == (n,) and bool(torch.isfinite(out).all()),
+              "large_table: the sink is not finite or not of its shape")
+        launches += cuda_exec.LAUNCHES
+        del out
+        record[label] = cuda_time_ms(
+            lambda: sink.sample(n, random_state=0, gc_strategy=[], executor="cuda"))
+    record["slope_ns_per_sample"] = (
+        (record["sample_ms_4e8"] - record["sample_ms_1e8"]) * 1e6 / (3 * N_MAIN))
+    words = cuda_exec.seed_words(16)
+    keep = {sink._id, poisson._id}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    got, flag = cuda_exec.run(tape, words, N_NODES)
+    ref = cuda_exec.run_reference(tape, words, N_NODES)
+    check(int(flag) == 0 and torch.equal(got, ref), "large_table: K1 differs from its twin")
+    del got, ref
+    table, loc = cuda_exec.trimmed_cdf_table(poisson)
+    x = sink.sample(N_FAMILY_KS, random_state=17, gc_strategy=[], executor="cuda")
+    dist = stats.poisson(2000)
+    support = np.arange(dist.ppf(1e-12), dist.ppf(1 - 1e-12) + 1)
+    p = discrete_fit(np, stats, x.double().cpu().numpy(), support, dist.pmf(support))
+    check(p > FAMILY_P_MIN, f"large_table: chi-square against poisson(2000), p = {p}")
+    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    k1_ms = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, N_MAIN))
+    twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(sink_tape, words, N_NODES), repeats=1)
+    bounds = torch.from_numpy(table[:-1]).cuda()
+    u = torch.rand(N_MAIN, device="cuda")
+    library_ms = cuda_time_ms(lambda: torch.searchsorted(bounds, u) + loc)
+    del u
+    cost = tape_cost(sink_tape, cuda_exec)
+    bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+    record.update(knots=len(table), loc=loc, k1_ms=k1_ms, twin_ms_at_2_22=twin_ms,
+                  library_searchsorted_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  flops_per_sample=cost[1], int_instr_per_sample=cost[0], chi2_p=p,
+                  shared_bytes=sink_tape.shared_bytes,
+                  registers_and_spill_bytes=registers.get("large_table"))
+    emit({"phase": "table_large", "card": smi, "n": [N_MAIN, 4 * N_MAIN], **record})
+    records["large_table"] = record
+    main = {"ms": k1_ms, "plain_ms": twin_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+    # table_risk(): every kind of table node on one tape.
+    sink, nodes = table_risk()
+    plan = _compile.get_plan(sink)
+    cuda_exec.LAUNCHES = 0
+    out = sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda")
+    torch.cuda.synchronize()
+    check(cuda_exec.LAUNCHES >= 1, "table_risk: K1 was not launched")
+    check(tuple(out.shape) == (N_MAIN,) and bool(torch.isfinite(out).all()),
+          "table_risk: the sink is not finite or not of shape (1e8,)")
+    launches += cuda_exec.LAUNCHES
+    del out
+    keep = {sink._id} | {node._id for node in nodes.values()}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    got, flag = cuda_exec.run(tape, words, N_NODES)
+    ref = cuda_exec.run_reference(tape, words, N_NODES)
+    check(int(flag) == 0, "table_risk: non-finite values")
+    name_of = {node._id: name for name, node in nodes.items()}
+    rows = []
+    for k, nid in enumerate(tape.keep_order):
+        err = (got[k] - ref[k]).abs().max().item()
+        scale = ref[k].abs().max().item()
+        name = name_of.get(nid, "sink")
+        bitwise = bool(torch.equal(got[k], ref[k]))
+        rows.append({"node": name, "bitwise": bitwise, "max_abs_err": err, "max_abs_twin": scale})
+        if name == "sink":
+            check(err <= REL_TOL * scale, f"table_risk: sink vs twin {err} > {REL_TOL} * {scale}")
+            k1_err = max(k1_err, err / scale)
+        else:
+            check(bitwise, f"table_risk: {name} differs from its twin")
+    emit({"phase": "table_risk_vs_twin", "n": N_NODES, "rel_tolerance": REL_TOL, "nodes": rows})
+    del got, ref
+    sink.sample(N_FAMILY_KS, random_state=18, gc_strategy=list(nodes.values()), executor="cuda")
+    fits = {}
+    for name, law in table_laws(np, stats, nodes).items():
+        p = fit_p(np, stats, law, nodes[name].samples_.double().cpu().numpy())
+        fits[name] = {"test": law[0], "p": p}
+        check(p > FAMILY_P_MIN, f"table_risk: {name} fails its {law[0]} test, p = {p}")
+    emit({"phase": "table_risk_fit", "n": N_FAMILY_KS, "p_min": FAMILY_P_MIN, "nodes": fits})
+    agree = executors_agree(np, sink, "table_risk")
+    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    k1_ms = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, N_MAIN))
+    twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(sink_tape, words, N_NODES), repeats=1)
+    cost = tape_cost(sink_tape, cuda_exec)
+    bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+    record = {"launches": launches, "k1_ms": k1_ms, "twin_ms_at_2_22": twin_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "flops_per_sample": cost[1],
+              "int_instr_per_sample": cost[0], "shared_bytes": sink_tape.shared_bytes,
+              "registers_and_spill_bytes": registers.get("table_risk"), **agree}
+    emit({"phase": "table_risk_timing", "card": smi, "n": N_MAIN, **record})
+    records["table_risk"] = record
+
+    # table_risk_correlated(): K2 and K1's recolour branch into the table rows.
+    sink, nodes = table_risk_correlated()
+    plan = _compile.get_plan(sink)
+    K = len(plan.corr_vars)
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    out = sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda")
+    torch.cuda.synchronize()
+    k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    check(k1 >= 1 and k2 >= 1, "table_risk_correlated: K1 or K2 was not launched")
+    check(bool(torch.isfinite(out).all()), "table_risk_correlated: non-finite sink")
+    launches, k2_launches = launches + k1, k2
+    del out
+    columns = [plan.col_of[v._id] for v in plan.corr_vars]
+    sums = cuda_exec.corr_stats(words, N_MAIN, columns, "cuda")
+    sums_twin = cuda_exec.corr_stats_reference(words, N_MAIN, columns, "cuda")
+    k2_err = (sums - sums_twin).abs().max().item()
+    check(k2_err <= STATS_TOL * N_MAIN, f"table_risk_correlated: K2 vs twin {k2_err}")
+    keep = {sink._id} | {v._id for v in plan.corr_vars}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    ab = cuda_exec.recolor_transform(plan, words, N_NODES, device="cuda")
+    got, flag = cuda_exec.run(tape, words, N_NODES, ab)
+    ref = cuda_exec.run_reference(tape, words, N_NODES, ab)
+    check(int(flag) == 0, "table_risk_correlated: non-finite values")
+    # The recoloured quantiles went through the hardware's ndtr_fast, so a
+    # count may cross a CDF step; the sink is held where the counts agree.
+    k_orders = tape.keep_order.index(nodes["orders"]._id)
+    count_err = (got[k_orders] - ref[k_orders]).abs()
+    flips = (count_err > 0).float().mean().item()
+    check(count_err.max().item() <= 1 and flips <= 1e-3,
+          f"table_risk_correlated: orders off by {count_err.max().item()} on {flips} of samples")
+    same = count_err == 0
+    name_of = {node._id: name for name, node in nodes.items()}
+    rows = [{"node": "orders", "max_abs_err": count_err.max().item(), "share_off": flips}]
+    for k, nid in enumerate(tape.keep_order):
+        if k == k_orders:
+            continue
+        err = (got[k] - ref[k]).abs()[same].max().item()
+        scale = ref[k].abs().max().item()
+        rows.append({"node": name_of.get(nid, "sink"), "max_abs_err": err, "max_abs_twin": scale})
+        check(err <= REL_TOL * scale, f"table_risk_correlated: K1 vs twin: {rows[-1]}")
+        k1_err = max(k1_err, err / scale)
+    emit({"phase": "table_correlated_vs_twin", "n_k2": N_MAIN, "k2_max_abs_err": k2_err,
+          "k2_tolerance": STATS_TOL * N_MAIN, "n_k1": N_NODES, "rel_tolerance": REL_TOL,
+          "nodes": rows})
+    del got, ref
+
+    # The drivers carry the repaired target at 1e7: the continuous ones'
+    # normal scores through their exact CDFs; the count's correlation with
+    # them is the target times corr(F^-1(Phi(Y)), Y), by quadrature.
+    sink.sample(N_MOMENTS, random_state=2, gc_strategy=plan.corr_vars, executor="cuda")
+    tiny = 2.0**-24
+    x = {name: node.samples_.double().cpu().numpy() for name, node in nodes.items()}
+    emp = np.sort(nodes["unit_cost"].data)
+    cum = nodes["lead_time"]
+    scores = {
+        "price": (x["price"] - 100.0) / 15.0,
+        "unit_cost": scipy.special.ndtri(np.clip(
+            np.interp(x["unit_cost"], emp, np.linspace(0, 1, len(emp))), tiny, 1 - tiny)),
+        "lead_time": scipy.special.ndtri(np.clip(
+            np.interp(x["lead_time"], cum.cumulatives, cum.q), tiny, 1 - tiny)),
+    }
+    index = {v._id: i for i, v in enumerate(plan.corr_vars)}
+    at = {name: index[node._id] for name, node in nodes.items()}
+    target = plan.corr_matrix
+    y = np.linspace(-8.0, 8.0, 200_001)
+    w = scipy.stats.norm.pdf(y)
+    w /= w.sum()
+    counts = scipy.stats.poisson(400).ppf(np.clip(scipy.special.ndtr(y), tiny, 1 - tiny))
+    mean_c = (w * counts).sum()
+    attenuation = (w * (counts - mean_c) * y).sum() / np.sqrt((w * (counts - mean_c) ** 2).sum())
+    corr_err = 0.0
+    names = list(scores)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            got_r = np.corrcoef(scores[a], scores[b])[0, 1]
+            corr_err = max(corr_err, abs(got_r - target[at[a], at[b]]))
+        got_r = np.corrcoef(x["orders"], scores[a])[0, 1]
+        corr_err = max(corr_err, abs(got_r - attenuation * target[at["orders"], at[a]]))
+    check(corr_err <= CORR_TOL, f"table_risk_correlated: drivers off the target by {corr_err}")
+    del x
+    emit({"phase": "table_correlated_statistics", "n": N_MOMENTS, "target": target.tolist(),
+          "count_attenuation": attenuation, "corr_max_abs_err": corr_err,
+          "corr_tolerance": CORR_TOL, **executors_agree(np, sink, "table_risk_correlated")})
+
+    n_blocks = -(-N_STREAM // BLOCK)
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    st = sink.estimate(N_STREAM, random_state=0, executor="auto")
+    k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    check(k1 == n_blocks and k2 == n_blocks, f"table_risk_correlated estimate: K1 {k1}, K2 {k2}")
+    launches, k2_launches = launches + k1, k2_launches + k2
+    emit({"phase": "table_correlated_estimate", "n": N_STREAM, "block": BLOCK,
+          "k1_launches": k1, "k2_launches": k2,
+          **estimate_agrees(np, sink, st, "table_risk_correlated")})
+
+    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    ab = cuda_exec.recolor_transform(plan, words, N_MAIN, device="cuda")
+    k1_ms = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, N_MAIN, ab))
+    k2_ms = cuda_time_ms(lambda: cuda_exec.corr_stats(words, N_MAIN, columns, "cuda"))
+    twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(sink_tape, words, N_NODES, ab),
+                           repeats=1)
+    sample_ms = cuda_time_ms(
+        lambda: sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda"))
+    block_k1 = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, BLOCK, ab, start=BLOCK))
+    block_k2 = cuda_time_ms(lambda: cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sink.estimate(N_STREAM, random_state=0)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    stream_kernel_ms = n_blocks * (block_k1 + block_k2)
+    cost = tape_cost(sink_tape, cuda_exec)
+    bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+    record = {"k1_ms": k1_ms, "k2_ms": k2_ms, "twin_ms_at_2_22": twin_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "flops_per_sample": cost[1],
+              "sample_cuda_ms": sample_ms, "sample_host_share": (sample_ms - k1_ms - k2_ms) / sample_ms,
+              "estimate_1e9_ms": wall, "estimate_block_k1_ms": block_k1,
+              "estimate_block_k2_ms": block_k2,
+              "estimate_host_share": (wall - stream_kernel_ms) / wall,
+              "shared_bytes": sink_tape.shared_bytes,
+              "registers_and_spill_bytes": registers.get("table_risk_correlated")}
+    emit({"phase": "table_correlated_timing", "card": smi, "n": N_MAIN, "k": K, **record})
+    records["table_risk_correlated"] = record
+
+    # The plain path's tiers on the card, at 1e7 through executor=None.
+    birds = bird_survival()
+    x = birds.sample(N_MOMENTS, random_state=3, executor=None).double()
+    m, sd, se, _ = moments_of(x, np)
+    check(abs(m - 1.2) <= SE_MAX * se, f"bird_survival: mean {m}, not 1.2")
+    try:
+        birds.sample(1000, random_state=0, gc_strategy=[], executor="cuda")
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    check(refused, "executor='cuda' took a composite binom")
+    skew = Distribution("skewnorm", 3.0)
+    t0 = time.perf_counter()
+    x = skew.sample(N_MOMENTS, random_state=4, executor=None)
+    torch.cuda.synchronize()
+    pchip_s = time.perf_counter() - t0
+    x = x.double().cpu().numpy()
+    ks_p = stats.kstest(
+        x, lambda v: scipy.special.ndtr(v) - 2.0 * scipy.special.owens_t(v, 3.0)).pvalue
+    check(ks_p > FAMILY_P_MIN, f"skewnorm(3) through its PCHIP table: KS p = {ks_p}")
+    values, probs = np.array(["low", "mid", "high"]), np.array([0.2, 0.5, 0.3])
+    labels = DiscreteDistribution(values, probs)
+    freq = {}
+    for how, draw in (("sample", lambda: labels.sample(N_MOMENTS, random_state=5)),
+                      ("sample_streaming", lambda: labels.sample_streaming(
+                          N_MOMENTS, random_state=5, executor=None))):
+        got_values = draw()
+        check(isinstance(got_values, np.ndarray) and got_values.dtype == values.dtype,
+              f"string DiscreteDistribution through {how} gave {type(got_values)}")
+        share = np.array([np.mean(got_values == v) for v in values])
+        check(bool(np.all(np.abs(share - probs) <= SE_MAX * np.sqrt(probs * (1 - probs) / N_MOMENTS))),
+              f"string DiscreteDistribution through {how}: shares {share}")
+        freq[how] = share.tolist()
+    try:
+        labels.estimate(1 << 20)
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    check(refused, "estimate() took a string sink")
+    emit({"phase": "table_plain_tiers", "n": N_MOMENTS, "bird_survival_mean": m,
+          "bird_survival_mean_diff_se": abs(m - 1.2) / se, "cuda_refuses_composite_binom": True,
+          "skewnorm_pchip_ks_p": ks_p, "skewnorm_pchip_seconds": pchip_s,
+          "string_discrete_shares": freq, "estimate_refuses_strings": True})
+    return {"k1_launches": launches, "k2_launches": k2_launches, "k1_err": k1_err,
+            "k2_err": k2_err, "records": records, "main": main}
 
 
 if __name__ == "__main__":

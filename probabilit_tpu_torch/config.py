@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = torch.device("cuda")
@@ -37,6 +38,11 @@ def set_dtype(dtype):
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     _FLOAT_DTYPE = dtype
     return dtype
+
+
+def np_float_dtype():
+    """The numpy counterpart of ``float_dtype()``."""
+    return np.float64 if float_dtype() == torch.float64 else np.float32
 
 
 def int_dtype():

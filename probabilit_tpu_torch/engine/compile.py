@@ -122,6 +122,15 @@ class Plan:
 
         self._analyze_correlations()
 
+        # Host-side output finalizers (the gather of a string-valued
+        # DiscreteDistribution's values), by node id.
+        self.finalizers = {}
+        for node in self.topo:
+            fin = getattr(node, "_host_finalizer", None)
+            fn = fin() if fin is not None else None
+            if fn is not None:
+                self.finalizers[node._id] = fn
+
     def _analyze_correlations(self):
         """Collect and validate declared correlations, and repair the
         target to the nearest correlation matrix (cached by its bytes)."""
@@ -212,12 +221,30 @@ def instantiate_correlator(correlator_cls):
 def _generatable(var):
     """Is this variable's sampler a monotone scalar inverse CDF?
 
-    In the port every such node is a ``Distribution`` of a ported family
-    (all of them univariate and monotone).
+    True for a univariate ``Distribution`` (scipy says which are), an
+    ``EmpiricalDistribution``, a ``CumulativeDistribution`` and a numeric
+    ``DiscreteDistribution``: sorted uniforms map to sorted samples.
     """
-    from probabilit_tpu_torch.models.distributions import Distribution
+    import numpy as np
 
-    return isinstance(var, Distribution) and _ppf.lookup(var.distr) is not None
+    from probabilit_tpu_torch.models.distributions import (
+        CumulativeDistribution,
+        DiscreteDistribution,
+        Distribution,
+        EmpiricalDistribution,
+        _scipy_is_multivariate,
+    )
+
+    if isinstance(var, Distribution):
+        try:
+            return not _scipy_is_multivariate(var.distr)
+        except AttributeError:
+            return False
+    if isinstance(var, (EmpiricalDistribution, CumulativeDistribution)):
+        return True
+    if isinstance(var, DiscreteDistribution):
+        return np.issubdtype(var.values.dtype, np.number)
+    return False
 
 
 def recolor_eligible(plan, correlator_cls):

@@ -19,15 +19,32 @@ once per graph structure and machine, as a ``jit`` would cost).  A tape is
 
 Opcodes: ``DRAW`` (one uniform column from Philox4x32-10), ``LOADK``, one
 per ppf family (parameters are values, so Node-valued parameters work),
-one per transform (variadic chains fold left, as ``functools.reduce``
-does), and ``STORE k``.  A row holds four operands, so a family is a
-row that computes its standard variate from ``(q, shapes)`` (truncnorm,
+three table rows (``TABLE_CDF``, ``TABLE_DISCRETE``, ``TABLE_INTERP``, see
+below), one per transform (variadic chains fold left, as
+``functools.reduce`` does), and ``STORE k``.  A row holds four operands,
+so a family is a row that computes its standard variate from
+``(q, shapes)`` (truncnorm,
 beta, burr and their kind have two shapes, truncweibull_min three) and
 an ``AFFINE`` row ``loc + scale * x`` (``ADD`` for the discrete
 families, which have no scale).  The hand-written bodies of the ops live in
 ``csrc/graph_ops.cuh``, ``csrc/ppf_ops.cuh``, ``csrc/special_ops.cuh``
-and ``csrc/sampling_math.cuh``; the generated text is those includes, a
-grid-stride loop and one line per row and lane.
+``csrc/sampling_math.cuh`` and ``csrc/table_ops.cuh``; the generated text
+is those includes, a grid-stride loop and one line per row and lane.
+
+Table nodes (the TPU kernel's table branch, ``pallas_exec.py:217-439``):
+a static discrete family (``poisson``, ``binom``, ``nbinom`` and scipy's
+other discrete families with numeric parameters, from a float32 CDF table
+trimmed to the reachable quantiles, ``trimmed_cdf_table``), a numeric
+``DiscreteDistribution``, a ``CumulativeDistribution`` and a linear
+``EmpiricalDistribution`` of at most ``TABLE_MAX`` entries each.  Their
+data lives in ``Tape.tables``, one float32 array, every table padded to a
+multiple of four floats; a table row's operands are its quantile and two
+literals, the table's offset and its count of boundaries.  Each block
+copies the tables into dynamic shared memory, and each lane runs a
+branch-free binary search there (``csrc/table_ops.cuh``): ceil(log2(n+1))
+loads and compares where the TPU kernel's select tree evaluates all n.
+Offsets and counts are part of the text; the values are not, so graphs
+whose tables differ only in their values share one build.
 
 Random bits: sample ``i`` (the global index, ``start`` + row) of column
 ``c`` is word ``i & 3`` of Philox4x32-10 at counter
@@ -66,14 +83,19 @@ import functools
 import inspect
 import itertools
 import numbers
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.models import graph as _graph
-from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.models.distributions import (
+    CumulativeDistribution,
+    DiscreteDistribution,
+    Distribution,
+    EmpiricalDistribution,
+)
 from probabilit_tpu_torch.ops import correlation as _correlation
 from probabilit_tpu_torch.ops import philox as _philox
 from probabilit_tpu_torch.ops import ppf as _ppf
@@ -83,7 +105,9 @@ from probabilit_tpu_torch.ops.qmc import clamp_open_unit
 __all__ = [
     "LAUNCHES",
     "STATS_LAUNCHES",
+    "TABLE_MAX",
     "supports",
+    "trimmed_cdf_table",
     "environment_issue",
     "keep_order",
     "lower",
@@ -121,7 +145,17 @@ MAX_KEEP = 16
 MAX_CORR_K = 16
 LANES = 4  # samples per Philox call, and per thread and loop turn
 _THREADS = 256
-_HEADERS = ("sampling_math.cuh", "special_ops.cuh", "ppf_ops.cuh", "graph_ops.cuh")
+_HEADERS = (
+    "sampling_math.cuh", "special_ops.cuh", "ppf_ops.cuh", "graph_ops.cuh", "table_ops.cuh",
+)
+
+# pallas_exec._TABLE_MAX: the most entries a table node may have (knots of
+# a trimmed CDF table, values of a Discrete, points of a Cumulative or an
+# Empirical).  MAX_SHARED_BYTES is what one block of an H100 may hold in
+# shared memory; the tables of one tape, beside the recolour arrays, must
+# fit in it.  The TPU kernel has no such total cap (ROADMAP C).
+TABLE_MAX = 512
+MAX_SHARED_BYTES = 232_448
 
 # Score-linear families: ppf(ndtr(y)) has a closed form in the score y.
 _SCORE_OPS = {"norm": "SCORE_NORM", "lognorm": "SCORE_LOGNORM"}
@@ -208,9 +242,11 @@ _TRANSFORM_OPS = {
     _graph.Expm1: "EXPM1",
 }
 
+_TABLE_OPS = ("TABLE_CDF", "TABLE_DISCRETE", "TABLE_INTERP")
+
 # Opcode numbering; ``_EMIT`` below gives each name its CUDA text.
 OPCODES = (
-    ["DRAW", "LOADK", "STORE", "SCORE", "RECOLOR", "NDTR", "AFFINE"]
+    ["DRAW", "LOADK", "STORE", "SCORE", "RECOLOR", "NDTR", "AFFINE", *_TABLE_OPS]
     + list(_FAMILY_OPS.values())
     + list(_SCORE_OPS.values())
     + list(_TRANSFORM_OPS.values())
@@ -249,7 +285,9 @@ def _has_integer_arithmetic(plan):
                 else "i" if isinstance(value, numbers.Integral) else "f"
             )
             continue
-        if isinstance(node, Distribution):
+        if node._is_distribution:
+            # Table nodes too: K1 computes a Discrete's values in float32,
+            # as the TPU kernel does.
             kinds[node._id] = "f"
             continue
         parent_kinds = {kinds[p._id] for p in node.get_parents()}
@@ -294,6 +332,64 @@ def _incomplete_family_ok(node):
     return True
 
 
+_TRIMMED_TABLE_CACHE = {}
+
+
+def trimmed_cdf_table(node):
+    """(float32 CDF table, loc) of a static discrete ``Distribution``,
+    trimmed to the kernel's reachable quantiles, or None.
+
+    ``pallas_exec._trimmed_cdf_table``: the float64 table
+    (``ppf.static_cdf_table``) is cast to float32 by numpy, as
+    ``ppf._table_ppf`` casts it, then trimmed at both ends to what the
+    kernel's uniforms, q in [2^-24, 1 - 2^-24], can reach: the tail after
+    the first entry >= 1 - 2^-24 (the strict search never passes it), and
+    the leading entries below 2^-24 (every q exceeds them), whose count is
+    folded into ``loc``.  Cached by the node's signature and the float
+    dtype (the generic table's eps depends on it).
+    """
+    key = (node._static_signature(), str(config.float_dtype()))
+    if key in _TRIMMED_TABLE_CACHE:
+        return _TRIMMED_TABLE_CACHE[key]
+    built = _ppf.static_cdf_table(node.distr, *node.args, **node.kwargs)
+    if built is None:
+        result = None
+    else:
+        table, loc = built
+        t32 = np.asarray(table, np.float32)
+        reachable = np.nonzero(t32 >= np.float32(1.0 - 2.0**-24))[0]
+        if len(reachable):
+            t32 = t32[: reachable[0] + 1]
+        lead = int(np.searchsorted(t32, np.float32(2.0**-24), side="left"))
+        lead = min(lead, len(t32) - 1)  # keep at least one entry
+        result = (t32[lead:], loc + lead)
+    if len(_TRIMMED_TABLE_CACHE) > 256:
+        _TRIMMED_TABLE_CACHE.pop(next(iter(_TRIMMED_TABLE_CACHE)))
+    _TRIMMED_TABLE_CACHE[key] = result
+    return result
+
+
+def _table_node_ok(node):
+    """``pallas_exec._table_node_ok``: a static discrete family whose
+    trimmed table, a numeric Discrete, a Cumulative, or a linear numeric
+    Empirical whose data, has at most ``TABLE_MAX`` entries."""
+    if isinstance(node, Distribution):
+        built = trimmed_cdf_table(node)
+        return built is not None and len(built[0]) <= TABLE_MAX
+    if isinstance(node, DiscreteDistribution):
+        return np.issubdtype(node.values.dtype, np.number) and len(node.values) <= TABLE_MAX
+    if isinstance(node, CumulativeDistribution):
+        return len(node.q) <= TABLE_MAX
+    if isinstance(node, EmpiricalDistribution):
+        return (
+            np.issubdtype(node.data.dtype, np.number)
+            and node.kwargs.get("method", "linear") == "linear"
+            and all(k == "method" for k in node.kwargs)
+            and len(node.data) <= TABLE_MAX
+        )
+    return False
+
+
 def _structure_ok(plan, keep_ids):
     """Can every node and the keep-set be expressed on the tape?"""
     if len(plan.corr_vars) > MAX_CORR_K:
@@ -307,14 +403,15 @@ def _structure_ok(plan, keep_ids):
         if isinstance(node, _graph.Constant):
             if not isinstance(node.value, numbers.Real):
                 return False
-        elif isinstance(node, Distribution):
-            if node.distr not in _FAMILY_OPS:
-                return False
+        elif isinstance(node, Distribution) and node.distr in _FAMILY_OPS:
             if node.distr in INCOMPLETE_FAMILY_CAPS and not _incomplete_family_ok(node):
-                return False
+                return False  # and no table: the family has its own ppf
             try:
                 _ppf_params(node)
             except TypeError:
+                return False
+        elif node._is_distribution:
+            if not _table_node_ok(node):
                 return False
         elif type(node) not in _TRANSFORM_OPS and not isinstance(node, _graph.Avg):
             return False  # NoOp and node types without a kernel op.
@@ -324,17 +421,18 @@ def _structure_ok(plan, keep_ids):
 def supports(plan, keep_ids):
     """True if this graph can run as the CUDA megakernel.
 
-    The counterpart of ``pallas_exec.supports`` restricted to what the
-    port has: graphs of Constants, the TPU kernel's closed-form families
-    (``_CLOSED_FORM_FAMILIES``) and Newton families within their caps
-    (``INCOMPLETE_FAMILY_CAPS``; not yet its CDF-table families), and the
+    The counterpart of ``pallas_exec.supports``: graphs of Constants, the
+    TPU kernel's closed-form families (``_CLOSED_FORM_FAMILIES``), Newton
+    families within their caps (``INCOMPLETE_FAMILY_CAPS``), table nodes
+    of at most ``TABLE_MAX`` entries (``_table_node_ok``), and the
     arithmetic transforms, with at most 16 correlated variables and at
     most 16 kept nodes including the sink, no ``NoOp``, no integer or
-    boolean arithmetic, and a tape within the caps that remain: at most
-    ``MAX_INSTR`` rows (the generated text and its build time grow with
-    them), ``MAX_CONSTS`` constants (they travel in the kernel's
-    parameters) and, for the plain twin alone, ``MAX_SLOTS`` values live
-    at once.
+    boolean arithmetic (ROADMAP B4), and a tape within the caps that
+    remain: at most ``MAX_INSTR`` rows (the generated text and its build
+    time grow with them), ``MAX_CONSTS`` constants (they travel in the
+    kernel's parameters), tables and recolour arrays within one block's
+    ``MAX_SHARED_BYTES`` and, for the plain twin alone, ``MAX_SLOTS``
+    values live at once.
     """
     keep_ids = frozenset(keep_ids)
     if not _structure_ok(plan, keep_ids):
@@ -394,6 +492,8 @@ class Tape:
     n_corr: int = 0  # correlated variables: (A, b) holds n_corr^2 + n_corr floats
     program: tuple = ()  # the rows of ``code`` on value numbers: what ``generate`` reads
     consts: tuple = ()  # the LOADK rows' immediates (float32 values), in row order
+    # float32: every table row's data, each table padded to a multiple of 4
+    tables: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
 
     @property
     def n_instr(self):
@@ -403,10 +503,16 @@ class Tape:
     def n_keep(self):
         return len(self.keep_order)
 
+    @property
+    def shared_bytes(self):
+        """Shared memory a block of the kernel takes: the tables (dynamic)
+        and the recolour arrays (static)."""
+        return 4 * self.tables.numel() + _recolor_bytes(self.n_corr)
+
     def to(self, device):
         return Tape(
             self.code.to(device), self.imm.to(device), self.n_slots, self.d,
-            self.keep_order, self.n_corr, self.program, self.consts,
+            self.keep_order, self.n_corr, self.program, self.consts, self.tables.to(device),
         )
 
     @functools.cached_property
@@ -424,6 +530,84 @@ class Tape:
         """``consts`` as the C array the launch function copies into the
         kernel's parameter block."""
         return (ctypes.c_float * max(len(self.consts), 1))(*self.consts)
+
+
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def _recolor_bytes(k):
+    """Static shared memory of the recolour arrays: A, rows padded to four
+    floats, and b."""
+    return 4 * (k * _pad4(k) + k)
+
+
+def _padded(values, n):
+    """``values`` as float32, zero-padded to ``n`` floats."""
+    out = np.zeros(n, np.float32)
+    out[: len(values)] = values
+    return out
+
+
+def cdf_layout(table):
+    """(boundaries, float32 data) of a ``TABLE_CDF`` row on the trimmed
+    float32 CDF ``table``: the table but its last entry.  The row counts
+    the boundaries below q (``searchsorted`` side ``left``)."""
+    nb = len(table) - 1
+    return nb, _padded(table[:-1], _pad4(nb))
+
+
+def discrete_layout(cumulative, values):
+    """(boundaries, float32 data) of a ``TABLE_DISCRETE`` row: the
+    boundaries ``float32(cumulative)[:n - 1]``, then the ``n`` values in
+    float32.  The row takes the value at the count of boundaries at or
+    below q (side ``right``)."""
+    nb = len(values) - 1
+    return nb, np.concatenate(
+        [_padded(np.asarray(cumulative)[:nb], _pad4(nb)), _padded(values, _pad4(nb + 1))]
+    )
+
+
+def interp_layout(xp, fp):
+    """(boundaries, float32 data) of a ``TABLE_INTERP`` row for knots
+    ``xp`` (non-decreasing) and values ``fp``: the boundaries ``xp[:-1]``
+    (side ``right``), one float4 ``(x0, f0, slope, 0)`` per interval
+    (interval 0, below ``xp[0]``: ``(0, fp[0], 0)``; a zero-width interval
+    ``(x0, fp[i], 0)``; the slope computed in float64 and rounded once, as
+    ``pallas_exec._kernel_interp`` does), then ``(xp[-1], fp[-1], 0, 0)``,
+    the clamp at the right end."""
+    xp, fp = np.asarray(xp, np.float64), np.asarray(fp, np.float64)
+    nb = len(xp) - 1
+    leaves = np.zeros((nb + 1, 4), np.float32)
+    leaves[0, 1] = fp[0]
+    for i in range(1, nb + 1):
+        x0, x1, f0, f1 = xp[i - 1], xp[i], fp[i - 1], fp[i]
+        if x1 > x0:
+            leaves[i, :3] = x0, f0, (f1 - f0) / (x1 - x0)
+        else:
+            leaves[i, :2] = x0, f1
+    tail = np.array([xp[-1], fp[-1], 0.0, 0.0], np.float32)
+    return nb, np.concatenate([_padded(xp[:-1], _pad4(nb)), leaves.ravel(), tail])
+
+
+def table_data(node):
+    """(opcode, boundaries, float32 data, loc) of a table node's row, in
+    the layouts ``csrc/table_ops.cuh`` reads (every section padded to a
+    multiple of four floats): a static discrete family's trimmed CDF table
+    (``cdf_layout``; ``loc`` is added by an ``ADD`` row after it), a
+    numeric Discrete (``discrete_layout``), a Cumulative
+    ``(q, cumulatives)`` and a linear Empirical
+    ``(linspace(0, 1, m), sort(data))`` (``interp_layout``)."""
+    if isinstance(node, Distribution):
+        table, loc = trimmed_cdf_table(node)
+        return ("TABLE_CDF", *cdf_layout(table), loc)
+    if isinstance(node, DiscreteDistribution):
+        return ("TABLE_DISCRETE", *discrete_layout(np.cumsum(node.probabilities), node.values),
+                None)
+    if isinstance(node, CumulativeDistribution):
+        return ("TABLE_INTERP", *interp_layout(node.q, node.cumulatives), None)
+    data = np.sort(node.data)
+    return ("TABLE_INTERP", *interp_layout(np.linspace(0.0, 1.0, len(data)), data), None)
 
 
 def lower(plan, keep_order):
@@ -460,6 +644,18 @@ def lower(plan, keep_order):
             return emit("ADD", [x, params[k]])
         return emit("AFFINE", [x, params[k], params[k + 1]])
 
+    tables = []  # float32 sections, each a multiple of 4 floats
+
+    def emit_sampler(node, q):
+        """The node's inverse CDF at the value ``q``."""
+        if isinstance(node, Distribution) and node.distr in _FAMILY_OPS:
+            return emit_ppf(node, q)
+        op, nb, data, loc = table_data(node)
+        v = emit(op, [q])
+        rows[-1][3:5] = [sum(map(len, tables)), nb]  # b, c: offset and boundaries (literals)
+        tables.append(data)
+        return v if loc is None else emit("ADD", [v, emit("LOADK", imm=loc)])
+
     corr_index = {v._id: i for i, v in enumerate(plan.corr_vars)}
     for i, var in enumerate(plan.corr_vars):
         u = emit("DRAW")
@@ -472,14 +668,14 @@ def lower(plan, keep_order):
         elif node._id in corr_index:
             y = emit("RECOLOR")
             rows[-1][2] = corr_index[node._id]  # a: the variable's index (a literal)
-            if node.distr in _SCORE_OPS:
+            if isinstance(node, Distribution) and node.distr in _SCORE_OPS:
                 v = emit(_SCORE_OPS[node.distr], [y, *(operand(p) for p in _ppf_params(node))])
             else:
-                v = emit_ppf(node, emit("NDTR", [y]))
-        elif isinstance(node, Distribution):
+                v = emit_sampler(node, emit("NDTR", [y]))
+        elif node._is_distribution:
             q = emit("DRAW")
             rows[-1][2] = plan.col_of[node._id]  # a: the column (a literal)
-            v = emit_ppf(node, q)
+            v = emit_sampler(node, q)
         elif isinstance(node, _graph.Avg):
             vals = [value_of[p._id] for p in node.parents]
             acc = vals[0]
@@ -506,12 +702,16 @@ def lower(plan, keep_order):
     tape = Tape(
         torch.from_numpy(code), torch.from_numpy(imm), n_slots, plan.d,
         tuple(keep_order), len(plan.corr_vars), tuple(tuple(r[:6]) for r in rows), consts,
+        torch.from_numpy(np.concatenate(tables) if tables else np.zeros(0, np.float32)),
     )
-    if tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS or len(consts) > MAX_CONSTS:
+    if (
+        tape.n_instr > MAX_INSTR or tape.n_slots > MAX_SLOTS or len(consts) > MAX_CONSTS
+        or tape.shared_bytes > MAX_SHARED_BYTES
+    ):
         raise ValueError(
-            f"The tape needs {tape.n_instr} instructions, {len(consts)} constants "
-            f"and {tape.n_slots} slots; the caps are {MAX_INSTR}, {MAX_CONSTS} and "
-            f"{MAX_SLOTS}."
+            f"The tape needs {tape.n_instr} instructions, {len(consts)} constants, "
+            f"{tape.n_slots} slots and {tape.shared_bytes} bytes of shared memory; "
+            f"the caps are {MAX_INSTR}, {MAX_CONSTS}, {MAX_SLOTS} and {MAX_SHARED_BYTES}."
         )
     return tape
 
@@ -540,6 +740,8 @@ def _register_fields(op):
         return True, ()  # a, if any, is a column number / a variable's index
     if name in ("STORE", "SCORE"):
         return False, (2,)  # dst is the output row / the score's index
+    if name in _TABLE_OPS:
+        return True, (2,)  # b and c are the table's offset and boundaries
     return True, (2, 3, 4, 5)
 
 
@@ -584,7 +786,8 @@ def _allocate_slots(rows):
 # functions are csrc/graph_ops.cuh's and csrc/ppf_ops.cuh's and CUDA's
 # float32 libm.  DRAW, LOADK, STORE, SCORE and RECOLOR have their own
 # shapes (see ``generate``).  A family's row calls ``ppf_<family>`` on q
-# and its shapes.
+# and its shapes; a table row (csrc/table_ops.cuh) its search on q, with
+# {b} the table's offset in shared memory and {c} its boundaries.
 _EMIT = {
     "DRAW": "bits_to_open_unit({word})",
     "LOADK": "k.v[{index}]",
@@ -593,6 +796,9 @@ _EMIT = {
     "RECOLOR": "{b} + {terms}",
     "NDTR": "ndtr_open({a})",
     "AFFINE": "{b} + {c} * {a}",
+    "TABLE_CDF": "table_cdf<{c}>(s_tab + {b}, {a})",
+    "TABLE_DISCRETE": "table_discrete<{c}>(s_tab + {b}, {a})",
+    "TABLE_INTERP": "table_interp<{c}>(s_tab + {b}, {a})",
     **{
         op: f"ppf_{family}(" + ", ".join("{%s}" % f for f in "abcd"[: 1 + _n_shapes(family)]) + ")"
         for family, op in _FAMILY_OPS.items()
@@ -661,7 +867,10 @@ _KERNEL_HEAD = """\
 // (g mod 2^32, g >> 32, column, 0), g = sample >> 2) serves four samples,
 // four independent chains fill the pipes, and a kept row's four values
 // leave in one 16-byte store; constants are read from the kernel's
-// parameter block as operands.
+// parameter block as operands.  Table nodes (the TPU kernel's select
+// trees over up to 512 knots) search a copy of their tables in shared
+// memory, a binary search per lane: log2 of the table's loads where the
+// select tree evaluates all of it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -673,19 +882,22 @@ namespace {{
 using namespace sampling_math;
 using namespace ppf_ops;
 using namespace graph_ops;
+using namespace table_ops;
 
 constexpr int kThreads = {threads};
 constexpr int kCorr = {n_corr};      // correlated variables K
 constexpr int kKeep = {n_keep};      // kept rows
 constexpr int kConsts = {n_consts};  // LOADK immediates
 constexpr int kRowPad = {row_pad};   // floats a row of A takes in shared memory
+constexpr int kTableFloats = {table_floats};  // Tape.tables: dynamic shared memory
 
 struct Consts {{
   float v[kConsts > 0 ? kConsts : 1];
 }};
 
 __global__ void __launch_bounds__(kThreads)
-    graph_megakernel(const Consts k, const float* __restrict__ ab, uint32_t k0, uint32_t k1,
+    graph_megakernel(const Consts k, const float* __restrict__ ab,
+                     const float4* __restrict__ tables, uint32_t k0, uint32_t k1,
                      int64_t start, int64_t n, float* __restrict__ out,
                      int* __restrict__ nonfinite) {{
 """
@@ -704,7 +916,15 @@ _KERNEL_RECOLOR = """\
     s_a[t] = j < kCorr ? ab[i * kCorr + j] : 0.0f;
   }
   for (int t = threadIdx.x; t < kCorr; t += kThreads) s_b[t] = ab[kCorr * kCorr + t];
-  __syncthreads();
+"""
+
+# The tables: each block copies them into dynamic shared memory with
+# 16-byte loads (kTableFloats is a multiple of 4), where every table row
+# searches them.
+_KERNEL_TABLES = """\
+  extern __shared__ float4 s_tab4[];
+  const float* s_tab = reinterpret_cast<const float*>(s_tab4);
+  for (int t = threadIdx.x; t < kTableFloats / 4; t += kThreads) s_tab4[t] = tables[t];
 """
 
 _KERNEL_LOOP = """\
@@ -730,23 +950,34 @@ _KERNEL_TAIL = """\
 // Launch on `stream` with one resident wave of blocks; returns
 // cudaGetLastError() (0 on success).  `consts` is the host array of the
 // kConsts LOADK immediates, `ab` float32 (kCorr^2 + kCorr,) on the device
-// (null when kCorr is 0), `out` float32 (kKeep, n) for samples
-// start..start+n-1, `nonfinite` one int32 that the caller has zeroed.
-// n_consts, n_corr and n_keep must be the kernel's own.
+// (null when kCorr is 0), `tables` the kTableFloats floats of Tape.tables
+// on the device, 16-byte aligned (null when there are none), `out` float32
+// (kKeep, n) for samples start..start+n-1, `nonfinite` one int32 that the
+// caller has zeroed.  n_consts, n_corr, n_keep and table_floats must be the
+// kernel's own.
 extern "C" int graph_megakernel_launch(const float* consts, int n_consts, const void* ab,
-                                       int n_corr, int n_keep, uint32_t seed0, uint32_t seed1,
+                                       int n_corr, const void* tables, int table_floats,
+                                       int n_keep, uint32_t seed0, uint32_t seed1,
                                        int64_t start, int64_t n, void* out, void* nonfinite,
                                        void* stream) {
   if (n_consts != kConsts || n_corr != kCorr || n_keep != kKeep || n < 0 || start < 0 ||
-      (kCorr > 0 && ab == nullptr)) {
+      (kCorr > 0 && ab == nullptr) || table_floats != kTableFloats ||
+      (kTableFloats > 0 && (tables == nullptr || reinterpret_cast<uintptr_t>(tables) % 16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kTableBytes = 4 * kTableFloats;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && kTableBytes > 48 * 1024) {
+    // Above 48 KB a block may hold dynamic shared memory only when asked.
+    err = cudaFuncSetAttribute(graph_megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTableBytes);
+  }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, graph_megakernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, graph_megakernel, kThreads,
+                                                        kTableBytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t groups = ((start + n - 1) >> 2) - (start >> 2) + 1;
@@ -754,10 +985,10 @@ extern "C" int graph_megakernel_launch(const float* consts, int n_consts, const 
   const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   Consts k;
   for (int j = 0; j < kConsts; ++j) k.v[j] = consts[j];
-  graph_megakernel<<<static_cast<int>(wanted < resident ? wanted : resident), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      k, static_cast<const float*>(ab), seed0, seed1, start, n, static_cast<float*>(out),
-      static_cast<int*>(nonfinite));
+  graph_megakernel<<<static_cast<int>(wanted < resident ? wanted : resident), kThreads,
+                     kTableBytes, static_cast<cudaStream_t>(stream)>>>(
+      k, static_cast<const float*>(ab), static_cast<const float4*>(tables), seed0, seed1,
+      start, n, static_cast<float*>(out), static_cast<int*>(nonfinite));
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -772,10 +1003,11 @@ def generate(tape):
     after its value number (``v7_2``: value 7, lane 2; ``z3_0``: score 3,
     lane 0); a ``LOADK`` row becomes no line, only the operand ``k.v[j]``
     wherever its value is read.  The text holds no array indexed at run
-    time and prints no number that came from the graph's data.
+    time and prints no number that came from the graph's data: a table
+    row prints its offset and its count of boundaries, never its values.
     """
     K = tape.n_corr
-    row_pad = -(-K // 4) * 4
+    row_pad = _pad4(K)
     const_of = {}  # value number -> index into the parameter block
     lines = []
 
@@ -801,6 +1033,10 @@ def generate(tape):
             for lane in range(LANES):
                 text = _EMIT[name].format(a=operand(a, lane))
                 lines.append(f"const float z{dst}_{lane} = {text};")
+        elif name in _TABLE_OPS:
+            for lane in range(LANES):
+                text = _EMIT[name].format(a=operand(a, lane), b=b, c=c)
+                lines.append(f"const float v{dst}_{lane} = {text};")
         elif name == "RECOLOR":
             # b_i, then + A_ij z_j for j = 0..K-1: the twin's order.
             for q in range(row_pad // 4):
@@ -817,12 +1053,16 @@ def generate(tape):
                     f: operand(v, lane) for f, v in zip("abcd", (a, b, c, d)) if v >= 0
                 }
                 lines.append(f"const float v{dst}_{lane} = {_EMIT[name].format(**fields)};")
+    table_floats = tape.tables.numel()
     head = _KERNEL_HEAD.format(
         threads=_THREADS, n_corr=K, n_keep=tape.n_keep, n_consts=len(const_of), row_pad=row_pad,
-        includes="\n".join(f'#include "{h}"' for h in _HEADERS),
+        table_floats=table_floats, includes="\n".join(f'#include "{h}"' for h in _HEADERS),
     )
     body = "".join(f"    {line}\n" for line in lines)
-    return head + (_KERNEL_RECOLOR if K else "") + _KERNEL_LOOP + body + _KERNEL_TAIL
+    copies = (_KERNEL_RECOLOR if K else "") + (_KERNEL_TABLES if table_floats else "")
+    if copies:
+        copies += "  __syncthreads();\n"
+    return head + copies + _KERNEL_LOOP + body + _KERNEL_TAIL
 
 
 def seed_words(seed):
@@ -888,10 +1128,31 @@ def run_program(tape, U, ab=None):
     return _interpret(tape, tape.program, len(tape.program), U, ab)
 
 
+def _table_row(name, tables, off, nb, q):
+    """A table row of the twin: ``torch.searchsorted`` on the float32
+    table at ``off`` with ``nb`` boundaries (``table_data``'s layouts), and
+    the interval's arithmetic in float32, one rounding per operation, as
+    ``csrc/table_ops.cuh`` computes it.  A NaN quantile gives NaN."""
+    bounds = tables[off : off + nb]
+    data = tables[off + _pad4(nb) :]
+    qc = q.contiguous()
+    if name == "TABLE_CDF":
+        count = torch.searchsorted(bounds, qc).to(torch.float32)
+        return torch.where(torch.isnan(q), q, count)
+    right = torch.searchsorted(bounds, qc, right=True)
+    if name == "TABLE_DISCRETE":
+        return torch.where(torch.isnan(q), q, data[right])
+    leaf = data[: 4 * (nb + 1)].reshape(nb + 1, 4)[right]
+    value = leaf[:, 1] + (q - leaf[:, 0]) * leaf[:, 2]
+    x_last, f_last = data[4 * (nb + 1)], data[4 * (nb + 1) + 1]
+    return torch.where(q >= x_last, f_last, value)
+
+
 def _interpret(tape, code, n_slots, U, ab):
     if config.float_dtype() != torch.float32:
         raise ValueError("The tape is float32-only.")
     _check_ab(tape, ab)
+    tables = tape.tables.to(U.device)
     imm = tape.imm.cpu().tolist()
     K = tape.n_corr
     ab = [] if ab is None else ab.cpu().tolist()
@@ -919,6 +1180,8 @@ def _interpret(tape, code, n_slots, U, ab):
             slots[dst] = clamp_open_unit(_special.ndtr_fast(slots[a]))
         elif name == "AFFINE":
             slots[dst] = slots[b] + slots[c] * slots[a]
+        elif name in _TABLE_OPS:
+            slots[dst] = _table_row(name, tables, b, c, slots[a])
         elif name in _SCORE_FAMILY:
             args = [slots[s] for s in (a, b, c, d) if s >= 0]
             slots[dst] = _ppf.score_call(_SCORE_FAMILY[name], *args)
@@ -961,9 +1224,11 @@ def run(tape, seed_words, n, ab=None, start=0):
         raise RuntimeError(issue)
     if (
         tape.n_instr > MAX_INSTR or len(tape.consts) > MAX_CONSTS or tape.n_keep > MAX_KEEP
-        or tape.n_corr > MAX_CORR_K
+        or tape.n_corr > MAX_CORR_K or tape.shared_bytes > MAX_SHARED_BYTES
     ):
         raise ValueError("The tape exceeds the kernel's caps.")
+    if tape.tables.device != device or tape.tables.dtype != torch.float32:
+        raise ValueError("The tape's tables must be float32 on the tape's device.")
     if start < 0 or n < 0:
         raise ValueError(f"start and n must be >= 0, got {start} and {n}.")
     launch = tape.kernel
@@ -974,7 +1239,9 @@ def run(tape, seed_words, n, ab=None, start=0):
     with torch.cuda.device(device):
         err = launch(
             tape.const_block, len(tape.consts),
-            ab.data_ptr() if tape.n_corr else None, tape.n_corr, tape.n_keep,
+            ab.data_ptr() if tape.n_corr else None, tape.n_corr,
+            tape.tables.data_ptr() if tape.tables.numel() else None, tape.tables.numel(),
+            tape.n_keep,
             seed_words[0], seed_words[1], start, n,
             out.data_ptr(), flag.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
@@ -990,9 +1257,9 @@ def _megakernel(source):
 
     fn = _build.load_generated("graph_megakernel", source, _HEADERS).graph_megakernel_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn

@@ -103,9 +103,12 @@ def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
         raise ValueError(
             "executor='cuda' requires method=None, a narrow gc_strategy "
             "keep-list (<= 16 kept nodes; [] keeps just the sink), at most "
-            f"{cuda_exec.MAX_CORR_K} correlated variables, and the families "
-            "uniform, norm, expon, lognorm and triang, without integer or "
-            "boolean arithmetic."
+            f"{cuda_exec.MAX_CORR_K} correlated variables, the megakernel's "
+            "families with numeric parameters (cuda_exec.supports: closed "
+            "forms, Newton families within their caps, CDF tables and "
+            "numeric Discrete/Cumulative/linear Empirical tables of at most "
+            f"{cuda_exec.TABLE_MAX} entries), and no integer or boolean "
+            "arithmetic."
         )
     if plan.corr_matrix is not None:
         resolved = _compile.resolve_correlator(correlator)
@@ -187,6 +190,11 @@ def _execute(plan, quantiles, correlator, gc_strategy, generated=False):
                     f"Sampling this node gave non-finite values: "
                     f"{by_id[nid]}\n{value}"
                 )
+
+    # Host finalizers: a string-valued DiscreteDistribution's values.
+    for nid, fn in plan.finalizers.items():
+        if nid in outputs:
+            outputs[nid] = fn(outputs[nid])
 
     for node in plan.topo:
         if node._id in outputs:

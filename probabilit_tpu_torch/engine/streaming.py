@@ -335,7 +335,7 @@ def sample_streaming(
     size = int(size)
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}.")
-    _, run = _block_program(sink, block_size, executor, correlator)
+    plan, run = _block_program(sink, block_size, executor, correlator)
     seed = resolve_seed(random_state)
     out = None
     for b in range(-(-size // block_size)):
@@ -347,7 +347,10 @@ def sample_streaming(
         out[lo:hi] = block
         if np.issubdtype(block.dtype, np.inexact) and not np.isfinite(block).all():
             raise ValueError(f"Sampling produced non-finite values (block {b}).")
-    return out
+    # Host finalizers (a string-valued DiscreteDistribution's values): the
+    # same output as sample().
+    finalize = plan.finalizers.get(sink._id)
+    return out if finalize is None else finalize(out)
 
 
 def estimate_many(*args, **kwargs):
@@ -604,7 +607,15 @@ def _estimate_carry(
     max, finite, qsum, my, M2y, Cxy, histogram counts, M3, M4)."""
     where_mode = where_node is not None
     aux = control_node if control_node is not None else where_node
-    _, run = _block_program(sink, block_size, executor, correlator, extra=aux)
+    plan, run = _block_program(sink, block_size, executor, correlator, extra=aux)
+    if plan.finalizers.get(sink._id) is not None:
+        # A string-valued DiscreteDistribution samples indices on the
+        # device; statistics of indices are not statistics of its values.
+        raise ValueError(
+            "estimate() requires a numeric sink; this node produces "
+            "non-numeric values (e.g. a string-valued "
+            "DiscreteDistribution). Use sample_streaming() instead."
+        )
     qsum_full, qsum_partial = _quantile_accumulators(quantiles, block_size, cvar)
     hist = _histogram_accumulators(histogram)
     hist_len = 0 if histogram is None else histogram[2] + 2

@@ -4,7 +4,8 @@ The "weights" of this system are its graph and its quantile matrix.  The
 matrix crosses as a numpy array; the graph crosses through
 ``from_reference``, which reads a ``probabilit_tpu`` graph by duck typing
 (``type(node).__name__``, ``_id``, ``get_parents()``, ``.distr``,
-``.args``, ``.kwargs``, ``.value``) and never imports that package.
+``.args``, ``.kwargs``, ``.value``, and the table nodes' arrays) and never
+imports that package.
 """
 
 from __future__ import annotations
@@ -12,7 +13,12 @@ from __future__ import annotations
 import numpy as np
 
 from probabilit_tpu_torch.models import graph as _graph
-from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.models.distributions import (
+    CumulativeDistribution,
+    DiscreteDistribution,
+    Distribution,
+    EmpiricalDistribution,
+)
 
 __all__ = ["from_reference"]
 
@@ -28,7 +34,9 @@ def from_reference(sink):
     in increasing reference ``_id`` order (parents are always older than
     their children), so both graphs break topological ties alike and
     assign the same quantile columns.  Declared correlations are carried
-    over as they are.
+    over as they are.  A subclass of the reference's ``Distribution`` (the
+    ``Lognormal`` factory) becomes a ``Distribution`` of its family; the
+    table nodes carry their arrays over as numpy.
     """
     seen = {sink._id: sink}
     stack = [sink]
@@ -48,12 +56,18 @@ def from_reference(sink):
         cls = getattr(_graph, name, None)
         if name == "Constant":
             node = _graph.Constant(ref.value)
-        elif name == "Distribution":
+        elif "Distribution" in {c.__name__ for c in type(ref).__mro__}:
             node = Distribution(
                 ref.distr,
                 *(convert(a) for a in ref.args),
                 **{k: convert(v) for k, v in ref.kwargs.items()},
             )
+        elif name == "EmpiricalDistribution":
+            node = EmpiricalDistribution(np.array(ref.data), **ref.kwargs)
+        elif name == "CumulativeDistribution":
+            node = CumulativeDistribution(np.array(ref.q), np.array(ref.cumulatives))
+        elif name == "DiscreteDistribution":
+            node = DiscreteDistribution(np.array(ref.values), np.array(ref.probabilities))
         elif isinstance(cls, type) and issubclass(cls, _graph.Transform):
             node = cls(*(mapping[p._id] for p in ref.get_parents()))
         else:

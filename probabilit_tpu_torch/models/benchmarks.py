@@ -9,17 +9,33 @@ Besides them: ``portfolio_var``, the correlated three-asset model of
 ``examples/03_portfolio_var.py``, and ``family_graphs``, one sum per group
 of the megakernel's family branches at the parameters of the JAX
 package's family sweep (``tests/test_distributions.py``).
+
+The table nodes: ``bird_survival`` (the README's composite
+Poisson -> binomial chain, BASELINE config 2), ``large_table`` (bench.py's
+``bench_large_table`` graph, a 471-knot Poisson table), and
+``table_risk``/``table_risk_correlated``, which put every kind of table
+node on one tape, at the JAX package's own test sizes
+(``tests/test_pallas_exec.py:159-178``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.models.distributions import (
+    CumulativeDistribution,
+    DiscreteDistribution,
+    Distribution,
+    EmpiricalDistribution,
+)
 from probabilit_tpu_torch.models.graph import Add, Exp, Max, Sqrt
 
 __all__ = [
     "height_model",
+    "bird_survival",
+    "large_table",
+    "table_risk",
+    "table_risk_correlated",
     "portfolio_model",
     "mixed_dag_20",
     "mixed_correlated_50",
@@ -34,6 +50,79 @@ def height_model():
     male = Distribution("norm", loc=176, scale=7.1)
     female = Distribution("norm", loc=162.5, scale=7.1)
     return male > female
+
+
+def bird_survival():
+    """Composite Poisson -> Binomial chain."""
+    eggs_per_nest = Distribution("poisson", mu=3)
+    return Distribution("binom", n=eggs_per_nest, p=0.4)
+
+
+def large_table():
+    """``bench.py::bench_large_table``'s graph: a Poisson(2000) through its
+    CDF table (471 knots reachable by float32 uniforms), plus 0.0."""
+    return Distribution("poisson", mu=2000) + 0.0
+
+
+# The elicited CDF of ``table_risk`` and ``table_risk_correlated``.
+_ELICITED = ([0.0, 0.1, 0.5, 0.9, 1.0], [10.0, 15.0, 20.0, 25.0, 40.0])
+
+
+def table_risk(seed=2026):
+    """A loss that puts every kind of table node on one tape: a claim
+    count (poisson(mu=2000), 471 reachable knots) times a severity (a
+    512-point ``EmpiricalDistribution`` of lognormal data), plus scenario
+    terms: exposures (binom(5000, 0.5)), retries (nbinom(5, 0.5)) times a
+    512-value ``DiscreteDistribution`` (Dirichlet weights), defects
+    (hypergeom(30, 25, 20), the generic scipy table) and an elicited
+    ``CumulativeDistribution``.  The data comes from
+    ``np.random.default_rng(seed)``.  Returns ``(loss, {name: node})``.
+    """
+    rng = np.random.default_rng(seed)
+    nodes = {
+        "claims": Distribution("poisson", mu=2000),
+        "severity": EmpiricalDistribution(rng.lognormal(mean=8.0, sigma=1.0, size=512)),
+        "exposures": Distribution("binom", n=5000, p=0.5),
+        "retries": Distribution("nbinom", n=5, p=0.5),
+        "scenario": DiscreteDistribution(np.arange(512.0), rng.dirichlet(np.ones(512))),
+        "defects": Distribution("hypergeom", 30, 25, 20),
+        "elicited": CumulativeDistribution(*_ELICITED),
+    }
+    n = nodes
+    loss = (
+        n["claims"] * n["severity"]
+        + n["exposures"] * n["elicited"] * 0.01
+        + n["retries"] * n["scenario"]
+        + n["defects"] * 100.0
+    )
+    return loss, nodes
+
+
+def table_risk_correlated(seed=2027):
+    """Three table drivers correlated with a normal one: a price (normal),
+    a unit cost (a 512-point ``EmpiricalDistribution`` of lognormal data),
+    a lead time (the elicited ``CumulativeDistribution``) and an order
+    count (poisson(mu=400)), through a 4 x 4 target (positive definite,
+    so the nearest-correlation repair at sampling keeps it).  The data comes from
+    ``np.random.default_rng(seed)``.  Returns ``(margin, {name: node})``.
+    """
+    rng = np.random.default_rng(seed)
+    nodes = {
+        "price": Distribution("norm", loc=100.0, scale=15.0),
+        "unit_cost": EmpiricalDistribution(rng.lognormal(mean=4.0, sigma=0.3, size=512)),
+        "lead_time": CumulativeDistribution(*_ELICITED),
+        "orders": Distribution("poisson", mu=400),
+    }
+    target = np.array([
+        [1.0, 0.5, -0.3, 0.6],
+        [0.5, 1.0, 0.2, 0.4],
+        [-0.3, 0.2, 1.0, -0.2],
+        [0.6, 0.4, -0.2, 1.0],
+    ])
+    n = nodes
+    margin = n["orders"] * (n["price"] - n["unit_cost"]) - n["lead_time"] * 50.0
+    margin.correlate(*nodes.values(), corr_mat=target)
+    return margin, nodes
 
 
 def portfolio_model(d=10, target_corr=0.3):

@@ -1,21 +1,35 @@
 """Inverse-CDF (ppf) functions per distribution family, in PyTorch.
 
-Port of ``probabilit_tpu/ops/ppf.py``: every family it registers except
-the CDF-table tier (``poisson``, ``binom``, ``nbinom``), in three tiers:
+Port of ``probabilit_tpu/ops/ppf.py``, with its four tiers and its host
+callback:
 
 1. closed forms (``uniform``, ``norm``, ``truncnorm``, ``genextreme``, ...,
    and the discrete ``bernoulli``, ``geom`` and ``randint``);
 2. Newton inversions of the incomplete gamma and beta functions
-   (``gamma``, ``beta``, ``t``, ``f``, ..., ``ops/special.py``);
-3. safeguarded Newton on a closed-form CDF (``invgauss``, ``cosine``,
-   ``exponnorm``, ...: ``special.continuous_ppf_newton``).
+   (``gamma``, ``beta``, ``t``, ``f``, ..., ``ops/special.py``), and
+   safeguarded Newton on a closed-form CDF (``invgauss``, ``cosine``,
+   ``exponnorm``, ...: ``special.continuous_ppf_newton``);
+3. the discrete CDF tables: ``poisson``, ``binom`` and ``nbinom`` search a
+   float64 CDF table built by scipy on the host when their parameters are
+   numbers, and bisect their analytic CDF when the parameters are tensors
+   (composite distributions); every other scipy discrete family with
+   numeric parameters and a reachable support of at most 4,096 values
+   gets a generic table (``static_cdf_table``);
+4. every other scipy continuous family with numeric parameters: a
+   monotone cubic (PCHIP) quantile table in normal-score space, built on
+   the host (``static_quantile_table``) and evaluated with one gather and
+   a cubic per sample (``_pchip_ppf``).
+
+What is left (a family without a function here whose parameters are
+tensors, or whose table does not fit) goes to scipy on the host
+(``scipy_fallback_ppf``), as the JAX package's ``jax.pure_callback``
+does: right, and a round trip to the host on every call.  ``call``
+dispatches in that order.
 
 Each is ``ppf(q, *shape_params, loc, scale)`` with scipy.stats' parameter
 names, order and defaults.  Powers go through ``special.pow``, so that no
-value depends on the batch it was computed in.  Parameters may be tensors (composite
-distributions) or numbers; both broadcast elementwise, in float32 or
-float64.  The table, PCHIP and scipy-callback tiers are still to port
-(ROADMAP A8): ``call`` raises for them.
+value depends on the batch it was computed in.  Parameters may be
+tensors or numbers; both broadcast elementwise, in float32 or float64.
 
 The score shortcuts (``score_call``, ``score_emit``) evaluate
 ``ppf(ndtr(y))`` in closed form for the score-linear families (norm,
@@ -26,13 +40,26 @@ correlated paths.
 from __future__ import annotations
 
 import math
+import numbers
 
+import numpy as np
 import torch
 
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.ops import special
 
-__all__ = ["register", "lookup", "call", "families", "score_call", "score_emit"]
+__all__ = [
+    "register",
+    "lookup",
+    "call",
+    "families",
+    "static_cdf_table",
+    "static_quantile_table",
+    "scipy_fallback_ppf",
+    "is_multivariate",
+    "score_call",
+    "score_emit",
+]
 
 _REGISTRY = {}
 
@@ -55,15 +82,19 @@ def families():
 
 
 def call(name, q, *args, **kwargs):
-    """Evaluate the ppf of scipy.stats distribution ``name`` at ``q``."""
+    """Evaluate the ppf of scipy.stats distribution ``name`` at ``q``: its
+    registered function, else a static CDF table, else a PCHIP quantile
+    table, else scipy on the host."""
     kernel = lookup(name)
     if kernel is None:
-        raise NotImplementedError(
-            f"Distribution family {name!r} is not ported yet; the port "
-            "samples the closed-form and incomplete gamma/beta families "
-            "(ops.ppf.families()); the CDF-table, PCHIP and scipy-callback "
-            "tiers are ROADMAP A8."
-        )
+        built = static_cdf_table(name, *args, **kwargs)
+        if built is not None:
+            table, start = built
+            return _table_ppf(q, table, loc=start)
+        quantile_table = static_quantile_table(name, *args, **kwargs)
+        if quantile_table is not None:
+            return _pchip_ppf(q, quantile_table)
+        return scipy_fallback_ppf(name, q, *args, **kwargs)
     return kernel(q, *args, **kwargs)
 
 
@@ -72,6 +103,10 @@ def _f(x):
     if isinstance(x, torch.Tensor):
         return x.to(config.float_dtype())
     return torch.tensor(x, dtype=config.float_dtype())
+
+
+def _is_static(*params):
+    return all(isinstance(p, (numbers.Number, np.ndarray)) for p in params)
 
 
 _PI = math.pi
@@ -1002,6 +1037,307 @@ def randint(q, low, high, loc=0):
     low, high = _f(low), _f(high)
     k = torch.ceil(_f(q) * (high - low)) - 1.0 + low
     return torch.minimum(torch.maximum(k, low), high - 1.0) + _f(loc)
+
+
+# ---------------------------------------------------------------------
+# Discrete, CDF tables and bisection
+# ---------------------------------------------------------------------
+
+
+def _table_ppf(q, cdf_table, loc=0):
+    """``searchsorted(table, q, side="left")``, clamped to the last index,
+    plus ``loc``: scipy's discrete ppf on a float64 CDF table built on the
+    host, cast to the float dtype by numpy."""
+    q = _f(q)
+    table = torch.from_numpy(np.asarray(cdf_table, config.np_float_dtype())).to(q.device)
+    k = torch.clamp(torch.searchsorted(table, q.contiguous()), max=table.shape[0] - 1)
+    return k.to(config.float_dtype()) + _f(loc)
+
+
+def _poisson_cdf_table(mu):
+    import scipy.stats as sps
+
+    kmax = int(np.ceil(mu + 12.0 * np.sqrt(mu + 1.0) + 30.0))
+    table = sps.poisson.cdf(np.arange(kmax + 1), mu)
+    table[-1] = 1.0
+    return table
+
+
+def _binom_cdf_table(n, p):
+    import scipy.stats as sps
+
+    table = sps.binom.cdf(np.arange(int(n) + 1), int(n), float(p))
+    table[-1] = 1.0
+    return table
+
+
+def _nbinom_cdf_table(n, p):
+    import scipy.stats as sps
+
+    mean = n * (1 - p) / p
+    var = n * (1 - p) / p**2
+    kmax = int(np.ceil(mean + 12 * np.sqrt(var + 1) + 30))
+    table = sps.nbinom.cdf(np.arange(kmax + 1), n, p)
+    table[-1] = 1.0
+    return table
+
+
+_STATIC_TABLE_BUILDERS = {
+    "poisson": lambda mu, loc=0: (_poisson_cdf_table(float(mu)), loc),
+    "binom": lambda n, p, loc=0: (_binom_cdf_table(n, p), loc),
+    "nbinom": lambda n, p, loc=0: (_nbinom_cdf_table(n, p), loc),
+}
+
+# The generic table's cap: far beyond the support of any realistic
+# hypergeom, zipf or logser that float32 uniforms can reach.
+_GENERIC_TABLE_CAP = 4096
+
+
+def _generic_discrete_table(name, args, kwargs):
+    """(float64 CDF table, support start) for a scipy discrete family
+    without a registered function, at numeric parameters, or None.
+
+    The table spans the eps .. 1 - eps quantiles, where eps is one ulp
+    below the clamp the engine's uniforms can reach (2^-25 in float32,
+    2^-54 in float64; a float64 run whose tails need more than the cap
+    goes to the host callback instead of truncating).  A support
+    unbounded below (skellam, dlaplace) starts at the eps quantile.
+    None for a continuous or unknown family, one with its own function,
+    or a table over the cap.
+    """
+    import scipy.stats as sps
+
+    if lookup(name) is not None:
+        return None
+    dist = getattr(sps, name, None)
+    if dist is None or not isinstance(dist, sps.rv_discrete):
+        return None
+    eps = 2.0**-25 if config.float_dtype() == torch.float32 else 2.0**-54
+    try:
+        frozen = dist(*args, **kwargs)
+        lo, hi_support = frozen.support()
+        if not np.isfinite(lo):
+            lo = frozen.ppf(eps)
+            if not np.isfinite(lo):
+                return None
+        hi = frozen.ppf(1.0 - eps)
+        if not np.isfinite(hi):
+            hi = hi_support
+        if not np.isfinite(hi) or hi - lo + 1 > _GENERIC_TABLE_CAP:
+            return None
+        ks = np.arange(int(lo), int(hi) + 1)
+        table = np.asarray(frozen.cdf(ks), np.float64)
+        table[-1] = 1.0
+        return table, int(lo)
+    except (TypeError, ValueError):
+        return None
+
+
+def static_cdf_table(distr, *args, **kwargs):
+    """(float64 CDF table, offset) for a discrete family at numeric scalar
+    parameters, or None: ``poisson``, ``binom`` and ``nbinom`` from their
+    own builders, any other scipy discrete family from the generic scan.
+
+    Array parameters mean a batch of distributions (one table would be
+    wrong), except for ``poisson_binom``, whose vector of success
+    probabilities parametrises one scalar law.
+    """
+    params = list(args) + list(kwargs.values())
+    if not _is_static(*params):
+        return None
+    if any(np.ndim(p) != 0 for p in params) and distr != "poisson_binom":
+        return None
+    builder = _STATIC_TABLE_BUILDERS.get(distr)
+    if builder is not None:
+        try:
+            return builder(*args, **kwargs)
+        except TypeError:
+            return None
+    return _generic_discrete_table(distr, args, kwargs)
+
+
+@register("poisson")
+def poisson(q, mu, loc=0):
+    if _is_static(mu) and np.ndim(mu) == 0:
+        return _table_ppf(q, _poisson_cdf_table(float(mu)), loc)
+    mu, q = _f(mu), _f(q)
+    # P(X <= k) = Q(k + 1, mu), the regularized upper incomplete gamma.
+    hi = torch.ceil(mu + 12.0 * torch.sqrt(mu + 1.0) + 30.0)
+    k = special.discrete_ppf_bisect(lambda k: special.gammaincc(k + 1.0, mu), q, hi)
+    return torch.clamp(k, min=0.0) + _f(loc)
+
+
+@register("binom")
+def binom(q, n, p, loc=0):
+    if _is_static(n, p) and np.ndim(n) == 0 and np.ndim(p) == 0:
+        return _table_ppf(q, _binom_cdf_table(n, p), loc)
+    n, p, q = _f(n), _f(p), _f(q)
+
+    # P(X <= k) = I_{1-p}(n - k, k + 1) for 0 <= k < n, else 1.
+    def cdf(k):
+        return torch.where(
+            k >= n, 1.0, special.betainc(torch.clamp(n - k, min=1e-9), k + 1.0, 1.0 - p)
+        )
+
+    k = special.discrete_ppf_bisect(cdf, q, n)
+    return torch.minimum(torch.clamp(k, min=0.0), n) + _f(loc)
+
+
+@register("nbinom")
+def nbinom(q, n, p, loc=0):
+    if _is_static(n, p) and np.ndim(n) == 0 and np.ndim(p) == 0:
+        return _table_ppf(q, _nbinom_cdf_table(n, p), loc)
+    n, p, q = _f(n), _f(p), _f(q)
+    # P(X <= k) = I_p(n, k + 1).
+    mean = n * (1.0 - p) / p
+    var = n * (1.0 - p) / (p * p)
+    hi = torch.ceil(mean + 12.0 * torch.sqrt(var + 1.0) + 30.0)
+    k = special.discrete_ppf_bisect(lambda k: special.betainc(n, k + 1.0, p), q, hi)
+    return torch.clamp(k, min=0.0) + _f(loc)
+
+
+# ---------------------------------------------------------------------
+# Continuous families without a function: PCHIP quantile tables
+# ---------------------------------------------------------------------
+
+# Families whose scipy ppf integrates numerically get coarser grids; the
+# PCHIP error (h^4) stays below those ppfs' own noise at these counts.
+_PCHIP_KNOTS = {"levy_stable": 257, "studentized_range": 129}
+_PCHIP_KNOTS_DEFAULT = 1025
+_PCHIP_CACHE = {}
+
+
+def _pchip_build(name, args, kwargs):
+    """The host-built quantile table of a continuous family at numeric
+    parameters: ``(coefficients (nseg, 4), z0, h, m, s)``, or None.
+
+    scipy's ppf on a uniform grid in the normal score z (q = ndtr(z), z in
+    [-8.3, 8.3], one ulp past the engine's float64 clamp), isotonised,
+    centred and scaled at the true quartiles (z = +-0.6745), compressed
+    through asinh, and fitted by a monotone cubic (PCHIP) in float64.
+    """
+    import scipy.special as ssp
+    import scipy.stats as sps
+    from scipy.interpolate import PchipInterpolator
+
+    dist = getattr(sps, name, None)
+    if dist is None or not isinstance(dist, sps.rv_continuous):
+        return None
+    n_knots = _PCHIP_KNOTS.get(name, _PCHIP_KNOTS_DEFAULT)
+    z = np.linspace(-8.3, 8.3, n_knots)
+    qs = ssp.ndtr(z)
+    try:
+        frozen = dist(*args, **kwargs)
+        x = np.empty(n_knots, np.float64)
+        # In chunks: some ppfs raise at extreme quantiles, and only the
+        # chunk that fails pays a retry per point.
+        step = 64
+        with np.errstate(all="ignore"):
+            for i in range(0, n_knots, step):
+                sl = slice(i, min(i + step, n_knots))
+                try:
+                    x[sl] = frozen.ppf(qs[sl])
+                except Exception:
+                    for j in range(sl.start, sl.stop):
+                        try:
+                            x[j] = frozen.ppf(qs[j])
+                        except Exception:
+                            x[j] = np.nan
+    except (TypeError, ValueError):
+        return None
+    finite = np.isfinite(x)
+    if not finite.any():
+        return None
+    i0 = int(np.argmax(finite))
+    i1 = n_knots - 1 - int(np.argmax(finite[::-1]))
+    z, x = z[i0 : i1 + 1], x[i0 : i1 + 1]
+    if len(z) < 16 or not np.isfinite(x).all():
+        return None
+    x = np.maximum.accumulate(x)  # numeric ppfs can step back by their noise
+    m = float(np.interp(0.0, z, x))
+    s = float(np.interp(0.6745, z, x) - np.interp(-0.6745, z, x)) / 1.349
+    if not (s > 0.0):
+        s = max(float(x[-1] - x[0]) / 8.0, 1e-300)
+    y = np.arcsinh((x - m) / s)
+    try:
+        pchip = PchipInterpolator(z, y)
+    except ValueError:
+        return None
+    # PPoly.c is (4, nseg), highest power first, local in (z - z_k).
+    coeffs = np.ascontiguousarray(pchip.c.T, np.float64)
+    h = float(z[1] - z[0])
+    return coeffs, float(z[0]), h, m, s
+
+
+def static_quantile_table(name, *args, **kwargs):
+    """The cached PCHIP quantile table of a continuous family without a
+    function, at numeric scalar parameters, or None."""
+    if lookup(name) is not None:
+        return None
+    params = list(args) + list(kwargs.values())
+    if not _is_static(*params) or any(np.ndim(p) != 0 for p in params):
+        return None
+    key = (
+        name,
+        tuple(float(p) for p in args),
+        tuple(sorted((k, float(v)) for k, v in kwargs.items())),
+    )
+    if key not in _PCHIP_CACHE:
+        _PCHIP_CACHE[key] = _pchip_build(name, args, kwargs)
+    return _PCHIP_CACHE[key]
+
+
+def _pchip_ppf(q, table):
+    """A PCHIP quantile table at ``q``: z = ndtri(q), the segment's index
+    by a floor (the z grid is uniform), a gather of its four coefficients,
+    Horner, then x = m + s sinh(y) through ``expm1_safe`` (relative
+    accuracy for |y| << 1, where heavy-tailed bodies live)."""
+    coeffs, z0, h, m, s = table
+    q = _f(q)
+    c = torch.from_numpy(np.asarray(coeffs, config.np_float_dtype())).to(q.device)
+    nseg = c.shape[0]
+    z = torch.clamp(special.ndtri_fast_wide(q), z0, z0 + h * nseg)
+    u = (z - z0) / h
+    k = torch.clamp(u.to(torch.int32), 0, nseg - 1)
+    dz = z - (z0 + k.to(q.dtype) * h)
+    ck = c[k.long()]
+    y = ((ck[..., 0] * dz + ck[..., 1]) * dz + ck[..., 2]) * dz + ck[..., 3]
+    t = special.expm1_safe(y)
+    return m + (0.5 * s) * (t + t / (t + 1.0))
+
+
+# ---------------------------------------------------------------------
+# The host callback: scipy.stats for everything else
+# ---------------------------------------------------------------------
+
+
+def is_multivariate(name):
+    """True if scipy.stats ``name`` is a multivariate distribution (no ppf)."""
+    import scipy.stats as sps
+
+    return not hasattr(getattr(sps, name), "ppf")
+
+
+def scipy_fallback_ppf(name, q, *args, **kwargs):
+    """scipy.stats' ppf on the host, for a family with no function here
+    whose parameters are tensors, or whose table does not fit.
+
+    Tensor parameters and ``q`` go to the host as numpy arrays; scipy
+    computes in float64; the result comes back on ``q``'s device in the
+    float dtype.  Right, and a round trip to the host on every call: no
+    path of the CUDA megakernel reaches it.
+    """
+    import scipy.stats as sps
+
+    dist = getattr(sps, name)  # an unknown name raises here
+
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    q = _f(q)
+    frozen = dist(*(host(a) for a in args), **{k: host(v) for k, v in kwargs.items()})
+    out = frozen.ppf(q.detach().cpu().numpy().astype(np.float64))
+    return torch.from_numpy(np.asarray(out, config.np_float_dtype())).to(q.device)
 
 
 # Normal-score shortcuts: families whose ppf is an elementwise function

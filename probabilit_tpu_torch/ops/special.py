@@ -5,8 +5,9 @@ single-precision inverse error function, the fast standard-normal
 quantile built on it (and its wide-range form for derived quantiles),
 the Abramowitz & Stegun 7.1.26 normal CDF and its survival and scaled
 forms, ``expm1_safe``, and the incomplete gamma and beta functions with
-their safeguarded-Newton inverses (``gammaincinv``, ``betaincinv``) and
-the generic ``continuous_ppf_newton``.  The device kernels
+their safeguarded-Newton inverses (``gammaincinv``, ``betaincinv``), the
+generic ``continuous_ppf_newton`` and the discrete
+``discrete_ppf_bisect``.  The device kernels
 (``csrc/sampling_math.cuh``, ``csrc/special_ops.cuh``) transcribe the
 same coefficients, so the plain and kernel paths compute the same
 functions.
@@ -39,6 +40,8 @@ __all__ = [
     "betainc",
     "elementwise",
     "pow",
+    "gammaincc",
+    "discrete_ppf_bisect",
     "gammaincinv",
     "gammainccinv",
     "betaincinv",
@@ -349,6 +352,12 @@ def _gammainc_torch(a, x):
     return elementwise(torch.special.gammainc, a, x)
 
 
+def gammaincc(a, x):
+    """Regularized upper incomplete gamma Q(a, x) for the plain path:
+    ``torch.special.gammaincc``, batch-independent (``elementwise``)."""
+    return elementwise(torch.special.gammaincc, a, x)
+
+
 def _betacf(a, b, x, iters=40):
     """Continued fraction of betainc (Lentz, paired even/odd steps)."""
     qab = a + b
@@ -591,3 +600,32 @@ def continuous_ppf_newton(cdf, pdf, q, x0, lo, hi, iters=40):
         x = torch.where(bad, 0.5 * (lo + hi), newton)
     final_f = torch.abs(cdf(x) - q)
     return torch.where(final_f < best_f, x, best_x)
+
+
+def discrete_ppf_bisect(cdf, q, hi, max_iters=40):
+    """Generic discrete ppf: the smallest integer k in [0, hi] with
+    cdf(k) >= q.
+
+    ``cdf`` maps a float tensor of ks to CDF values; ``hi`` is a
+    per-element upper bound on the support needed.  At most ``max_iters``
+    bisection steps, all elements together; the loop stops early once
+    every bracket is one wide.  Used by the Poisson/binomial/negative
+    binomial ppfs when their parameters are tensors (composite
+    distributions).
+
+    The trip cap bounds the loop: above 2^24 the float32 midpoint
+    ``floor((lo + hi) / 2)`` can round back onto ``lo`` while ``hi - lo``
+    is still > 1, so a width-only condition could spin forever.  On a
+    capped exit ``hi`` still satisfies ``cdf(hi) >= q``, correct to one
+    float32 ulp of the support.
+    """
+    lo = torch.full(q.shape, -1.0, dtype=q.dtype, device=q.device)  # cdf(lo) < q
+    hi = torch.broadcast_to(torch.as_tensor(hi, dtype=q.dtype, device=q.device), q.shape)
+    for _ in range(max_iters):
+        if not bool((hi - lo > 1.0).any()):
+            break
+        mid = torch.floor((lo + hi) / 2.0)
+        go_right = cdf(mid) < q
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    return hi

@@ -28,7 +28,7 @@ from probabilit_tpu_torch import _build, config
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.models import benchmarks, graph as tg
-from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.models.distributions import Distribution, EmpiricalDistribution
 from probabilit_tpu_torch.ops import bitonic_sort as bs
 
 REL_TOL = 1e-4
@@ -431,3 +431,80 @@ def test_portfolio_through_both_kernels(cuda_card):
     x = sink.sample(N, random_state=0, gc_strategy=[], executor="cuda")
     assert cuda_exec.LAUNCHES == launches + 1 and cuda_exec.STATS_LAUNCHES == stats + 1
     assert x.device.type == "cuda" and bool(torch.isfinite(x).all())
+
+
+def _table_nodes(sink, nodes):
+    """The table rows of a lowered graph: every kept node but the sink is a
+    table node fed by a drawn column, which the kernel computes bitwise as
+    the twin does (searches, and one rounding per interval operation)."""
+    return {node._id for node in nodes.values()} - {sink._id}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["large_table", "table_risk"])
+def test_table_branch_matches_twin(cuda_card, name):
+    if name == "large_table":
+        sink = benchmarks.large_table()
+        nodes = {"poisson": next(iter(sink.get_parents()))}
+    else:
+        sink, nodes = benchmarks.table_risk()
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {node._id for node in nodes.values()}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    words = cuda_exec.seed_words(12)
+    launches = cuda_exec.LAUNCHES
+    got, flag = cuda_exec.run(tape, words, N)
+    ref = cuda_exec.run_reference(tape, words, N)
+    assert cuda_exec.LAUNCHES == launches + 1 and int(flag) == 0
+    tables = _table_nodes(sink, nodes)
+    for k, nid in enumerate(tape.keep_order):
+        if nid in tables:
+            assert torch.equal(got[k], ref[k]), k
+        else:
+            assert (got[k] - ref[k]).abs().max() <= REL_TOL * ref[k].abs().max(), k
+    x = sink.sample(N, random_state=3, gc_strategy=[], executor="cuda")
+    assert x.device.type == "cuda" and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+def test_tables_above_48_kb_of_shared_memory(cuda_card):
+    rng = np.random.default_rng(4)
+    parts = [EmpiricalDistribution(rng.lognormal(size=512)) for _ in range(12)]
+    sink = tg.Add(*parts)
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {p._id for p in parts}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    assert 48 * 1024 < tape.shared_bytes <= cuda_exec.MAX_SHARED_BYTES
+    words = cuda_exec.seed_words(13)
+    got, flag = cuda_exec.run(tape, words, N)
+    ref = cuda_exec.run_reference(tape, words, N)
+    assert int(flag) == 0
+    for k, nid in enumerate(tape.keep_order):
+        if nid == sink._id:
+            assert (got[k] - ref[k]).abs().max() <= REL_TOL * ref[k].abs().max()
+        else:
+            assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_correlated_table_drivers_through_both_kernels(cuda_card):
+    sink, nodes = benchmarks.table_risk_correlated()
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {v._id for v in plan.corr_vars}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    words = cuda_exec.seed_words(14)
+    ab = cuda_exec.recolor_transform(plan, words, N, device="cuda")
+    got, flag = cuda_exec.run(tape, words, N, ab)
+    ref = cuda_exec.run_reference(tape, words, N, ab)
+    assert int(flag) == 0
+    # The count's quantile went through the hardware's ndtr_fast: it may
+    # cross a CDF step, and then the sink moves by one order's margin.  The
+    # sink is held where the counts agree.
+    k_orders = tape.keep_order.index(nodes["orders"]._id)
+    err = (got[k_orders] - ref[k_orders]).abs()
+    assert err.max() <= 1 and (err > 0).float().mean() <= 1e-3
+    same = err == 0
+    for k, nid in enumerate(tape.keep_order):
+        if k != k_orders:
+            err = (got[k] - ref[k]).abs()[same]
+            assert err.max() <= REL_TOL * ref[k].abs().max(), k

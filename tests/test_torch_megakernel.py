@@ -29,7 +29,11 @@ from probabilit_tpu_torch import _build, config, interop
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models import benchmarks, graph as tg
-from probabilit_tpu_torch.models.distributions import Distribution
+from probabilit_tpu_torch.models.distributions import (
+    DiscreteDistribution,
+    Distribution,
+    EmpiricalDistribution,
+)
 from probabilit_tpu_torch.ops import philox
 from test_torch_cuda import GRAPHS  # the same graphs the card tests run
 
@@ -258,12 +262,15 @@ def test_supports_refuses_what_the_port_lacks():
     corr_sink = (a + b).correlate(a, b, corr_mat=np.eye(2))
     assert _supports_pair(corr_sink) == (True, True)  # ported since: ROADMAP A6
     poisson = JaxDistribution("poisson", mu=3.5) + 0
-    assert _supports_pair(poisson) == (True, False)  # the table branch: ROADMAP B3
+    assert _supports_pair(poisson) == (True, True)  # the table branch, ported since: B3
     hypergeom = JaxDistribution("hypergeom", 30, 25, 20) * 2
-    assert _supports_pair(hypergeom) == (True, False)  # ROADMAP B3
+    assert _supports_pair(hypergeom) == (True, True)  # ROADMAP B3
     c = JaxDistribution("poisson", mu=3.5)
     corr_poisson = (a + c).correlate(a, c, corr_mat=np.eye(2))
-    assert _supports_pair(corr_poisson) == (True, False)
+    assert _supports_pair(corr_poisson) == (True, True)
+    # Still unported: integer-typed values on the tape (ROADMAP B4).
+    integer = JaxDistribution("norm") + jg.Constant(3) * jg.Constant(5)
+    assert _supports_pair(integer) == (True, False)
 
 
 @pytest.mark.parametrize(
@@ -334,6 +341,14 @@ def test_every_opcode_has_an_emitter(name):
         assert "store_group(out + 1 * n, r0, n, vec, k.v[0], k.v[0], k.v[0], k.v[0], bad);" in body
         return
     template = cuda_exec._EMIT[name]
+    if name.startswith("TABLE_"):
+        # q, then two literals: the table's offset and its boundaries.
+        body = _loop_body(_hand_tape(head + [(name, 4, 1, 8, 5), ("STORE", 0, 4)]).source)
+        for lane in range(cuda_exec.LANES):
+            text = template.format(a=f"v1_{lane}", b=8, c=5)
+            assert f"const float v4_{lane} = {text};" in body
+        assert re.match(r"table_\w+<5>\(s_tab \+ 8, v1_0\)$", template.format(a="v1_0", b=8, c=5))
+        return
     arity = sum(f"{{{f}}}" in template for f in "abcd")
     assert arity >= 1 and "{" not in template.format(a="", b="", c="", d="")
     body = _loop_body(_hand_tape(head + [(name, 4, *(0, 2, 1, 3)[:arity]), ("STORE", 0, 4)]).source)
@@ -424,6 +439,17 @@ def test_cache_key_is_the_structure_not_the_constants():
     assert key(Distribution("norm", loc=1.0, scale=2.0) + _priced(1.0, 2.0))[0] != a  # another column
     kept = _priced(1.0, 2.0)
     assert key(kept, keep=[kept.parents[0]._id])[0] != a  # another kept row
+    # Tables: their values travel in Tape.tables, their offsets and sizes
+    # are structure.
+    rng = np.random.default_rng(3)
+    (c, tape_c), (d, tape_d) = (
+        key(EmpiricalDistribution(rng.normal(size=64)) * DiscreteDistribution(
+            np.arange(8.0), rng.dirichlet(np.ones(8))) + Distribution("poisson", mu=30.0))
+        for _ in range(2))
+    assert c == d and tape_c.consts == tape_d.consts
+    assert not torch.equal(tape_c.tables, tape_d.tables)
+    assert key(EmpiricalDistribution(rng.normal(size=65)) * DiscreteDistribution(
+        np.arange(8.0)) + Distribution("poisson", mu=30.0))[0] != c  # another table size
     # The key follows the headers' bytes and the compiler flags too.
     assert _build.generated_key(tape_a.source, cuda_exec._HEADERS[:1]) != a
 

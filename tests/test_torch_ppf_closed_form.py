@@ -208,12 +208,17 @@ def test_closed_forms_take_tensor_parameters():
 
 
 def test_every_registered_family_is_swept():
-    """The 94 families: these, the Newton file's, and the first five of
-    ``test_torch_special_ppf.py``; the table tier is not registered."""
+    """The 97 families: these, the Newton file's, the first five of
+    ``test_torch_special_ppf.py``, and the table tier's ``poisson``,
+    ``binom`` and ``nbinom`` (``test_torch_ppf_tables.py``)."""
     from test_torch_ppf_newton import NEWTON, SAFEGUARDED
+    from test_torch_ppf_tables import TABLE_FAMILIES
     from test_torch_special_ppf import FAMILIES
 
+    tables = {c[0] for c in TABLE_FAMILIES} & {"poisson", "binom", "nbinom"}
     swept = {c[0] for c in CLOSED_FORM + DISCRETE + NEWTON + SAFEGUARDED} | {f[0] for f in FAMILIES}
+    swept |= tables
+    assert tables == {"poisson", "binom", "nbinom"} <= set(ppf.families())
     assert swept == set(ppf.families())
-    assert len(swept) == 94
-    assert set(jax_ppf._REGISTRY) - swept == {"poisson", "binom", "nbinom"}
+    assert len(swept) == 97
+    assert set(jax_ppf._REGISTRY) - swept == set()

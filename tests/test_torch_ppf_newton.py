@@ -32,6 +32,7 @@ import torch
 from probabilit_tpu.ops import ppf as jax_ppf
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import cuda_exec
+from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import ppf, special
 
 
@@ -193,5 +194,14 @@ def test_betainc_matches_scipy():
     ("poisson", (3.5,)), ("binom", (12, 0.4)), ("nbinom", (5, 0.5)), ("skewnorm", (2.0,)),
 ])
 def test_table_tier_and_unregistered_families_name_a8(name, args):
+    # Ported since: the CDF-table tier (exact) and the PCHIP tier (within
+    # the tolerance test_torch_ppf_tables.py states).  What still names A8
+    # is a multivariate node.
+    got = ppf.call(name, torch.from_numpy(Q), *args).numpy()
+    ref = np.asarray(jax_ppf.call(name, jnp.asarray(Q), *args))
+    if name == "skewnorm":
+        np.testing.assert_allclose(got, ref, rtol=4e-6, atol=4e-6)
+    else:
+        np.testing.assert_array_equal(got, ref)
     with pytest.raises(NotImplementedError, match="A8"):
-        ppf.call(name, torch.full((4,), 0.5), *args)
+        Distribution("multivariate_normal", mean=[0, 0]).sample(4, random_state=0)

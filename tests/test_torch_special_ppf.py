@@ -22,6 +22,7 @@ from probabilit_tpu.ops import ppf as jax_ppf
 from probabilit_tpu.ops import qmc as jax_qmc
 from probabilit_tpu.ops import special as jax_special
 from probabilit_tpu_torch import config
+from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import ppf, qmc, special
 
 
@@ -128,8 +129,12 @@ def test_ppf_takes_tensor_parameters():
 
 
 def test_unported_family_names_the_roadmap_item():
+    # poisson is ported since (the CDF-table tier, exact); a multivariate
+    # node is not (ROADMAP A8).
+    got = ppf.call("poisson", torch.from_numpy(Q), mu=2.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_ppf.call("poisson", jnp.asarray(Q), mu=2.0)))
     with pytest.raises(NotImplementedError, match="A8"):
-        ppf.call("poisson", torch.full((4,), 0.5), mu=2.0)
+        (Distribution("multivariate_normal", mean=[0, 0]) + 1.0).sample(4, random_state=0)
 
 
 def test_clamp_open_unit_matches_jax():

@@ -22,7 +22,12 @@ graphs keep the main paths' distributions and drop the rest:
 * the family branches: the Newton family graph of ``chip_smoke.py``
   phase 14 built alone first (its nvcc seconds without other builds),
   then one gamma(2.5), one beta(2, 3) and one t(7) node each alone, and
-  the Newton and first closed-form family graphs, sink only.
+  the Newton and first closed-form family graphs, sink only;
+* the table branch: one draw (a standard uniform plus 0.0) beside one
+  ``TABLE_CDF`` (poisson(2000), 470 boundaries), one ``TABLE_DISCRETE``
+  (512 values), one ``TABLE_INTERP`` of 512 knots (an Empirical) and one
+  of 5 (the elicited Cumulative), each plus 0.0, and ``table_risk``'s
+  sink: the search's cost apart from Philox's and the store's.
 
 Prints one JSON object per line, the card's ``nvidia-smi`` name and
 power limit first.  Needs a CUDA card; run from the repository root.
@@ -78,7 +83,12 @@ def main():
     from probabilit_tpu_torch.engine import cuda_exec
     from probabilit_tpu_torch import _build
     from probabilit_tpu_torch.models import benchmarks, graph
-    from probabilit_tpu_torch.models.distributions import Distribution
+    from probabilit_tpu_torch.models.distributions import (
+        CumulativeDistribution,
+        DiscreteDistribution,
+        Distribution,
+        EmpiricalDistribution,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -142,6 +152,18 @@ def main():
         "closed_form_0_graph": families["closed_form_0"][0],
     }
 
+    rng = np.random.default_rng(8)
+    table_cuts = {
+        "draw_1": Distribution("uniform") + 0.0,
+        "table_cdf_471": benchmarks.large_table(),
+        "table_discrete_512": DiscreteDistribution(
+            np.arange(512.0), rng.dirichlet(np.ones(512))) + 0.0,
+        "table_interp_512": EmpiricalDistribution(rng.lognormal(size=512)) + 0.0,
+        "table_interp_5": CumulativeDistribution(
+            [0.0, 0.1, 0.5, 0.9, 1.0], [10.0, 15.0, 20.0, 25.0, 40.0]) + 0.0,
+        "table_risk": benchmarks.table_risk()[0],
+    }
+
     def timed_build(text):
         t = time.perf_counter()
         _build.build_generated("graph_megakernel", text, cuda_exec._HEADERS)
@@ -153,7 +175,8 @@ def main():
 
     # Every cut is its own generated kernel: build them all at once.
     texts = [tape_of(sink)[1].source
-             for sink in (*dag_cuts.values(), *corr_cuts.values(), *family_cuts.values())]
+             for sink in (*dag_cuts.values(), *corr_cuts.values(), *family_cuts.values(),
+                          *table_cuts.values())]
 
     start = time.perf_counter()
     with ThreadPoolExecutor(len(texts) + 1) as pool:
@@ -174,6 +197,10 @@ def main():
 
     rows = {name: kernel_ms(sink) for name, sink in family_cuts.items()}
     emit({"graph": "family_branches", "kernels": rows})
+
+    rows = {name: {**kernel_ms(sink), "shared_bytes": tape_of(sink)[1].shared_bytes}
+            for name, sink in table_cuts.items()}
+    emit({"graph": "table_branch", "kernels": rows})
 
     # One sample() call of each path under the profiler: device time by
     # kernel, and the share of the call's wall time the card sat idle.
