@@ -158,6 +158,39 @@ tiers:
     (its values' shares within 5 standard errors), and ``estimate`` on it
     refused.
 
+The typed path (K1's int32 and bool values) and the sequential and
+checkpointed estimates:
+
+17. ``benchmarks.typed_ops()`` (every int32 and bool operation at the
+    int32 extremes, 49 exact leaves, run 15 at a time beside the sink): K1
+    bitwise against its twin at 2^22 on every kept node.
+    ``benchmarks.breach_count()`` and ``breach_count_correlated()``:
+    ``sample(1e8, executor="cuda")`` must launch K1 (and K2) with a finite
+    sink; K1 against the twin at 2^22 on the kept nodes (overruns, late,
+    tier, loss; severe on its own graph): each int and bool node equal but
+    on at most 1e-4 of the samples and off by at most 1 there (a cost
+    within K1's rounding of its budget), the float nodes within 1e-4 of
+    their largest value where every int and bool node agrees.  Then
+    ``breach_count`` at 1e8, sink only: ``sample`` and K1 alone (CUDA
+    events, median of 5) beside the bound (``OP_COST``, the int32 ops
+    priced by the SASS instructions nvcc emits for them, counted in this
+    run by ``int_op_sass``), the twin at 2^22, registers and spills.  The
+    streamed estimates: ``estimate(severe)`` and ``estimate(overruns,
+    histogram)`` at 2^26 through ``executor="cuda"`` and ``None``, against
+    each other within 5 standard errors and, uncorrelated, against the
+    exact law (a sum of ten independent Bernoullis: P(severe) and the
+    histogram's chi-square, p > 1e-4);
+    ``estimate(severe, 2^24, target_rel_sem=2e-4, executor="auto")``
+    (wall time, rounds, converged; ``cuda`` against ``None`` within 5
+    standard errors); the two calls of ``examples/03_portfolio_var.py`` on
+    ``portfolio_var()`` at the example's sizes (the sequential
+    ``target_rel_sem=0.005`` estimate and the checkpointed 2^24 one), each
+    timed, ``cuda`` against ``None`` within 5 standard errors; and a
+    checkpointed ``estimate(loss, 1e9, quantiles=(0.5, 0.99),
+    checkpoint_every=2^26)`` interrupted after its first two segments (by
+    wrapping ``streaming._estimate_carry`` from here), resumed, and held
+    bitwise to an uninterrupted run, both timed.
+
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
@@ -219,6 +252,9 @@ N_FAMILY_KS = 1 << 20
 FAMILY_P_MIN = 1e-4
 NEWTON_CENTRAL = (0.001, 0.999)  # the uniforms on which a Newton node is held to its twin
 PORTFOLIO_QUANTILES = (0.01, 0.05, 0.5)
+TYPED_SHARE_MAX = 1e-4  # int and bool nodes of K1 and the twin may differ on this share
+N_TYPED_STREAM = 1 << 26
+CHECKPOINT_EVERY = 1 << 26
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -297,12 +333,33 @@ def check(cond, message):
         raise AssertionError(message)
 
 
-def tape_cost(tape, cuda_exec, newton=None):
+def tape_cost(tape, cuda_exec, newton=None, int_cost=None):
     """(integer instructions, float32 flops) per sample of ``tape``;
-    ``newton`` prices this run's Newton ops (``newton_cost``)."""
+    ``newton`` prices this run's Newton ops (``newton_cost``), ``int_cost``
+    the rows that compute in int32 or bool and the conversions of their
+    operands, in SASS instructions (``int_op_sass``; without it, one
+    each).  A constant's conversion is loop-invariant and costs nothing."""
+    int_cost = int_cost or {}
     ints = flops = 0
-    for op, _, _, _, nb, _ in tape.program:
+    kind_of, consts = {}, set()
+    for (op, dst, a, b, nb, d), kind in zip(tape.program, tape.kinds):
         name = cuda_exec.OPCODES[op]
+        if name == "LOADK":
+            kind_of[dst] = kind
+            consts.add(dst)
+            continue
+        fields = () if name in ("DRAW", "RECOLOR") else (a, b, nb, d)
+        operands = [v for v in fields if v in kind_of]
+        compute = (cuda_exec._compute_kind(name, [kind_of[v] for v in operands], kind)
+                   if name in cuda_exec._TRANSFORM_FN else "f")
+        ints += sum(int_cost.get("I2F", 1) if kind_of[v] == "i" and compute == "f" else 1
+                    for v in operands if kind_of[v] != compute and v not in consts)
+        if kind is not None:
+            kind_of[dst] = kind
+        if compute != "f":
+            ints += (int_cost.get(name, int_cost.get("LT", 1)) if compute == "i"
+                     else int_cost.get("AND", 1))
+            continue
         if name == "RECOLOR":
             i, f = 0, 2 * tape.n_corr
         elif name in TABLE_TAIL:
@@ -381,6 +438,53 @@ def bound(n, nbytes, cost):
     return times[by] * 1e3, by
 
 
+# The int32 and bool bodies whose SASS ``int_op_sass`` counts: one kernel
+# each on two ints a and b loaded from memory, beside a baseline that
+# stores a as it is.  LT stands for every int32 comparison, AND for every
+# bool row, I2F for an int operand read as a float.
+INT_OP_EXPR = {
+    "ADD": "add_i32(a, b)", "SUB": "sub_i32(a, b)", "MUL": "mul_i32(a, b)",
+    "MAX": "max_i32(a, b)", "MIN": "min_i32(a, b)", "NEG": "neg_i32(a)", "ABS": "abs_i32(a)",
+    "SIGN": "sign_i32(a)", "SQUARE": "mul_i32(a, a)", "FLOOR": "a", "CEIL": "a",
+    "FLOORDIV": "floor_divide_i32(a, b)", "MOD": "floor_mod_i32(a, b)", "POW": "pow_i32(a, b)",
+    "LT": "static_cast<int>(a < b)", "AND": "static_cast<int>((a != 0) && (b != 0))",
+    "I2F": "__float_as_int(__int2float_rn(a))",
+}
+
+
+def int_op_sass(_build):
+    """{op: SASS instructions} of each ``INT_OP_EXPR`` body on sm_90a, less
+    the baseline's (``nvcc -cubin``, then ``cuobjdump -sass``; NOPs left
+    out).  POW counts its loop body once."""
+    out_dir = _build.BUILD_DIR / "int_op_sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lines = ['#include "graph_ops.cuh"', "using namespace graph_ops;"]
+    for name, expr in {"BASE": "a", **INT_OP_EXPR}.items():
+        # a reads both loads, so every kernel keeps them.
+        lines.append(f'extern "C" __global__ void op_{name}(const int* x, const int* y, int* out) '
+                     f"{{ const int b = y[threadIdx.x], a = x[threadIdx.x] ^ b; "
+                     f"out[threadIdx.x] = {expr}; }}")
+    (out_dir / "int_ops.cu").write_text("\n".join(lines) + "\n")
+    nvcc = _build.nvcc_path()
+    subprocess.run([str(nvcc), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-I", str(_build.CSRC), "-o", str(out_dir / "int_ops.cubin"),
+                    str(out_dir / "int_ops.cu")], check=True, capture_output=True, text=True)
+    sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(out_dir / "int_ops.cubin")],
+                          check=True, capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : op_(\w+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = 0
+            continue
+        instr = re.search(r"/\*[0-9a-f]{4}\*/\s+([^;]+);", line)
+        if name and instr and not instr.group(1).strip().startswith("NOP"):
+            counts[name] += 1
+    base = counts.pop("BASE")
+    return {op: count - base for op, count in counts.items()}
+
+
 def ptxas_instances(log):
     """{kernel instance: [registers, spill-store bytes]} from ``-Xptxas=-v``
     output.  An instance is ``name<mangled template arguments>``: f, i, d,
@@ -454,6 +558,8 @@ def generated_tapes(cuda_exec, _compile):
     fresh graphs: the kernels' text depends on structure alone, so the
     phases' own graphs find these builds."""
     from probabilit_tpu_torch.models.benchmarks import (
+        breach_count,
+        breach_count_correlated,
         family_graphs,
         large_table,
         mixed_correlated_50,
@@ -461,6 +567,7 @@ def generated_tapes(cuda_exec, _compile):
         portfolio_var,
         table_risk,
         table_risk_correlated,
+        typed_ops,
     )
     from probabilit_tpu_torch.models.distributions import Distribution
 
@@ -472,6 +579,17 @@ def generated_tapes(cuda_exec, _compile):
     for label, (sink, nodes) in family_graphs().items():
         families[label] = tape(sink)
         families[f"{label}, all nodes"] = tape(sink, family_keep(nodes))
+    typed = {}
+    sink, leaves, _ = typed_ops()
+    for label, group in typed_ops_groups(leaves).items():
+        typed[label] = tape(sink, lambda plan, group=group: group_keep(plan, leaves, group))
+    for name, build in (("breach_count", breach_count),
+                        ("breach_count_correlated", breach_count_correlated)):
+        loss, nodes = build()
+        typed[name] = tape(loss)
+        typed[f"{name}, typed nodes"] = tape(loss, lambda plan, nodes=nodes: breach_keep(plan, nodes))
+        typed[f"{name}, severe"] = tape(nodes["severe"])
+    typed["breach_count, overruns"] = tape(breach_count()[1]["overruns"])
     return {
         "mixed_dag_20": tape(mixed_dag_20()),
         "mixed_dag_20, 16 rows": tape(mixed_dag_20(), node_keep),
@@ -495,7 +613,28 @@ def generated_tapes(cuda_exec, _compile):
             table_risk()[0], lambda plan: {plan.sink._id} | {n._id for n in plan.dist_nodes}),
         "table_risk_correlated": tape(table_risk_correlated()[0]),
         "table_risk_correlated, drivers": tape(table_risk_correlated()[0], portfolio_keep),
+        **typed,
     }
+
+
+def typed_ops_groups(leaves):
+    """typed_ops' leaf labels, 15 to a group (a tape keeps 16 rows)."""
+    labels = list(leaves)
+    return {f"typed_ops, leaves {i}-{min(i + 15, len(labels)) - 1}": labels[i:i + 15]
+            for i in range(0, len(labels), 15)}
+
+
+def group_keep(plan, leaves, labels):
+    """The sink and the typed_ops leaves ``labels``."""
+    return {plan.sink._id} | {leaves[label]._id for label in labels}
+
+
+BREACH_TYPED = ("overruns", "tier", "late")  # the int32 and bool nodes loss reads
+
+
+def breach_keep(plan, nodes):
+    """The sink (loss) and the int32 and bool nodes it reads."""
+    return {plan.sink._id} | {nodes[name]._id for name in BREACH_TYPED}
 
 
 def main():
@@ -545,9 +684,12 @@ def main():
 
     t0 = time.perf_counter()
     jobs = [*SOURCES, *texts]
-    with ThreadPoolExecutor(len(jobs)) as pool:
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        sass = pool.submit(int_op_sass, _build)
         built = dict(zip(jobs, pool.map(build_one, jobs)))
+        int_cost = sass.result()
     build_s = time.perf_counter() - t0
+    emit({"phase": "int_op_sass", "instructions_over_a_load_and_store": int_cost})
     registers = {}  # label: [registers, spill bytes] of its generated kernel
     for job, (lib_path, log, seconds) in built.items():
         record = {"phase": "build", "kernel": job if job in SOURCES else "graph_megakernel",
@@ -658,6 +800,7 @@ def main():
     families = family_path(torch, np, scipy.stats, cuda_exec, _compile, smi)
     portfolio = portfolio_path(torch, np, scipy, cuda_exec, _compile, smi)
     tables = table_path(torch, np, scipy, cuda_exec, _compile, smi, registers)
+    typed = typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, here)
 
     emit({"kernels": [
         {
@@ -668,9 +811,10 @@ def main():
             "source": "probabilit_tpu_torch/engine/cuda_exec.py",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
             "launches": launches + corr["k1_launches"] + stream["k1_launches"]
-            + families["k1_launches"] + portfolio["k1_launches"] + tables["k1_launches"],
+            + families["k1_launches"] + portfolio["k1_launches"] + tables["k1_launches"]
+            + typed["k1_launches"],
             "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"],
-                               portfolio["k1_err"]),
+                               portfolio["k1_err"], typed["k1_abs_err"]),
             "ms": kernel_ms,
             "plain_ms": twin_ms,
             "bound_ms": main_bound,
@@ -686,6 +830,11 @@ def main():
             # to each node's largest value (table nodes are bitwise).
             "table_branch": {**tables["main"], "max_rel_err": tables["k1_err"],
                              "graphs": tables["records"]},
+            # The int32 and bool values: typed_ops bitwise, the breach
+            # graphs' checks (the largest error relative to a float node's
+            # largest value where the typed nodes agree), their timings and
+            # the sequential and checkpointed estimates.
+            "typed_graphs": {**typed["records"], "max_rel_err": typed["k1_err"]},
         },
         {
             "name": "corr_stats",
@@ -693,7 +842,7 @@ def main():
             "source": "probabilit_tpu_torch/csrc/corr_stats.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:577",
             "launches": corr["k2_launches"] + stream["k2_launches"] + portfolio["k2_launches"]
-            + tables["k2_launches"],
+            + tables["k2_launches"] + typed["k2_launches"],
             "max_abs_err": max(corr["k2_err"], stream["k2_err"], odd["k2_err"],
                                portfolio["k2_err"], tables["k2_err"]),
             "ms": corr["k2_ms"],
@@ -1610,7 +1759,12 @@ def discrete_fit(np, stats, x, support, pmf):
           "a sampled value lies outside the law's support")
     observed = np.zeros(len(support))
     observed[where] = counts
-    expected = pmf * x.size
+    return counts_fit(np, stats, observed, pmf)
+
+
+def counts_fit(np, stats, observed, pmf):
+    """``discrete_fit`` on the counts ``observed`` of each support point."""
+    expected = pmf * observed.sum()
     small = expected < 20
     if small.any():
         observed = np.append(observed[~small], observed[small].sum())
@@ -1938,6 +2092,281 @@ def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
           "string_discrete_shares": freq, "estimate_refuses_strings": True})
     return {"k1_launches": launches, "k2_launches": k2_launches, "k1_err": k1_err,
             "k2_err": k2_err, "records": records, "main": main}
+
+
+def typed_agreement(torch, got, ref, typed):
+    """K1 (``got``) against its twin (``ref``) on a graph of int32 and bool
+    nodes fed by float comparisons: the rows ``typed`` equal but on at most
+    ``TYPED_SHARE_MAX`` of the samples, and off by at most 1 there; the
+    other rows within REL_TOL of their largest value where every typed row
+    agrees.  Returns (rows, the share off, the largest relative error)."""
+    same = torch.ones(got.shape[1], dtype=torch.bool, device=got.device)
+    rows, rel, abs_err = [], 0.0, 0.0
+    for k in typed:
+        err = (got[k] - ref[k]).abs()
+        rows.append({"row": k, "max_abs_err": err.max().item(),
+                     "share_off": (err > 0).float().mean().item()})
+        same &= err == 0
+    share = 1.0 - same.float().mean().item()
+    check(all(r["max_abs_err"] <= 1 for r in rows) and share <= TYPED_SHARE_MAX,
+          f"int and bool nodes: {rows}, {share} of the samples off")
+    for k in range(got.shape[0]):
+        if k in typed:
+            continue
+        err = (got[k] - ref[k]).abs()[same].max().item()
+        scale = ref[k].abs().max().item()
+        rows.append({"row": k, "max_abs_err": err, "max_abs_twin": scale})
+        check(err <= REL_TOL * scale, f"float node where the typed ones agree: {rows[-1]}")
+        rel, abs_err = max(rel, err / scale), max(abs_err, err)
+    return rows, share, rel, abs_err
+
+
+def exact_breach_law(np, scipy, correlated):
+    """(P(severe), pmf of overruns) of breach_count: ten independent
+    Bernoullis of p_i = P(cost_i > budget_i); None when correlated."""
+    if correlated:
+        return None, None
+    from probabilit_tpu_torch.models.benchmarks import BREACH_BUDGETS
+
+    costs = [scipy.stats.triang(0.3, loc=80 + 5 * i, scale=60) for i in range(6)]
+    costs += [scipy.stats.lognorm(0.25, scale=100 + 10 * j) for j in range(4)]
+    pmf = np.array([1.0])
+    for cost, budget in zip(costs, BREACH_BUDGETS):
+        p = cost.sf(budget)
+        pmf = np.convolve(pmf, [1 - p, p])
+    return float(pmf[3:].sum()), pmf
+
+
+def estimates_agree(np, a, b, label):
+    """Two estimates' means within SE_MAX of their joint standard error."""
+    se = float(np.hypot(a["sem"], b["sem"]))
+    check(abs(a["mean"] - b["mean"]) <= SE_MAX * se, f"{label}: {a['mean']} vs {b['mean']}")
+    return abs(a["mean"] - b["mean"]) / se
+
+
+def wall_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, here):
+    """Phase 17: K1's int32 and bool values, and the sequential and
+    checkpointed estimates."""
+    from probabilit_tpu_torch.engine import streaming
+    from probabilit_tpu_torch.models.benchmarks import (
+        breach_count,
+        breach_count_correlated,
+        portfolio_var,
+        typed_ops,
+    )
+
+    words = cuda_exec.seed_words(17)
+    launches = k2_launches = 0
+    records = {}
+
+    # typed_ops: every kept node bitwise, 15 leaves at a time beside the sink.
+    sink, leaves, r7 = typed_ops()
+    plan = _compile.get_plan(sink)
+    bitwise = {}
+    for label, group in typed_ops_groups(leaves).items():
+        tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, group_keep(plan, leaves, group)),
+                                 "cuda")
+        got, flag = cuda_exec.run(tape, words, N_NODES)
+        ref = cuda_exec.run_reference(tape, words, N_NODES)
+        bitwise[label] = bool(torch.equal(got, ref)) and int(flag) == 0
+        check(bitwise[label], f"typed_ops: {label} differs from the twin")
+    emit({"phase": "typed_ops_vs_twin", "n": N_NODES, "leaves": len(leaves), "r7_leaves": list(r7),
+          "bitwise": bitwise, "registers_and_spill_bytes": {
+              label: registers.get(label) for label in bitwise}})
+    records["typed_ops"] = {"bitwise": all(bitwise.values()), "leaves": len(leaves)}
+
+    # breach_count and breach_count_correlated.
+    k1_err = k1_abs_err = 0.0
+    for name, build in (("breach_count", breach_count),
+                        ("breach_count_correlated", breach_count_correlated)):
+        correlated = name.endswith("correlated")
+        loss, nodes = build()
+        plan = _compile.get_plan(loss)
+        cuda_exec.LAUNCHES = 0
+        cuda_exec.STATS_LAUNCHES = 0
+        out = loss.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda")
+        torch.cuda.synchronize()
+        k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+        check(k1 >= 1 and (k2 >= 1) == correlated, f"{name}: K1 {k1}, K2 {k2} launches")
+        check(tuple(out.shape) == (N_MAIN,) and bool(torch.isfinite(out).all()),
+              f"{name}: the sink is not finite or not of shape (1e8,)")
+        launches, k2_launches = launches + k1, k2_launches + k2
+        del out
+        record = {"main_path_k1_launches": k1, "main_path_k2_launches": k2}
+        checks = {}
+        for label, node, keep in (("typed nodes", loss, breach_keep(plan, nodes)),
+                                  ("severe", nodes["severe"], None)):
+            node_plan = _compile.get_plan(node)
+            keep = keep or {node._id}
+            tape = cuda_exec.lowered(node_plan, cuda_exec.keep_order(node_plan, keep), "cuda")
+            ab = (cuda_exec.recolor_transform(node_plan, words, N_NODES, device="cuda")
+                  if correlated else None)
+            got, flag = cuda_exec.run(tape, words, N_NODES, ab)
+            ref = cuda_exec.run_reference(tape, words, N_NODES, ab)
+            check(int(flag) == 0, f"{name}: non-finite values")
+            typed = [k for k, nid in enumerate(tape.keep_order)
+                     if nid != loss._id or label == "severe"]
+            rows, share, rel, abs_err = typed_agreement(torch, got, ref, typed)
+            checks[label] = {"rows": rows, "share_off": share, "max_rel_err": rel}
+            k1_err, k1_abs_err = max(k1_err, rel), max(k1_abs_err, abs_err)
+            del got, ref
+        emit({"phase": "breach_vs_twin", "graph": name, "n": N_NODES,
+              "share_max": TYPED_SHARE_MAX, "rel_tolerance": REL_TOL, **checks})
+
+        # The streamed estimates of severe and overruns, cuda against None
+        # and against the exact law where there is one.
+        p_severe, pmf = exact_breach_law(np, scipy, correlated)
+        streamed = {}
+        for label, node, opts in (("severe", nodes["severe"], {}),
+                                  ("overruns", nodes["overruns"], {"histogram": (-0.5, 10.5, 11)})):
+            cuda_exec.LAUNCHES = 0
+            cuda_exec.STATS_LAUNCHES = 0
+            st = {ex: node.estimate(N_TYPED_STREAM, random_state=5, executor=ex, **opts)
+                  for ex in ("cuda", None)}
+            launches += cuda_exec.LAUNCHES
+            k2_launches += cuda_exec.STATS_LAUNCHES
+            row = {"mean_cuda": st["cuda"]["mean"], "mean_plain": st[None]["mean"],
+                   "diff_se": estimates_agree(np, st["cuda"], st[None], f"{name} {label}")}
+            if p_severe is not None:
+                for ex, s_ in st.items():
+                    tag = "cuda" if ex else "plain"
+                    if label == "severe":
+                        z = abs(s_["mean"] - p_severe) / s_["sem"]
+                        check(z <= SE_MAX, f"{name}: P(severe) {s_['mean']} vs {p_severe}")
+                        row[f"exact_diff_se_{tag}"] = z
+                    else:
+                        h = s_["histogram"]
+                        counts = h["counts"]
+                        check(counts.sum() == N_TYPED_STREAM, f"{name}: overruns outside 0..10")
+                        p = counts_fit(np, scipy.stats, counts.astype(np.float64), pmf)
+                        check(p > FAMILY_P_MIN, f"{name}: overruns against its law, p = {p}")
+                        row[f"chi2_p_{tag}"] = p
+                row["exact"] = p_severe if label == "severe" else float(pmf @ np.arange(11))
+            streamed[label] = row
+        emit({"phase": "breach_streamed", "graph": name, "n": N_TYPED_STREAM, **streamed})
+        records[name] = {**record, "checks_share_off": {k: v["share_off"] for k, v in checks.items()},
+                         "streamed": streamed}
+
+    # breach_count at 1e8, sink only: sample and K1 beside the bound.
+    loss, nodes = breach_count()
+    plan = _compile.get_plan(loss)
+    tape = cuda_exec.lowered(plan, [loss._id], "cuda")
+    k1_ms = cuda_time_ms(lambda: cuda_exec.run(tape, words, N_MAIN))
+    sample_ms = cuda_time_ms(
+        lambda: loss.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda"))
+    twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(tape, words, N_NODES), repeats=1)
+    plain_ms = cuda_time_ms(
+        lambda: loss.sample(N_MAIN, random_state=0, gc_strategy=[], executor=None), repeats=1)
+    cost = tape_cost(tape, cuda_exec, int_cost=int_cost)
+    bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+    timing = {"k1_ms": k1_ms, "sample_cuda_ms": sample_ms, "sample_plain_ms": plain_ms,
+              "twin_ms_at_2^22": twin_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "int_instr_per_sample": cost[0], "flops_per_sample": cost[1],
+              "rows": tape.n_instr, "registers_and_spill_bytes": registers.get("breach_count"),
+              "int_op_sass": int_cost}
+    emit({"phase": "breach_timing", "card": smi, "n": N_MAIN, **timing})
+    records["breach_count"]["timing"] = timing
+
+    # The sequential estimate of severe, as a user would run it.
+    severe = nodes["severe"]
+    seq = {}
+    for ex in ("auto", None):
+        cuda_exec.LAUNCHES = 0
+        st, ms = wall_ms(torch, lambda: severe.estimate(
+            1 << 24, random_state=6, target_rel_sem=2e-4, executor=ex))
+        if ex == "auto":
+            check(cuda_exec.LAUNCHES > 0, "the sequential estimate ran no K1")
+            launches += cuda_exec.LAUNCHES
+        seq["cuda" if ex else "plain"] = {"wall_ms": ms, "rounds": st["rounds"],
+                                          "converged": st["converged"], "n": st["n"],
+                                          "mean": st["mean"], "sem": st["sem"]}
+        seq["cuda" if ex else "plain"]["stats"] = st
+    seq["diff_se"] = estimates_agree(np, seq["cuda"].pop("stats"), seq["plain"].pop("stats"),
+                                     "sequential severe")
+    check(seq["cuda"]["converged"], "the sequential estimate of severe did not converge")
+    emit({"phase": "breach_sequential", "card": smi, "target_rel_sem": 2e-4, **seq})
+    records["sequential"] = seq
+
+    # examples/03_portfolio_var.py's two calls on the port's portfolio.
+    portfolio, _ = portfolio_var()
+    path = here / "build" / "chip_smoke_portfolio.ckpt.npz"
+    example = {}
+    for label, call in (
+        ("sequential", lambda ex: portfolio.estimate(
+            1 << 16, block_size=1 << 22, random_state=1, target_rel_sem=0.005, moments=True,
+            executor=ex)),
+        ("checkpointed", lambda ex: streaming.estimate(
+            portfolio, 1 << 24, block_size=1 << 22, random_state=4, checkpoint=str(path),
+            checkpoint_every=1 << 23, executor=ex)),
+    ):
+        runs = {}
+        for ex in ("auto", None):
+            cuda_exec.LAUNCHES = 0
+            cuda_exec.STATS_LAUNCHES = 0
+            st, ms = wall_ms(torch, lambda: call(ex))
+            if ex == "auto":
+                check(cuda_exec.LAUNCHES > 0 and cuda_exec.STATS_LAUNCHES > 0,
+                      f"examples/03 {label}: K1 or K2 was not launched")
+                launches += cuda_exec.LAUNCHES
+                k2_launches += cuda_exec.STATS_LAUNCHES
+            runs["cuda" if ex else "plain"] = (st, ms)
+        check(not path.exists(), "the checkpoint file outlived its run")
+        row = {tag: {"wall_ms": ms, "mean": st["mean"], "sem": st["sem"], "n": st["n"],
+                     "rounds": st.get("rounds"), "converged": st.get("converged")}
+               for tag, (st, ms) in runs.items()}
+        row["diff_se"] = estimates_agree(np, runs["cuda"][0], runs["plain"][0], f"examples/03 {label}")
+        example[label] = row
+    emit({"phase": "portfolio_example", "card": smi, **example})
+    records["examples_03"] = example
+
+    # A checkpointed estimate(1e9), interrupted after two segments and resumed.
+    path = here / "build" / "chip_smoke_breach.ckpt.npz"
+    path.unlink(missing_ok=True)
+    opts = dict(random_state=8, quantiles=(0.5, 0.99), checkpoint=str(path),
+                checkpoint_every=CHECKPOINT_EVERY)
+    cuda_exec.LAUNCHES = 0
+    full, full_ms = wall_ms(torch, lambda: loss.estimate(N_STREAM, **opts))
+
+    class Interrupted(Exception):
+        pass
+
+    real, segments = streaming._estimate_carry, []
+
+    def dying(*args, **kwargs):
+        if len(segments) == 2:
+            raise Interrupted
+        segments.append(1)
+        return real(*args, **kwargs)
+
+    streaming._estimate_carry = dying
+    try:
+        loss.estimate(N_STREAM, **opts)
+        interrupted = False
+    except Interrupted:
+        interrupted = True
+    finally:
+        streaming._estimate_carry = real
+    check(interrupted and path.exists(), "the interrupted run left no checkpoint")
+    resumed, resume_ms = wall_ms(torch, lambda: loss.estimate(N_STREAM, **opts))
+    launches += cuda_exec.LAUNCHES
+    keys = ("n", "mean", "var", "std", "sem", "min", "max", "q0.5", "q0.99")
+    equal = all(resumed[k] == full[k] for k in keys)
+    check(equal and not path.exists(), "the resumed estimate differs from the uninterrupted one")
+    checkpointed = {"n": N_STREAM, "every": CHECKPOINT_EVERY, "segments_before_cut": 2,
+                    "uninterrupted_ms": full_ms, "resumed_ms": resume_ms, "bitwise_equal": equal,
+                    **{k: full[k] for k in keys}}
+    emit({"phase": "breach_checkpointed", "card": smi, **checkpointed})
+    records["checkpointed"] = checkpointed
+    return {"k1_launches": launches, "k2_launches": k2_launches, "k1_err": k1_err,
+            "k1_abs_err": k1_abs_err, "records": records}
 
 
 if __name__ == "__main__":

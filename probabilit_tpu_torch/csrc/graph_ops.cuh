@@ -6,8 +6,8 @@
 // one line per tape row and lane that calls into here.  Each function
 // transcribes its plain PyTorch twin: ops/ppf.py (the score forms of the
 // inverse CDFs), models/graph.py (the transforms with jax.numpy
-// semantics).  Parameters arrive as values, so a node-valued
-// parameter costs nothing extra.
+// semantics on the CPU, float32, int32 and bool).  Parameters arrive as
+// values, so a node-valued parameter costs nothing extra.
 
 #pragma once
 
@@ -17,9 +17,6 @@
 #include "sampling_math.cuh"
 
 namespace graph_ops {
-
-// Comparisons and logical ops give 1.0f or 0.0f: the tape is float32.
-__device__ __forceinline__ float truth(bool x) { return x ? 1.0f : 0.0f; }
 
 // torch.floor_divide on floats (ATen's div_floor_floating).
 __device__ __forceinline__ float floor_divide(float a, float b) {
@@ -59,6 +56,64 @@ __device__ __forceinline__ bool isclose(float a, float b) {
 // jnp.sign: NaN stays NaN, zeros keep their value.
 __device__ __forceinline__ float sign(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// int32 arithmetic wraps around 2^32, as XLA's and PyTorch's CPU code do.
+// Signed overflow is undefined in C++, so it is computed on the unsigned
+// bits.
+__device__ __forceinline__ int wrap_i32(uint32_t x) { return static_cast<int>(x); }
+
+__device__ __forceinline__ int add_i32(int a, int b) {
+  return wrap_i32(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int sub_i32(int a, int b) {
+  return wrap_i32(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int mul_i32(int a, int b) {
+  return wrap_i32(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int neg_i32(int a) { return wrap_i32(0u - static_cast<uint32_t>(a)); }
+
+// |-2^31| wraps to -2^31.
+__device__ __forceinline__ int abs_i32(int a) { return a < 0 ? neg_i32(a) : a; }
+
+__device__ __forceinline__ int sign_i32(int a) { return (a > 0) - (a < 0); }
+
+__device__ __forceinline__ int max_i32(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ int min_i32(int a, int b) { return a < b ? a : b; }
+
+// Integer floor division and modulo with the divisor's sign (jnp.floor_divide,
+// jnp.mod).  A zero divisor gives XLA's values: a // 0 is -1 when a is 0
+// and -2 otherwise, a % 0 is 0.  -2^31 // -1 wraps to -2^31, and a % -1
+// is 0; the division proper is never asked for those.
+__device__ __forceinline__ int floor_divide_i32(int a, int b) {
+  if (b == 0) return a == 0 ? -1 : -2;
+  if (b == -1) return neg_i32(a);
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floor_mod_i32(int a, int b) {
+  if (b == 0 || b == -1) return 0;
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// torch.pow on int32 (ATen's powi): squaring, wrapping around 2^32; a
+// negative exponent gives 1 for a base of 1, +-1 for -1, else 0.  (jnp
+// gives other values there: ROADMAP C, R7.)
+__device__ __forceinline__ int pow_i32(int a, int b) {
+  if (b < 0) return a == 1 ? 1 : (a == -1 ? ((b & 1) ? -1 : 1) : 0);
+  uint32_t base = static_cast<uint32_t>(a), result = 1u;
+  for (uint32_t e = static_cast<uint32_t>(b); e != 0u; e >>= 1) {
+    if (e & 1u) result *= base;
+    base *= base;
+  }
+  return wrap_i32(result);
 }
 
 // ppf(ndtr(y)) in closed form for the score-linear families: y is the

@@ -9,19 +9,34 @@ once per graph structure and machine, as a ``jit`` would cost).  A tape is
 
 * a value-numbered ``program``: rows ``(opcode, dst, a, b, c, d)``, one
   value per row, which the generator writes out as straight-line code
-  (every value a named ``const float``, so the compiler allocates
+  (every value a named ``const`` of its kind, so the compiler allocates
   registers and nothing is indexed at run time);
-* ``consts``: the immediates of its ``LOADK`` rows.  They reach the kernel
-  as a by-value parameter block, not as text, so graphs that differ only
-  in their constants share one build;
+* ``consts``: the immediates of its ``LOADK`` rows, each a Python float
+  (a float32 value), int (an int32) or bool.  They reach the kernel as a
+  by-value parameter block of 32-bit words (a float's bits, an int's two's
+  complement), not as text, so graphs that differ only in their
+  constants share one build;
 * for the plain twin, the same rows mapped onto slots by liveness
-  (``code``, ``int32 (n_instr, 6)``) with an ``f32 (n_instr,)`` immediate.
+  (``code``, ``int32 (n_instr, 6)``) with a ``float64 (n_instr,)``
+  immediate, exact for every float32 and int32 constant.
+
+Every value has a kind, as ``jnp`` types the JAX package's nodes: ``b``
+(bool), ``i`` (int32) or ``f`` (float32), ordered b < i < f.  A constant
+takes the kind of its Python value, a draw, a ppf, a table row or a
+recolour row is ``f``, and a transform takes the kind the port's plain
+executor gives it (``value_kind``, the one place the tape is typed).  A
+row computes in its own kind (a comparison in the larger of its
+operands'), and an operand of another kind is converted where it is read;
+``STORE`` writes float32, as the TPU kernel casts at its store.
 
 Opcodes: ``DRAW`` (one uniform column from Philox4x32-10), ``LOADK``, one
 per ppf family (parameters are values, so Node-valued parameters work),
 three table rows (``TABLE_CDF``, ``TABLE_DISCRETE``, ``TABLE_INTERP``, see
 below), one per transform (variadic chains fold left, as
-``functools.reduce`` does), and ``STORE k``.  A row holds four operands,
+``functools.reduce`` does), ``TO_FLOAT`` (an ``Avg`` operand that is
+not float, which ``Avg`` converts before it adds), and ``STORE k``.  A
+``NoOp`` inside the graph has no value and no row: a row that reads one
+raises the exception the plain executor raises there.  A row holds four operands,
 so a family is a row that computes its standard variate from
 ``(q, shapes)`` (truncnorm,
 beta, burr and their kind have two shapes, truncweibull_min three) and
@@ -107,6 +122,9 @@ __all__ = [
     "STATS_LAUNCHES",
     "TABLE_MAX",
     "supports",
+    "const_kind",
+    "value_kind",
+    "program_kinds",
     "trimmed_cdf_table",
     "environment_issue",
     "keep_order",
@@ -250,56 +268,90 @@ OPCODES = (
     + list(_FAMILY_OPS.values())
     + list(_SCORE_OPS.values())
     + list(_TRANSFORM_OPS.values())
+    + ["TO_FLOAT"]
 )
 _OPCODE = {name: i for i, name in enumerate(OPCODES)}
 
-# The tape computes in float32, which is what the JAX package computes for
-# float operands.  Integer and boolean operands follow jnp's integer
-# arithmetic there (int32 wrap-around, integer powers and floor division,
-# bool + bool = logical or), so a transform whose operands are all
-# integer or bool is refused unless its result is float-valued anyway or
-# it is a logical All/Any.
-_FLOAT_VALUED = (
-    _graph.Avg, _graph.Divide, _graph.Arctan2, _graph.Log, _graph.Exp,
-    _graph.Sqrt, _graph.Log10, _graph.Sin, _graph.Cos, _graph.Tan,
-    _graph.Arcsin, _graph.Arccos, _graph.Arctan, _graph.Sinh, _graph.Cosh,
-    _graph.Tanh, _graph.Arcsinh, _graph.Arccosh, _graph.Arctanh,
-    _graph.Log1p, _graph.Expm1,
-)
-_LOGICAL = (_graph.All, _graph.Any)
-_COMPARISONS = (
-    _graph.Equal, _graph.NotEqual, _graph.LessThan, _graph.LessThanOrEqual,
-    _graph.GreaterThan, _graph.GreaterThanOrEqual, _graph.IsClose,
-)
+# Value kinds (see the module docstring): the dtype of each kind on the
+# twin, the C type of each in the generated text, and the lattice order.
+KINDS = "bif"
+_DTYPE = {"b": torch.bool, "i": torch.int32, "f": torch.float32}
+_CTYPE = {"b": "bool", "i": "int", "f": "float"}
+_TRANSFORM_FN = {op: cls.op for cls, op in _TRANSFORM_OPS.items()}
+_COMPARISONS = ("EQ", "NE", "LT", "LE", "GT", "GE")
 
 
-def _has_integer_arithmetic(plan):
-    """True if a transform computes on integer or bool operands only and
-    jnp gives it an integer or bool result (see above)."""
-    kinds = {}  # node_id -> "f", "i" or "b", as jnp types the node
-    for node in plan.topo:
-        if isinstance(node, _graph.Constant):
-            value = node.value
-            kinds[node._id] = (
-                "b" if isinstance(value, bool)
-                else "i" if isinstance(value, numbers.Integral) else "f"
-            )
-            continue
-        if node._is_distribution:
-            # Table nodes too: K1 computes a Discrete's values in float32,
-            # as the TPU kernel does.
-            kinds[node._id] = "f"
-            continue
-        parent_kinds = {kinds[p._id] for p in node.get_parents()}
-        if isinstance(node, _FLOAT_VALUED):
-            kinds[node._id] = "f"
-        elif isinstance(node, _LOGICAL):
-            kinds[node._id] = "b"
-        elif "f" not in parent_kinds:
-            return True
+def const_kind(value):
+    """The kind of a constant's Python value, as ``Constant._emit`` types
+    it in both packages: a bool, an int (int32), anything else float32.
+    An int outside the int32 range raises what the plain executor raises
+    (``torch.full`` refuses to narrow it)."""
+    if isinstance(value, bool):
+        return "b"
+    if isinstance(value, numbers.Integral):
+        torch.full((1,), value, dtype=_DTYPE["i"])
+        return "i"
+    return "f"
+
+
+@functools.lru_cache(maxsize=None)
+def _transform_kind(name, operand_kinds):
+    args = [None if k is None else torch.ones(1, dtype=_DTYPE[k]) for k in operand_kinds]
+    dtype = _TRANSFORM_FN[name](*args).dtype
+    return "b" if dtype == torch.bool else "f" if dtype.is_floating_point else "i"
+
+
+def value_kind(name, operand_kinds):
+    """The kind of the value a row ``name`` computes from operands of
+    ``operand_kinds`` (None: a ``NoOp``'s missing value).
+
+    A transform's kind is the dtype the port's plain executor gives it
+    (its own ``op`` on one-element tensors of those kinds, which follows
+    ``jnp`` on the CPU), and what that executor refuses (a bool negated,
+    bool - bool, a ``NoOp`` read) raises the same exception here.  Every
+    other row (draws, ppfs, tables, the recolour rows, ``TO_FLOAT``)
+    computes float32.  Lowering, generation, the twin and ``supports``
+    all type the tape through this function.
+    """
+    if name in _TRANSFORM_FN:
+        return _transform_kind(name, tuple(operand_kinds))
+    if None in operand_kinds:
+        raise TypeError(f"A {name} row reads a NoOp, which has no value.")
+    return "f"
+
+
+def _compute_kind(name, operand_kinds, kind):
+    """The kind a row computes in: a comparison in the larger of its
+    operands' kinds (``ISCLOSE`` in float32, as ``jnp.isclose`` promotes
+    to inexact), every other row in the kind of its value (``AND`` and
+    ``OR`` read their operands as bools)."""
+    if name == "ISCLOSE":
+        return "f"
+    if name in _COMPARISONS:
+        return max(operand_kinds, key=KINDS.index)
+    return kind
+
+
+def program_kinds(program, consts):
+    """The kind of every row of a value-numbered ``program`` (None for a
+    ``STORE`` or a ``SCORE``, which define no value), its ``LOADK`` rows
+    typed by ``consts`` in row order."""
+    consts = iter(consts)
+    kind_of, kinds = {}, []
+    for row in program:
+        op, dst = row[0], row[1]
+        name = OPCODES[op]
+        if name == "LOADK":
+            kind = const_kind(next(consts))
         else:
-            kinds[node._id] = "b" if isinstance(node, _COMPARISONS) else "f"
-    return False
+            operands = [kind_of[row[f]] for f in _register_fields(op)[1] if row[f] >= 0]
+            kind = value_kind(name, operands)
+        if name in ("STORE", "SCORE"):
+            kinds.append(None)
+        else:
+            kind_of[dst] = kind
+            kinds.append(kind)
+    return tuple(kinds)
 
 
 def _ppf_params(node):
@@ -413,9 +465,9 @@ def _structure_ok(plan, keep_ids):
         elif node._is_distribution:
             if not _table_node_ok(node):
                 return False
-        elif type(node) not in _TRANSFORM_OPS and not isinstance(node, _graph.Avg):
-            return False  # NoOp and node types without a kernel op.
-    return not _has_integer_arithmetic(plan)
+        elif type(node) not in _TRANSFORM_OPS and not isinstance(node, (_graph.Avg, _graph.NoOp)):
+            return False  # node types without a kernel op
+    return not isinstance(plan.sink, _graph.NoOp)
 
 
 def supports(plan, keep_ids):
@@ -425,14 +477,19 @@ def supports(plan, keep_ids):
     TPU kernel's closed-form families (``_CLOSED_FORM_FAMILIES``), Newton
     families within their caps (``INCOMPLETE_FAMILY_CAPS``), table nodes
     of at most ``TABLE_MAX`` entries (``_table_node_ok``), and the
-    arithmetic transforms, with at most 16 correlated variables and at
-    most 16 kept nodes including the sink, no ``NoOp``, no integer or
-    boolean arithmetic (ROADMAP B4), and a tape within the caps that
-    remain: at most ``MAX_INSTR`` rows (the generated text and its build
-    time grow with them), ``MAX_CONSTS`` constants (they travel in the
-    kernel's parameters), tables and recolour arrays within one block's
+    arithmetic transforms on float32, int32 and bool values, with at most
+    16 correlated variables and at most 16 kept nodes including the sink,
+    and no ``NoOp`` sink; and a tape within the caps that remain: at most
+    ``MAX_INSTR`` rows (the generated text and its build time grow with
+    them), ``MAX_CONSTS`` constants (they travel in the kernel's
+    parameters), tables and recolour arrays within one block's
     ``MAX_SHARED_BYTES`` and, for the plain twin alone, ``MAX_SLOTS``
     values live at once.
+
+    A graph that the plain executor cannot evaluate (a bool negated, a
+    ``NoOp`` read by a transform, an int constant beyond int32) is
+    supported, as ``pallas_exec.supports`` admits it: lowering it raises
+    the plain executor's exception, as the TPU kernel fails to trace.
     """
     keep_ids = frozenset(keep_ids)
     if not _structure_ok(plan, keep_ids):
@@ -441,6 +498,8 @@ def supports(plan, keep_ids):
         lowered(plan, keep_order(plan, keep_ids))  # the tape's size caps
     except ValueError:
         return False
+    except (TypeError, AttributeError, RuntimeError):
+        return True  # the graph fails on every executor (see above)
     return True
 
 
@@ -485,13 +544,13 @@ class Tape:
     """A lowered plan: the kernel's program and its shape."""
 
     code: torch.Tensor  # int32 (n_instr, 6): [opcode, dst, a, b, c, d] on slots
-    imm: torch.Tensor  # float32 (n_instr,)
+    imm: torch.Tensor  # float64 (n_instr,): the LOADK rows' values, exact
     n_slots: int
     d: int  # uniform columns drawn
     keep_order: tuple  # node ids of the output rows
     n_corr: int = 0  # correlated variables: (A, b) holds n_corr^2 + n_corr floats
     program: tuple = ()  # the rows of ``code`` on value numbers: what ``generate`` reads
-    consts: tuple = ()  # the LOADK rows' immediates (float32 values), in row order
+    consts: tuple = ()  # the LOADK rows' immediates in row order: float (float32), int or bool
     # float32: every table row's data, each table padded to a multiple of 4
     tables: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
 
@@ -526,10 +585,21 @@ class Tape:
         return _megakernel(self.source)
 
     @functools.cached_property
+    def kinds(self):
+        """The kind of every row of ``program`` (``program_kinds``)."""
+        return program_kinds(self.program, self.consts)
+
+    @functools.cached_property
     def const_block(self):
-        """``consts`` as the C array the launch function copies into the
-        kernel's parameter block."""
-        return (ctypes.c_float * max(len(self.consts), 1))(*self.consts)
+        """``consts`` as the C array of 32-bit words the launch function
+        copies into the kernel's parameter block: a float's bits, an int's
+        or a bool's two's complement, never rounded through a float."""
+        words = [
+            int(np.float32(v).view(np.uint32)) if const_kind(v) == "f"
+            else int(np.int32(v).view(np.uint32))
+            for v in self.consts
+        ]
+        return (ctypes.c_uint32 * max(len(words), 1))(*words)
 
 
 def _pad4(n):
@@ -625,16 +695,24 @@ def lower(plan, keep_order):
         raise ValueError("This graph is not supported by the CUDA megakernel.")
     rows = []  # [op, dst, a, b, c, d, imm]; dst and a..d are value numbers
     new_value = itertools.count()
-    value_of = {}
+    value_of = {}  # node id -> value number (None for a NoOp)
+    kind_of = {None: None}  # value number -> kind
 
     def emit(op, srcs=(), imm=0.0):
+        if op == "LOADK":
+            kind = const_kind(imm)
+            imm = {"b": bool, "i": int, "f": lambda x: float(np.float32(x))}[kind](imm)
+        else:
+            kind = value_kind(op, [kind_of[s] for s in srcs])
         v = next(new_value)
+        kind_of[v] = kind
         srcs = list(srcs) + [-1] * (4 - len(srcs))
         rows.append([_OPCODE[op], v, *srcs, imm])
         return v
 
     def operand(x):
-        return value_of[x._id] if isinstance(x, _graph.Node) else emit("LOADK", imm=x)
+        """A ppf parameter: a node's value, or a number as a float32 constant."""
+        return value_of[x._id] if isinstance(x, _graph.Node) else emit("LOADK", imm=float(x))
 
     def emit_ppf(node, q):
         params = [operand(p) for p in _ppf_params(node)]
@@ -654,7 +732,7 @@ def lower(plan, keep_order):
         v = emit(op, [q])
         rows[-1][3:5] = [sum(map(len, tables)), nb]  # b, c: offset and boundaries (literals)
         tables.append(data)
-        return v if loc is None else emit("ADD", [v, emit("LOADK", imm=loc)])
+        return v if loc is None else emit("ADD", [v, emit("LOADK", imm=float(loc))])
 
     corr_index = {v._id: i for i, v in enumerate(plan.corr_vars)}
     for i, var in enumerate(plan.corr_vars):
@@ -676,12 +754,16 @@ def lower(plan, keep_order):
             q = emit("DRAW")
             rows[-1][2] = plan.col_of[node._id]  # a: the column (a literal)
             v = emit_sampler(node, q)
+        elif isinstance(node, _graph.NoOp):
+            v = None
         elif isinstance(node, _graph.Avg):
+            # Avg converts every operand to float before it adds.
             vals = [value_of[p._id] for p in node.parents]
+            vals = [x if kind_of[x] == "f" else emit("TO_FLOAT", [x]) for x in vals]
             acc = vals[0]
             for x in vals[1:]:
                 acc = emit("ADD", [acc, x])
-            v = emit("DIV", [acc, emit("LOADK", imm=len(vals))])
+            v = emit("DIV", [acc, emit("LOADK", imm=float(len(vals)))])
         elif isinstance(node, _graph.VariadicTransform):
             vals = [value_of[p._id] for p in node.parents]
             v = vals[0]
@@ -694,11 +776,29 @@ def lower(plan, keep_order):
             )
         value_of[node._id] = v
     for k, nid in enumerate(keep_order):
+        value_kind("STORE", [kind_of[value_of[nid]]])  # a kept NoOp has nothing to store
         rows.append([_OPCODE["STORE"], k, value_of[nid], -1, -1, -1, 0.0])
 
+    # An int or bool constant that every row reads as a float is carried
+    # as its float32 value (the same rounding the kernel's conversion
+    # makes): nothing converts it in the kernel, and a float graph's text
+    # stays what it was before the tape was typed.
+    as_float = {}
+    for row in rows:
+        srcs = [row[f] for f in _register_fields(row[0])[1] if row[f] >= 0]
+        name = OPCODES[row[0]]
+        compute = "f"  # ppfs, tables, recolour rows, TO_FLOAT, STORE
+        if name in _TRANSFORM_FN:
+            compute = _compute_kind(name, [kind_of[v] for v in srcs], kind_of[row[1]])
+        for v in srcs:
+            as_float[v] = as_float.get(v, True) and compute == "f"
+    for row in rows:
+        if row[0] == _OPCODE["LOADK"] and kind_of[row[1]] != "f" and as_float.get(row[1]):
+            row[6] = float(np.float32(row[6]))
+
     code, n_slots = _allocate_slots(rows)
-    imm = np.array([float(r[6]) for r in rows], dtype=np.float32)
-    consts = tuple(float(k) for r, k in zip(rows, imm) if r[0] == _OPCODE["LOADK"])
+    imm = np.array([float(r[6]) for r in rows], dtype=np.float64)
+    consts = tuple(r[6] for r in rows if r[0] == _OPCODE["LOADK"])
     tape = Tape(
         torch.from_numpy(code), torch.from_numpy(imm), n_slots, plan.d,
         tuple(keep_order), len(plan.corr_vars), tuple(tuple(r[:6]) for r in rows), consts,
@@ -809,20 +909,20 @@ _EMIT = {
     "MUL": "{a} * {b}",
     "MAX": "nan_max({a}, {b})",
     "MIN": "nan_min({a}, {b})",
-    "AND": "truth({a} != 0.0f && {b} != 0.0f)",
-    "OR": "truth({a} != 0.0f || {b} != 0.0f)",
+    "AND": "{a} && {b}",
+    "OR": "{a} || {b}",
     "FLOORDIV": "floor_divide({a}, {b})",
     "MOD": "floor_mod({a}, {b})",
     "DIV": "{a} / {b}",
     "POW": "powf({a}, {b})",
     "SUB": "{a} - {b}",
-    "EQ": "truth({a} == {b})",
-    "NE": "truth({a} != {b})",
-    "LT": "truth({a} < {b})",
-    "LE": "truth({a} <= {b})",
-    "GT": "truth({a} > {b})",
-    "GE": "truth({a} >= {b})",
-    "ISCLOSE": "truth(isclose({a}, {b}))",
+    "EQ": "{a} == {b}",
+    "NE": "{a} != {b}",
+    "LT": "{a} < {b}",
+    "LE": "{a} <= {b}",
+    "GT": "{a} > {b}",
+    "GE": "{a} >= {b}",
+    "ISCLOSE": "isclose({a}, {b})",
     "ATAN2": "atan2f({a}, {b})",
     "NEG": "-{a}",
     "ABS": "fabsf({a})",
@@ -848,7 +948,62 @@ _EMIT = {
     "ATANH": "atanhf({a})",
     "LOG1P": "log1pf({a})",
     "EXPM1": "expm1f({a})",
+    "TO_FLOAT": "{a}",
 }
+
+# The bodies of the rows that compute in int32 or in bool (``_compute_kind``),
+# with jnp's semantics on the CPU: int32 arithmetic wraps around 2^32, and
+# a bool sum is a logical or, a bool product a logical and.  The
+# comparisons and AND/OR read any kind as they are (``_EMIT``).
+_TYPED_EMIT = {
+    "i": {
+        "ADD": "add_i32({a}, {b})",
+        "MUL": "mul_i32({a}, {b})",
+        "SUB": "sub_i32({a}, {b})",
+        "MAX": "max_i32({a}, {b})",
+        "MIN": "min_i32({a}, {b})",
+        "FLOORDIV": "floor_divide_i32({a}, {b})",
+        "MOD": "floor_mod_i32({a}, {b})",
+        "POW": "pow_i32({a}, {b})",
+        "NEG": "neg_i32({a})",
+        "ABS": "abs_i32({a})",
+        "FLOOR": "{a}",
+        "CEIL": "{a}",
+        "SIGN": "sign_i32({a})",
+        "SQUARE": "mul_i32({a}, {a})",
+    },
+    "b": {
+        "ADD": "{a} || {b}",
+        "MUL": "{a} && {b}",
+        "MAX": "{a} || {b}",
+        "MIN": "{a} && {b}",
+        "ABS": "{a}",
+        "FLOOR": "{a}",
+        "CEIL": "{a}",
+        "SIGN": "{a}",
+    },
+}
+_ANY_KIND = (*_COMPARISONS, "AND", "OR")
+
+
+def _template(name, compute):
+    """The CUDA text of a row ``name`` that computes in kind ``compute``."""
+    if compute == "f" or name in _ANY_KIND:
+        return _EMIT[name]
+    return _TYPED_EMIT[compute][name]
+
+
+def _convert(text, kind, to):
+    """``text``, a value of ``kind``, as a value of kind ``to``: int to
+    float rounds to nearest even (as XLA and PyTorch convert), a bool is 1
+    or 0, and any kind is true where it is not zero."""
+    if kind == to:
+        return text
+    if to == "b":
+        return f"({text} != {'0.0f' if kind == 'f' else '0'})"
+    if kind == "i":
+        return f"__int2float_rn({text})"
+    return f"static_cast<{_CTYPE[to]}>({text})"  # a bool as 0 or 1
 
 _KERNEL_HEAD = """\
 // Generated by probabilit_tpu_torch/engine/cuda_exec.py::generate from a
@@ -873,6 +1028,7 @@ _KERNEL_HEAD = """\
 // select tree evaluates all of it.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 {includes}
@@ -887,10 +1043,12 @@ using namespace table_ops;
 constexpr int kThreads = {threads};
 constexpr int kCorr = {n_corr};      // correlated variables K
 constexpr int kKeep = {n_keep};      // kept rows
-constexpr int kConsts = {n_consts};  // LOADK immediates
+constexpr int kConsts = {n_consts};  // LOADK immediates, 32-bit words
 constexpr int kRowPad = {row_pad};   // floats a row of A takes in shared memory
 constexpr int kTableFloats = {table_floats};  // Tape.tables: dynamic shared memory
 
+// A float constant is read as k.v[j], an int32 or a bool one as the
+// word's bits (__float_as_int(k.v[j])).
 struct Consts {{
   float v[kConsts > 0 ? kConsts : 1];
 }};
@@ -949,13 +1107,14 @@ _KERNEL_TAIL = """\
 
 // Launch on `stream` with one resident wave of blocks; returns
 // cudaGetLastError() (0 on success).  `consts` is the host array of the
-// kConsts LOADK immediates, `ab` float32 (kCorr^2 + kCorr,) on the device
-// (null when kCorr is 0), `tables` the kTableFloats floats of Tape.tables
+// kConsts LOADK immediates as 32-bit words, copied bit for bit, `ab`
+// float32 (kCorr^2 + kCorr,) on the device (null when kCorr is 0),
+// `tables` the kTableFloats floats of Tape.tables
 // on the device, 16-byte aligned (null when there are none), `out` float32
 // (kKeep, n) for samples start..start+n-1, `nonfinite` one int32 that the
 // caller has zeroed.  n_consts, n_corr, n_keep and table_floats must be the
 // kernel's own.
-extern "C" int graph_megakernel_launch(const float* consts, int n_consts, const void* ab,
+extern "C" int graph_megakernel_launch(const uint32_t* consts, int n_consts, const void* ab,
                                        int n_corr, const void* tables, int table_floats,
                                        int n_keep, uint32_t seed0, uint32_t seed1,
                                        int64_t start, int64_t n, void* out, void* nonfinite,
@@ -984,7 +1143,7 @@ extern "C" int graph_megakernel_launch(const float* consts, int n_consts, const 
   const int64_t wanted = (groups + kThreads - 1) / kThreads;
   const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   Consts k;
-  for (int j = 0; j < kConsts; ++j) k.v[j] = consts[j];
+  std::memcpy(k.v, consts, sizeof(uint32_t) * kConsts);
   graph_megakernel<<<static_cast<int>(wanted < resident ? wanted : resident), kThreads,
                      kTableBytes, static_cast<cudaStream_t>(stream)>>>(
       k, static_cast<const float*>(ab), static_cast<const float4*>(tables), seed0, seed1,
@@ -996,28 +1155,41 @@ extern "C" int graph_megakernel_launch(const float* consts, int n_consts, const 
 
 def generate(tape):
     """The CUDA C++ text of ``tape``'s kernel: a pure function of the
-    tape's structure (``program``, ``n_corr``, the kept rows and the number
-    of constants), never of the constants' values.
+    tape's structure (``program``, the kinds of its values, ``n_corr``,
+    the kept rows and the number of constants), never of the constants'
+    values.
 
-    Every row of ``tape.program`` becomes one ``const float`` a lane, named
-    after its value number (``v7_2``: value 7, lane 2; ``z3_0``: score 3,
-    lane 0); a ``LOADK`` row becomes no line, only the operand ``k.v[j]``
-    wherever its value is read.  The text holds no array indexed at run
-    time and prints no number that came from the graph's data: a table
-    row prints its offset and its count of boundaries, never its values.
+    Every row of ``tape.program`` becomes one ``const`` of its kind a lane
+    (``float``, ``int`` or ``bool``), named after its value number
+    (``v7_2``: value 7, lane 2; ``z3_0``: score 3, lane 0); an operand of
+    another kind than the row computes in is converted where it is read
+    (``_convert``).  A ``LOADK`` row becomes no line, only the operand
+    ``k.v[j]`` (``__float_as_int(k.v[j])`` for an int) wherever its value
+    is read.  The text holds no array indexed at run time and prints no
+    number that came from the graph's data: a table row prints its offset
+    and its count of boundaries, never its values.
     """
     K = tape.n_corr
     row_pad = _pad4(K)
     const_of = {}  # value number -> index into the parameter block
+    kind_of = {}  # value number -> kind
     lines = []
 
-    def operand(v, lane):
+    def operand(v, lane, to="f"):
         if v in const_of:
-            return _EMIT["LOADK"].format(index=const_of[v])
-        return f"v{v}_{lane}"
+            text = _EMIT["LOADK"].format(index=const_of[v])
+            if kind_of[v] != "f":
+                text = f"__float_as_int({text})"
+                if kind_of[v] == "b":
+                    text = f"({text} != 0)"
+        else:
+            text = f"v{v}_{lane}"
+        return _convert(text, kind_of[v], to)
 
-    for op, dst, a, b, c, d in tape.program:
+    for (op, dst, a, b, c, d), kind in zip(tape.program, tape.kinds):
         name = OPCODES[op]
+        if kind is not None:
+            kind_of[dst] = kind
         if name == "LOADK":
             const_of[dst] = len(const_of)
             continue
@@ -1048,11 +1220,12 @@ def generate(tape):
                 text = _EMIT[name].format(b=f"s_b[{a}]", terms=terms)
                 lines.append(f"const float v{dst}_{lane} = {text};")
         else:
+            srcs = {f: v for f, v in zip("abcd", (a, b, c, d)) if v >= 0}
+            compute = _compute_kind(name, [kind_of[v] for v in srcs.values()], kind)
+            template = _template(name, compute)
             for lane in range(LANES):
-                fields = {
-                    f: operand(v, lane) for f, v in zip("abcd", (a, b, c, d)) if v >= 0
-                }
-                lines.append(f"const float v{dst}_{lane} = {_EMIT[name].format(**fields)};")
+                fields = {f: operand(v, lane, compute) for f, v in srcs.items()}
+                lines.append(f"const {_CTYPE[kind]} v{dst}_{lane} = {template.format(**fields)};")
     table_floats = tape.tables.numel()
     head = _KERNEL_HEAD.format(
         threads=_THREADS, n_corr=K, n_keep=tape.n_keep, n_consts=len(const_of), row_pad=row_pad,
@@ -1102,7 +1275,6 @@ def philox_uniforms(seed_words, n, d, device="cpu", columns=None, start=0):
 # (and scale), its standard variate.
 _PPF_FN = {op: _ppf.lookup(family) for family, op in _FAMILY_OPS.items()}
 _SCORE_FAMILY = {op: family for family, op in _SCORE_OPS.items()}
-_OP_FN = {op: cls.op for cls, op in _TRANSFORM_OPS.items()}
 
 
 def _check_ab(tape, ab):
@@ -1149,6 +1321,10 @@ def _table_row(name, tables, off, nb, q):
 
 
 def _interpret(tape, code, n_slots, U, ab):
+    """The rows of ``code`` on typed slots: a constant is a tensor of its
+    kind, a transform is the plain executor's own op on typed tensors, the
+    other rows read their operands as float32, and ``STORE`` casts to
+    float32, as the kernel's rows do."""
     if config.float_dtype() != torch.float32:
         raise ValueError("The tape is float32-only.")
     _check_ab(tape, ab)
@@ -1160,16 +1336,21 @@ def _interpret(tape, code, n_slots, U, ab):
     slots = [None] * n_slots
     z = [None] * K
     out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=U.device)
-    for (op, dst, a, b, c, d), k in zip(code, imm):
+
+    def f32(*fields):
+        return [slots[s].to(torch.float32) for s in fields if s >= 0]
+
+    for (op, dst, a, b, c, d), k, kind in zip(code, imm, tape.kinds):
         name = OPCODES[op]
         if name == "DRAW":
             slots[dst] = U[:, a].to(torch.float32)
         elif name == "LOADK":
-            slots[dst] = torch.full((n,), k, dtype=torch.float32, device=U.device)
+            value = {"b": bool, "i": int, "f": float}[kind](k)
+            slots[dst] = torch.full((n,), value, dtype=_DTYPE[kind], device=U.device)
         elif name == "STORE":
             out[dst] = slots[a]
         elif name == "SCORE":
-            z[dst] = _special.ndtri_fast(slots[a])
+            z[dst] = _special.ndtri_fast(*f32(a))
         elif name == "RECOLOR":
             # The kernel's order: b_i, then + A_ij z_j for j = 0..K-1.
             y = torch.full((n,), ab[K * K + a], dtype=torch.float32, device=U.device)
@@ -1177,21 +1358,21 @@ def _interpret(tape, code, n_slots, U, ab):
                 y = y + ab[a * K + j] * z[j]
             slots[dst] = y
         elif name == "NDTR":
-            slots[dst] = clamp_open_unit(_special.ndtr_fast(slots[a]))
+            slots[dst] = clamp_open_unit(_special.ndtr_fast(*f32(a)))
         elif name == "AFFINE":
-            slots[dst] = slots[b] + slots[c] * slots[a]
+            x, loc, scale = f32(a, b, c)
+            slots[dst] = loc + scale * x
         elif name in _TABLE_OPS:
-            slots[dst] = _table_row(name, tables, b, c, slots[a])
+            slots[dst] = _table_row(name, tables, b, c, *f32(a))
         elif name in _SCORE_FAMILY:
-            args = [slots[s] for s in (a, b, c, d) if s >= 0]
-            slots[dst] = _ppf.score_call(_SCORE_FAMILY[name], *args)
+            slots[dst] = _ppf.score_call(_SCORE_FAMILY[name], *f32(a, b, c, d))
         elif name in _PPF_FN:
-            args = [slots[s] for s in (a, b, c, d) if s >= 0]
             with _special.kernel_safe_special():  # the kernel's own functions
-                slots[dst] = _PPF_FN[name](*args)
+                slots[dst] = _PPF_FN[name](*f32(a, b, c, d))
+        elif name == "TO_FLOAT":
+            slots[dst] = slots[a].to(torch.float32)
         else:
-            args = [slots[s] for s in (a, b) if s >= 0]
-            slots[dst] = _OP_FN[name](*args).to(torch.float32)
+            slots[dst] = _TRANSFORM_FN[name](*(slots[s] for s in (a, b) if s >= 0))
     return out
 
 

@@ -28,17 +28,35 @@ scalars (the JAX package carries float32), histogram counts in int64
 the non-finite flag as a device boolean read once, at the end.  Nothing
 waits for the card between blocks.
 
-Not ported yet: ``method=`` (QMC, ROADMAP A9), the sequential
-``target_sem``/``target_rel_sem``/``max_size``, ``checkpoint=`` and
-``estimate_many`` (A7b); each raises ``NotImplementedError``.
+``estimate`` also runs sequentially to a target precision
+(``target_sem``/``target_rel_sem`` up to ``max_size``, alone or with
+``replicates``) and resumably (``checkpoint=``, ``checkpoint_every=``),
+as the JAX package does.  Each sequential round, and each replicate of
+each round, draws from its own seed, ``_derive_seed(seed, 2, round)`` and
+``_derive_seed(seed, 3, replicate, round)``: on the kernels, block b of a
+seed is samples b*B.. of that seed's one Philox stream, so two rounds
+under one seed would draw the same samples.  Every round reuses the one
+tape and build (sizes are arguments, not structure).  A checkpointed run
+is cut into segments of whole blocks at fixed boundaries; each segment's
+carry is saved as it completes, and a rerun with the same arguments
+resumes and gives bitwise the result of the uninterrupted checkpointed
+run.  Unlike the JAX package, ``checkpoint=`` needs an explicit
+``random_state`` (fresh entropy could never resume: ROADMAP C, R3).
+
+Not ported yet: ``method=`` (QMC, ROADMAP A9) and ``estimate_many``
+(A7b); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import hashlib
+import os
 
 import numpy as np
 import torch
 
 from probabilit_tpu_torch import config
+from probabilit_tpu_torch.engine import checkpoint as _checkpoint
 from probabilit_tpu_torch.engine import compile as _compile
 from probabilit_tpu_torch.engine.sampler import resolve_seed
 from probabilit_tpu_torch.ops.qmc import clamp_open_unit
@@ -53,6 +71,8 @@ _ROW = 1 << 17  # columns of the quantile estimator's row sorts
 # while a one-shot ``sample`` is faster solving on the host (phase 10).
 RECOLOR_SOLVE = "device"
 _HISTOGRAM_MAX_BINS = 512
+_MAX_ROUNDS = 64  # a sequential run stops after this many rounds
+_SEGMENT_BLOCKS = 64  # blocks a checkpointed segment holds by default
 
 
 def _not_ported(option, item):
@@ -391,13 +411,18 @@ def estimate(
     fallback, upper-tail CVaR by Rockafellar-Uryasev, half-open histogram
     bins with under/overflow, scipy's biased skew and Fisher kurtosis,
     ``where=`` not with ``quantiles``/``cvar``/``control``).
+
+    ``target_sem`` / ``target_rel_sem`` run rounds, the first of ``size``
+    draws, until the pooled ``sem`` (with ``replicates``, the
+    between-replicate one) meets the target, ``max_size`` draws (default
+    ``64 * size``) are spent or 64 rounds have run; the result adds
+    ``rounds`` and ``converged``.  ``checkpoint=path`` saves the carries
+    of segments of ``checkpoint_every`` draws (whole blocks; default 64
+    blocks) as they complete and resumes from the file; the file is
+    removed once the result is final.
     """
     if method is not None:
         raise _not_ported(f"Streamed method={method!r} (QMC)", "A9")
-    if target_sem is not None or target_rel_sem is not None or max_size is not None:
-        raise _not_ported("Sequential estimation (target_sem, target_rel_sem, max_size)", "A7b")
-    if checkpoint is not None or checkpoint_every is not None:
-        raise _not_ported("checkpoint=", "A7b")
     quantiles = tuple(float(q) for q in quantiles) if quantiles else ()
     for q in quantiles:
         if not 0.0 < q < 1.0:
@@ -439,22 +464,62 @@ def estimate(
         if not isinstance(control_node, Node):
             raise ValueError(f"control[0] must be a graph node, got {control_node!r}.")
         control_mu = float(control_mu)
+    sequential = target_sem is not None or target_rel_sem is not None
+    if checkpoint is not None and (replicates is not None or sequential):
+        raise ValueError(
+            "checkpoint= composes with fixed-size single-stream runs "
+            "only; checkpoint the fixed-size runs a replicated or "
+            "sequential scheme decomposes into instead."
+        )
+    if checkpoint is None and checkpoint_every is not None:
+        raise ValueError("checkpoint_every= needs checkpoint=path.")
+    if checkpoint is not None and random_state is None:
+        raise ValueError(
+            "checkpoint= needs an explicit random_state: a run seeded from "
+            "fresh entropy could never resume from its checkpoint."
+        )
     seed = resolve_seed(random_state)
     opts = dict(
         quantiles=quantiles, cvar=cvar, histogram=histogram, moments=moments,
         correlator=correlator, control_node=control_node, where_node=where,
     )
-    if replicates is None:
+    final = dict(
+        quantiles=quantiles, control_mu=control_mu, where=where, cvar=cvar,
+        histogram=histogram, moments=moments,
+    )
+    reps = None
+    if replicates is not None:
+        reps = int(replicates)
+        if reps < 2:
+            raise ValueError(
+                f"replicates must be >= 2 (got {reps}): a single stream has no "
+                "between-replicate variance to estimate sem from."
+            )
+    if sequential:
+        for name, t in (("target_sem", target_sem), ("target_rel_sem", target_rel_sem)):
+            if t is not None and not (float(t) > 0.0):
+                raise ValueError(f"{name} must be > 0, got {t}.")
+        max_size = 64 * size if max_size is None else int(max_size)
+        if max_size < size:
+            raise ValueError(f"max_size ({max_size}) must be >= the pilot size ({size}).")
+        targets = (
+            None if target_sem is None else float(target_sem),
+            None if target_rel_sem is None else float(target_rel_sem),
+            max_size,
+        )
+        if reps is not None:
+            return _estimate_sequential_replicated(
+                sink, size, block_size, seed, executor, opts, final, *targets, reps
+            )
+        return _estimate_sequential(sink, size, block_size, seed, executor, opts, final, *targets)
+    if checkpoint is not None:
+        return _estimate_checkpointed(
+            sink, size, block_size, seed, executor, opts, final, str(checkpoint),
+            checkpoint_every,
+        )
+    if reps is None:
         carry = _estimate_carry(sink, size, block_size, seed, executor, **opts)
-        return _finalize_estimate(
-            carry, size, quantiles, control_mu, where, cvar, histogram, moments
-        )
-    reps = int(replicates)
-    if reps < 2:
-        raise ValueError(
-            f"replicates must be >= 2 (got {reps}): a single stream has no "
-            "between-replicate variance to estimate sem from."
-        )
+        return _finalize_estimate(carry, size, **final)
     if size % reps:
         raise ValueError(
             f"size ({size}) must be divisible by replicates ({reps}) so every "
@@ -465,7 +530,7 @@ def estimate(
         for r in range(reps)
     ]
     merged, rep_means = _merge_carries(carries, control_mu)
-    stats = _finalize_estimate(merged, size, quantiles, control_mu, where, cvar, histogram, moments)
+    stats = _finalize_estimate(merged, size, **final)
     rep = np.asarray(rep_means, np.float64)
     if rep.size < 2:
         raise ValueError(
@@ -602,9 +667,19 @@ def _estimate_carry(
     correlator="imanconover",
     control_node=None,
     where_node=None,
+    block_lo=0,
+    n_blocks=None,
+    last_count=None,
 ):
     """One stream's 13-field carry, as device tensors: (n, mean, M2, min,
-    max, finite, qsum, my, M2y, Cxy, histogram counts, M3, M4)."""
+    max, finite, qsum, my, M2y, Cxy, histogram counts, M3, M4).
+
+    ``block_lo``/``n_blocks``/``last_count`` fold a window of the run's
+    blocks (a checkpointed segment): blocks ``block_lo ..`` of the stream
+    of ``size`` draws, the window's last holding ``last_count`` draws.  A
+    block's index is absolute, so its draws are those of the
+    uninterrupted run (``start = b * block_size`` on the kernels,
+    ``_derive_seed(seed, 0, b)`` on the plain path)."""
     where_mode = where_node is not None
     aux = control_node if control_node is not None else where_node
     plan, run = _block_program(sink, block_size, executor, correlator, extra=aux)
@@ -620,11 +695,13 @@ def _estimate_carry(
     hist = _histogram_accumulators(histogram)
     hist_len = 0 if histogram is None else histogram[2] + 2
     carry = _initial_carry(len(quantiles) + len(cvar), hist_len, config.device())
-    n_blocks = -(-size // block_size)
-    for b in range(n_blocks):
+    if n_blocks is None:
+        n_blocks = -(-size // block_size)
+        last_count = size - (n_blocks - 1) * block_size
+    for b in range(block_lo, block_lo + n_blocks):
         x, y = run(b, seed)
         x = x.to(torch.float32)
-        cnt = block_size if b < n_blocks - 1 else size - b * block_size
+        cnt = block_size if b < block_lo + n_blocks - 1 else last_count
         stats = _block_moments(x, y, cnt, where_mode, moments)
         qsum = qsum_full(x) if cnt == block_size else qsum_partial(x, cnt)
         if where_mode:
@@ -681,7 +758,8 @@ def _control_adjust(mx, m2x, my, m2y, cxy, mu):
 
 
 def _finalize_estimate(
-    carry, size, quantiles, control_mu=None, where=None, cvar=(), histogram=None, moments=False
+    carry, size, quantiles=(), control_mu=None, where=None, cvar=(), histogram=None,
+    moments=False,
 ):
     """The statistics dict from a 13-field carry (device tensors or host
     values); the field at index 10 holds the histogram counts."""
@@ -736,4 +814,222 @@ def _finalize_estimate(
             "underflow": int(counts[0]),
             "overflow": int(counts[-1]),
         }
+    return stats
+
+
+# ---------------------------------------------------------------------
+# Sequential and checkpointed runs
+# ---------------------------------------------------------------------
+
+
+def _host_carry(carry):
+    """A carry's fields as host (numpy) values."""
+    return tuple(_host(v) for v in carry)
+
+
+def _target(stats, target_sem, target_rel_sem):
+    """The sem a sequential run must reach: the tighter of the targets."""
+    tgt = np.inf
+    if target_sem is not None:
+        tgt = min(tgt, target_sem)
+    if target_rel_sem is not None:
+        tgt = min(tgt, target_rel_sem * abs(stats["mean"]))
+    return tgt
+
+
+def _next_round(drawn, sem, tgt, max_size):
+    """Draws the next round needs (two-stage sizing): ``n * (sem/tgt)^2``
+    inflated by 20% for the noise in sem, less what is drawn, growing at
+    most 4x a round and within ``max_size``.  tgt == 0 (a relative target
+    at mean 0) has no finite answer, so the run doubles to the cap."""
+    if np.isfinite(sem) and sem > 0.0 and np.isfinite(tgt) and tgt > 0.0:
+        need = drawn * (sem / tgt) ** 2 * 1.2 - drawn
+    else:
+        need = drawn
+    return min(need, 3.0 * drawn, float(max_size - drawn))
+
+
+def _round_chunk(chunk, budget):
+    """One round's (per-replicate) draws: at least 1, at most ``budget``.
+    (The JAX package also rounds an LHS chunk up to a power of two, whose
+    program depends on the size; LHS waits for ROADMAP A9.)"""
+    return max(1, min(max(int(chunk), 1), int(budget)))
+
+
+def _estimate_sequential(
+    sink, pilot, block_size, seed, executor, opts, final, target_sem, target_rel_sem, max_size
+):
+    """Sequential (precision-targeted) estimation: rounds of independent
+    draws, round r from ``_derive_seed(seed, 2, r)``, Chan-merged on the
+    host until the pooled ``sem`` meets the target (round sizes from
+    ``_next_round``), ``max_size`` is drawn or ``_MAX_ROUNDS`` have run."""
+    where = final["where"]
+    carries, drawn, rounds, chunk = [], 0, 0, pilot
+    while True:
+        carry = _estimate_carry(
+            sink, chunk, block_size, _derive_seed(seed, 2, rounds), executor, **opts
+        )
+        carries.append(_host_carry(carry))
+        drawn += chunk
+        rounds += 1
+        merged, _ = _merge_carries(carries)
+        if where is not None and float(merged[0]) <= 0.0:
+            # A rare condition can leave the pilot empty: draw as much again
+            # until a sample lands or the cap ends the run (the finalizer
+            # raises the never-held error then).
+            if drawn >= max_size:
+                _finalize_estimate(merged, drawn, **final)
+            chunk = min(drawn, max_size - drawn)
+            continue
+        stats = _finalize_estimate(merged, drawn, **final)
+        sem, tgt = stats["sem"], _target(stats, target_sem, target_rel_sem)
+        converged = bool(np.isfinite(sem) and sem <= tgt)
+        if converged or drawn >= max_size or rounds >= _MAX_ROUNDS:
+            stats["rounds"] = rounds
+            stats["converged"] = converged
+            return stats
+        chunk = _round_chunk(_next_round(drawn, sem, tgt, max_size), max_size - drawn)
+
+
+def _estimate_sequential_replicated(
+    sink, pilot, block_size, seed, executor, opts, final, target_sem, target_rel_sem, max_size,
+    reps,
+):
+    """Sequential stopping on the between-replicate sem: ``reps``
+    independent streams grow round by round (replicate r's round k from
+    ``_derive_seed(seed, 3, r, k)``); the stopping statistic is the
+    standard error of the replicates' pooled (control-adjusted) means."""
+    where, control_mu = final["where"], final["control_mu"]
+    carries = [[] for _ in range(reps)]
+    drawn, rounds = 0, 0
+    chunk = _round_chunk(pilot // reps, max(1, max_size // reps))
+    while True:
+        for r in range(reps):
+            carry = _estimate_carry(
+                sink, chunk, block_size, _derive_seed(seed, 3, r, rounds), executor, **opts
+            )
+            carries[r].append(_host_carry(carry))
+        drawn += chunk * reps
+        rounds += 1
+        pooled = [_merge_carries(rep)[0] for rep in carries]
+        merged, rep_means = _merge_carries(pooled, control_mu)
+        if where is not None and (float(merged[0]) <= 0.0 or len(rep_means) < 2):
+            if drawn >= max_size:
+                if float(merged[0]) <= 0.0:
+                    _finalize_estimate(merged, drawn, **final)  # the never-held error
+                raise ValueError(
+                    f"Only {len(rep_means)} of {reps} replicates accepted any "
+                    "samples within max_size; the between-replicate sem needs "
+                    ">= 2. Loosen the where condition or raise max_size."
+                )
+            budget = max(1, (max_size - drawn) // reps)
+            chunk = _round_chunk(min(drawn // reps, (max_size - drawn) // reps), budget)
+            continue
+        stats = _finalize_estimate(merged, drawn, **final)
+        means = np.asarray(rep_means, np.float64)
+        sem = float(means.std(ddof=1) / np.sqrt(means.size))
+        stats["sem"] = sem
+        if control_mu is not None:
+            stats["mean"] = float(means.mean())
+        tgt = _target(stats, target_sem, target_rel_sem)
+        converged = bool(np.isfinite(sem) and sem <= tgt)
+        if converged or drawn >= max_size or rounds >= _MAX_ROUNDS:
+            stats["rounds"] = rounds
+            stats["converged"] = converged
+            stats["replicates"] = reps
+            return stats
+        need = _next_round(drawn, sem, tgt, max_size)
+        chunk = _round_chunk(int(need) // reps, max(1, (max_size - drawn) // reps))
+
+
+def _stream_fingerprint(sink, size, block_size, seg_blocks, seed, executor, opts):
+    """Identity of a checkpointed run, stable across processes: the graph
+    structure (``checkpoint.graph_fingerprint``), every size and option,
+    the resolved correlator, the control and where graphs, the dtype and
+    the 64-bit seed.  Resuming under any difference would splice the
+    statistics of two runs."""
+    control, where = opts["control_node"], opts["where_node"]
+    parts = [
+        _checkpoint.graph_fingerprint(sink),
+        repr((
+            int(size), int(block_size), int(seg_blocks), executor, None,
+            tuple(opts["quantiles"]), tuple(opts["cvar"]), opts["histogram"],
+            bool(opts["moments"]),
+            _compile.correlator_token(_compile.resolve_correlator(opts["correlator"])),
+            str(config.float_dtype()),
+        )),
+        "" if control is None else _checkpoint.graph_fingerprint(control),
+        "" if where is None else "w" + _checkpoint.graph_fingerprint(where),
+        f"{seed:x}",
+    ]
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()
+
+
+def _save_stream_checkpoint(path, fingerprint, carries):
+    """Persist the segments' host carries atomically (a temporary file,
+    then a rename): float64 scalars, the finite flags, the quantile sums
+    and the int64 histogram counts, as they are."""
+    scalars = np.array([[c[i] for i in (0, 1, 2, 3, 4, 7, 8, 9, 11, 12)] for c in carries],
+                       np.float64)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        np.savez(
+            fh,
+            fingerprint=np.asarray(fingerprint),
+            scalars=scalars,
+            finite=np.array([bool(c[5]) for c in carries]),
+            qsum=np.stack([np.asarray(c[6], np.float64) for c in carries]),
+            hsum=np.stack([np.asarray(c[10], np.int64) for c in carries]),
+        )
+    os.replace(tmp, path)
+
+
+def _load_stream_checkpoint(path, fingerprint):
+    """The saved segments' carries; refuses a file of another run."""
+    with np.load(path, allow_pickle=False) as data:
+        if str(data["fingerprint"]) != fingerprint:
+            raise ValueError(
+                f"Checkpoint {path!r} belongs to a different run (graph, "
+                "size, block/segment layout, method, features, or key "
+                "differ); delete it to start fresh."
+            )
+        scalars, finite = data["scalars"], data["finite"]
+        qsum, hsum = data["qsum"], data["hsum"]
+    carries = []
+    for i in range(scalars.shape[0]):
+        t, m, m2, lo, hi, my, m2y, cxy, m3, m4 = scalars[i]
+        carries.append((t, m, m2, lo, hi, bool(finite[i]), qsum[i], my, m2y, cxy, hsum[i], m3, m4))
+    return carries
+
+
+def _estimate_checkpointed(sink, size, block_size, seed, executor, opts, final, path, every):
+    """Resumable streamed estimation: the run's blocks are cut into
+    segments at fixed boundaries (``every`` draws, whole blocks), each
+    segment folds as a window of the one stream (``_estimate_carry``'s
+    ``block_lo``), and the segments' carries are saved after each one.  A
+    rerun loads them and folds only the segments left; the final float64
+    merge over the same carries makes the result bitwise that of the
+    uninterrupted checkpointed run.  The file is removed only once the
+    result is final, so a run that fails the finite check keeps it."""
+    n_blocks = -(-size // block_size)
+    last = size - (n_blocks - 1) * block_size
+    seg_blocks = _SEGMENT_BLOCKS if every is None else max(1, int(every) // block_size)
+    n_segs = -(-n_blocks // seg_blocks)
+    fp = _stream_fingerprint(sink, size, block_size, seg_blocks, seed, executor, opts)
+    carries = _load_stream_checkpoint(path, fp) if os.path.exists(path) else []
+    for seg in range(len(carries), n_segs):
+        lo = seg * seg_blocks
+        nb = min(seg_blocks, n_blocks - lo)
+        carry = _estimate_carry(
+            sink, size, block_size, seed, executor, **opts, block_lo=lo, n_blocks=nb,
+            last_count=last if lo + nb == n_blocks else block_size,
+        )
+        carries.append(_host_carry(carry))
+        _save_stream_checkpoint(path, fp, carries)
+    merged, _ = _merge_carries(carries)
+    stats = _finalize_estimate(merged, size, **final)
+    try:
+        os.remove(path)
+    except OSError:
+        pass
     return stats

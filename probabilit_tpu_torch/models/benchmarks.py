@@ -16,6 +16,13 @@ Poisson -> binomial chain, BASELINE config 2), ``large_table`` (bench.py's
 ``table_risk``/``table_risk_correlated``, which put every kind of table
 node on one tape, at the JAX package's own test sizes
 (``tests/test_pallas_exec.py:159-178``).
+
+The int32 and bool nodes: ``breach_count`` (and ``_correlated``), a cost
+controller's count of overrunning work packages and its penalty tiers,
+and ``typed_ops``, a test graph of every int32 and bool operation at the
+int32 extremes.  They take the node classes to build with (``lib``,
+default this package's), so the tests build the same graph from the JAX
+package's classes.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from probabilit_tpu_torch.models.distributions import (
     Distribution,
     EmpiricalDistribution,
 )
+from types import SimpleNamespace
+
+from probabilit_tpu_torch.models import graph as _graph
 from probabilit_tpu_torch.models.graph import Add, Exp, Max, Sqrt
 
 __all__ = [
@@ -36,6 +46,11 @@ __all__ = [
     "large_table",
     "table_risk",
     "table_risk_correlated",
+    "BREACH_BUDGETS",
+    "breach_count",
+    "breach_count_correlated",
+    "TYPED_CONSTANTS",
+    "typed_ops",
     "portfolio_model",
     "mixed_dag_20",
     "mixed_correlated_50",
@@ -123,6 +138,124 @@ def table_risk_correlated(seed=2027):
     margin = n["orders"] * (n["price"] - n["unit_cost"]) - n["lead_time"] * 50.0
     margin.correlate(*nodes.values(), corr_mat=target)
     return margin, nodes
+
+
+def _lib(lib):
+    """The node classes to build with: ``lib`` or this package's."""
+    if lib is not None:
+        return lib
+    return SimpleNamespace(Distribution=Distribution, **{
+        name: getattr(_graph, name) for name in _graph.__all__ if name[0].isupper()})
+
+
+# The contract budgets of breach_count's ten work packages: each package's
+# 85th percentile, rounded to an integer (a Python int, so each is an
+# int32 constant).  P(severe) = P(3 or more overruns) = 0.1693 (the exact
+# law: a sum of ten independent Bernoullis of p = 0.143 .. 0.153).
+BREACH_BUDGETS = (121, 126, 131, 136, 141, 146, 130, 143, 155, 168)
+
+
+def breach_count(lib=None):
+    """A cost controller's breach model: ten work-package costs (six
+    ``triang(c=0.3, loc=80 + 5i, scale=60)``, four
+    ``lognorm(s=0.25, scale=100 + 10j)``), the int32 count of packages
+    over their integer budgets, whether three or more overrun (``severe``),
+    whether any runs 25% over (``late``), the contract's penalty tiers,
+    and the loss: the total cost plus 40 a tier plus 25 if late.
+
+    Returns ``(loss, {"costs": [...], "overruns", "severe", "late",
+    "tier"})``: overruns and tier are int32, severe and late bool, loss
+    float32, as ``jnp`` types them.
+    """
+    g = _lib(lib)
+    costs = [g.Distribution("triang", c=0.3, loc=80 + 5 * i, scale=60) for i in range(6)]
+    costs += [g.Distribution("lognorm", s=0.25, scale=100 + 10 * j) for j in range(4)]
+    overruns = g.Add(*[(c > b) * 1 for c, b in zip(costs, BREACH_BUDGETS)])
+    severe = overruns >= 3
+    late = g.Any(*[c > b * 1.25 for c, b in zip(costs, BREACH_BUDGETS)])
+    penalty = g.Max(overruns - 2, 0)
+    tier = penalty // 2 + penalty % 2
+    loss = g.Add(*costs) + tier * 40 + late * 25
+    return loss, {"costs": costs, "overruns": overruns, "severe": severe, "late": late,
+                  "tier": tier}
+
+
+def breach_count_correlated(lib=None, rho=0.5):
+    """``breach_count`` with the ten costs correlated at ``rho`` (K = 10):
+    packages that share a supplier overrun together.  The target is
+    declared on ``overruns``, which ``severe``, ``tier`` and ``loss`` all
+    read, so each of their graphs carries it."""
+    loss, nodes = breach_count(lib)
+    corr = np.full((10, 10), rho)
+    np.fill_diagonal(corr, 1.0)
+    nodes["overruns"].correlate(*nodes["costs"], corr_mat=corr)
+    return loss, nodes
+
+
+# The int32 operands of typed_ops: the extremes, the first integer float32
+# cannot hold, zero, -1 and two small ones of either sign.
+TYPED_CONSTANTS = (2**31 - 1, -2**31, 2**24 + 1, 0, -1, 7, -3)
+
+
+def typed_ops(lib=None):
+    """A test graph of every int32 and bool operation, not a user's
+    model.  Six standard uniforms give per-sample bools ``u_j > 0.5``,
+    which pick each int32 operand from ``TYPED_CONSTANTS``, so a lane
+    meets both sides of every branch: divisors 0 and -1, wrap-around and
+    none.  A wide int32 result is kept as its two halves (``// 2^16`` and
+    ``% 2^16``), each exact in float32.  Every value here is computed
+    from constants and uniform draws alone, so K1 and its twin agree on
+    it bitwise.
+
+    Returns ``(sink, leaves, r7)``: ``leaves`` maps a label to a node
+    whose float32 value is exact; the int32 sink adds every leaf (the first
+    is an int, so the bools add as integers), those labelled in ``r7``
+    times 0 (an integer power with a negative exponent, where
+    the plain executor gives 0 and jnp other values: ROADMAP C, R7).
+    """
+    g = _lib(lib)
+    big, low, wide, zero, minus_one, seven, minus_three = TYPED_CONSTANTS
+    u = [g.Distribution("uniform") for _ in range(6)]
+    bit = [x > 0.5 for x in u]
+
+    def pick(j, a, b):
+        return bit[j] * a + (u[j] <= 0.5) * b
+
+    x = pick(0, big, minus_three)
+    y = pick(1, low, seven)
+    div = pick(2, zero, minus_one)
+    w = pick(3, wide, seven)
+    exponent = pick(4, 2, minus_three)
+    num = pick(5, zero, minus_three)
+    near = pick(2, wide, wide - 1)
+    b0, b1 = bit[0], bit[1]
+    wide_results = {
+        "add": x + y, "sub": y - x, "mul": x * w, "square": g.Square(w),
+        "floordiv": y // div, "floordiv_signs": x // w, "pow": w ** 2, "bool_plus_int": b0 + x,
+        "int_minus_bool": y - b1, "pow_negative": w ** exponent,
+    }
+    # -y and |y| are -2^31 or +-7, exact as they are.  (XLA takes |y| to be
+    # non-negative when it fuses |y| // 2^16, which it is not at -2^31.)
+    leaves = {"neg": -y, "abs": g.Abs(y)}
+    for label, value in wide_results.items():
+        leaves[f"{label}_hi"] = value // 65536
+        leaves[f"{label}_lo"] = value % 65536
+    leaves.update({
+        "floordiv_zero": num // div, "mod": y % div,
+        "mod_signs": x % w, "floor": g.Floor(div), "ceil": g.Ceil(exponent),
+        "sign_zero": g.Sign(div), "sign": g.Sign(x),
+        "gt": near > wide - 1, "ge": near >= wide, "lt": near < wide, "le": near <= wide - 1,
+        "eq": g.Equal(near, wide), "ne": g.NotEqual(near, wide), "isclose": g.IsClose(near, wide),
+        "all_ints": g.All(x, div), "any_ints": g.Any(div, num),
+        "bool_or": b0 + b1, "bool_and": b0 * b1, "bool_max": g.Max(b0, b1),
+        "bool_min": g.Min(b0, b1), "bool_floordiv": b0 // b1, "bool_mod": b0 % b1,
+        "bool_pow": b0 ** b1, "bool_square": g.Square(b0), "bool_abs": g.Abs(b0),
+        "bool_floor": g.Floor(b1), "bool_ceil": g.Ceil(b0),
+    })
+    r7 = ("pow_negative_hi", "pow_negative_lo")
+    # The R7 leaves enter the sink times 0: in the graph, not in its value.
+    sink = g.Add(*(node * 0 if label in r7 else node for label, node in leaves.items()))
+    return sink, leaves, r7
 
 
 def portfolio_model(d=10, target_corr=0.3):

@@ -370,6 +370,9 @@ class Constant(Node, OverloadMixin):
     def __repr__(self):
         return f"{type(self).__name__}({self.value})"
 
+    def _static_signature(self):
+        return ("Constant", repr(self.value), type(self.value).__name__)
+
     def _emit(self, ctx):
         if isinstance(self.value, bool):
             dtype = torch.bool
@@ -411,9 +414,9 @@ def _subtract(a, b):
 
 
 def _isclose(a, b):
-    a, b = _promote(a, b)
-    if not a.is_floating_point():
-        return torch.eq(a, b)
+    # jnp.isclose compares integers and bools as floats, within the same
+    # tolerances (2^24 + 1 is close to 2^24).
+    a, b = _promote(_as_float(a), _as_float(b))
     return torch.isclose(a, b, rtol=1e-5, atol=1e-8)
 
 
@@ -501,6 +504,9 @@ class Transform(Node, OverloadMixin, abc.ABC):
         with Transform._repr_frame():
             parents = ", ".join(repr(parent) for parent in self.get_parents())
         return f"{type(self).__name__}({parents})"
+
+    def _static_signature(self):
+        return (type(self).__name__,)
 
 
 class VariadicTransform(Transform):

@@ -508,3 +508,62 @@ def test_correlated_table_drivers_through_both_kernels(cuda_card):
         if k != k_orders:
             err = (got[k] - ref[k]).abs()[same]
             assert err.max() <= REL_TOL * ref[k].abs().max(), k
+
+
+def _held_where_typed_nodes_agree(got, ref, typed):
+    """K1 against its twin on a breach graph: the int and bool rows
+    ``typed`` equal but on at most 1e-4 of the samples (a cost within
+    the kernel's rounding of a budget), and off by at most 1 there; the
+    float rows within REL_TOL where every typed row agrees."""
+    same = torch.ones(got.shape[1], dtype=torch.bool, device=got.device)
+    for k in typed:
+        err = (got[k] - ref[k]).abs()
+        assert err.max() <= 1 and (err > 0).float().mean() <= 1e-4, k
+        same &= err == 0
+    for k in range(got.shape[0]):
+        if k not in typed:
+            err = (got[k] - ref[k]).abs()[same]
+            assert err.max() <= REL_TOL * ref[k].abs().max(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["breach_count", "breach_count_correlated"])
+def test_breach_count_kernel_matches_twin(cuda_card, name):
+    loss, nodes = getattr(benchmarks, name)()
+    plan = tcompile.get_plan(loss)
+    typed_ids = [nodes[k]._id for k in ("overruns", "late", "tier")]
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, {loss._id, *typed_ids}), "cuda")
+    words = cuda_exec.seed_words(15)
+    ab = cuda_exec.recolor_transform(plan, words, N, device="cuda") if plan.corr_vars else None
+    got, flag = cuda_exec.run(tape, words, N, ab)
+    ref = cuda_exec.run_reference(tape, words, N, ab)
+    assert int(flag) == 0
+    _held_where_typed_nodes_agree(got, ref, [tape.keep_order.index(i) for i in typed_ids])
+
+
+@pytest.mark.cuda
+def test_typed_ops_kernel_equals_twin_bitwise(cuda_card):
+    sink, leaves, _ = benchmarks.typed_ops()
+    plan = tcompile.get_plan(sink)
+    ids = [node._id for node in leaves.values()]
+    words = cuda_exec.seed_words(16)
+    for i in range(0, len(ids), 15):
+        tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, {sink._id, *ids[i:i + 15]}), "cuda")
+        got, _ = cuda_exec.run(tape, words, N)
+        torch.testing.assert_close(got, cuda_exec.run_reference(tape, words, N), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_severe_estimate_through_the_kernel(cuda_card):
+    """estimate(severe) on K1 is the probability of three or more
+    overruns, 0.1693, sequentially and with a checkpoint."""
+    _, nodes = benchmarks.breach_count()
+    severe = nodes["severe"]
+    launches = cuda_exec.LAUNCHES
+    st = streaming.estimate(severe, 1 << 22, block_size=1 << 20, random_state=0,
+                            executor="cuda", target_rel_sem=2e-3)
+    assert cuda_exec.LAUNCHES > launches and st["converged"]
+    assert abs(st["mean"] - 0.1693) < 5 * st["sem"] + 5e-5
+    cuda = streaming.estimate(severe, 1 << 22, block_size=1 << 20, random_state=1, executor="cuda")
+    plain = streaming.estimate(severe, 1 << 22, block_size=1 << 20, random_state=1, executor=None)
+    assert abs(cuda["mean"] - plain["mean"]) < 5 * np.hypot(cuda["sem"], plain["sem"])

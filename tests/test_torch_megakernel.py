@@ -268,27 +268,35 @@ def test_supports_refuses_what_the_port_lacks():
     c = JaxDistribution("poisson", mu=3.5)
     corr_poisson = (a + c).correlate(a, c, corr_mat=np.eye(2))
     assert _supports_pair(corr_poisson) == (True, True)
-    # Still unported: integer-typed values on the tape (ROADMAP B4).
+    # Integer-typed values on the tape, ported since: ROADMAP B4.
     integer = JaxDistribution("norm") + jg.Constant(3) * jg.Constant(5)
-    assert _supports_pair(integer) == (True, False)
+    assert _supports_pair(integer) == (True, True)
 
 
 @pytest.mark.parametrize(
     "build",
     [
-        lambda x: (tg.Constant(7) // tg.Constant(2)) + x,
-        lambda x: (tg.Constant(3) * tg.Constant(5)) + x,
-        lambda x: tg.Add(x > 0, x > 1),
-        lambda x: tg.Power(tg.Constant(2), tg.Constant(-1)) + x,
+        lambda g, x: (g.Constant(7) // g.Constant(2)) + x,
+        lambda g, x: (g.Constant(3) * g.Constant(5)) + x,
+        lambda g, x: g.Add(x > 0.25, x > 0.75),
+        lambda g, x: g.Power(g.Constant(2), g.Constant(3)) + x,
     ],
     ids=["floordiv", "multiply", "bool_add", "power"],
 )
 def test_supports_refuses_integer_and_boolean_arithmetic(build):
-    sink = build(Distribution("norm"))
+    """Refused until the tape carried int32 and bool values (ROADMAP B4):
+    now each graph is supported, as by pallas_exec, and the twin gives the
+    JAX package's values cast to float32, exactly.  (The power's exponent
+    is no longer -1: jnp's negative integer powers are R7.  A standard
+    uniform's ppf is exact in both packages.)"""
+    jax_sink = build(jg, JaxDistribution("uniform"))
+    assert _supports_pair(jax_sink) == (True, True)
+    sink = interop.from_reference(jax_sink)[jax_sink._id]
     plan = tcompile.get_plan(sink)
-    assert not cuda_exec.supports(plan, frozenset({sink._id}))
-    with pytest.raises(ValueError, match="not supported"):
-        cuda_exec.lower(plan, [sink._id])
+    U = np.random.default_rng(5).integers(1, 2**23, (512, plan.d)) / 2**23
+    want = np.asarray(jax_sink.sample_from_quantiles(U.astype(np.float32)))
+    got = cuda_exec.run_tape(cuda_exec.lower(plan, [sink._id]), torch.from_numpy(U).float())
+    np.testing.assert_array_equal(got[0].numpy(), want.astype(np.float32))
 
 
 def test_supports_accepts_float_valued_ops_of_integers():
@@ -351,10 +359,18 @@ def test_every_opcode_has_an_emitter(name):
         return
     arity = sum(f"{{{f}}}" in template for f in "abcd")
     assert arity >= 1 and "{" not in template.format(a="", b="", c="", d="")
-    body = _loop_body(_hand_tape(head + [(name, 4, *(0, 2, 1, 3)[:arity]), ("STORE", 0, 4)]).source)
+    tape = _hand_tape(head + [(name, 4, *(0, 2, 1, 3)[:arity]), ("STORE", 0, 4)])
+    body = _loop_body(tape.source)
+    # On float operands a comparison is a bool, AND and OR read each
+    # operand as a bool, every other row is a float.
+    kind = tape.kinds[len(head)]
+    assert kind == ("b" if name in ("AND", "OR", "ISCLOSE", *cuda_exec._COMPARISONS) else "f")
     for lane in range(cuda_exec.LANES):
         operands = dict(zip("abcd", (f"v0_{lane}", "k.v[0]", f"v1_{lane}", "k.v[1]")))
-        assert f"const float v4_{lane} = {template.format(**operands)};" in body
+        if name in ("AND", "OR"):
+            operands = {f: f"({text} != 0.0f)" for f, text in operands.items()}
+        ctype = {"b": "bool", "f": "float"}[kind]
+        assert f"const {ctype} v4_{lane} = {template.format(**operands)};" in body
 
 
 def test_opcodes_and_caps_match_the_kernel_source():
@@ -372,7 +388,9 @@ def test_opcodes_and_caps_match_the_kernel_source():
             "sinf", "cosf", "tanf", "asinf", "acosf", "atanf", "sinhf", "coshf", "tanhf",
             "asinhf", "acoshf", "atanhf", "log1pf", "expm1f"}
     defined = set(re.findall(r"__device__ __forceinline__ \w+ (\w+)\(", "".join(headers.values())))
-    called = set(re.findall(r"(\w+)\(", " ".join(cuda_exec._EMIT.values())))
+    templates = [*cuda_exec._EMIT.values(), *cuda_exec._TYPED_EMIT["i"].values(),
+                 *cuda_exec._TYPED_EMIT["b"].values()]
+    called = set(re.findall(r"(\w+)\(", " ".join(templates)))
     assert called <= libm | defined, called - libm - defined
     assert {"philox_group", "store_group", "ndtri_fast", "floor_divide", "ppf_triang"} <= defined
     # A 4 KB parameter space holds the constants beside the other arguments.
@@ -408,7 +426,7 @@ def test_generated_text_is_deterministic_and_straight_line(name):
     body = _loop_body(text)
     assert set(re.findall(r"\[([^\]]*)\]", body)) <= {str(i) for i in range(1024)}
     lines = [line.strip() for line in body.splitlines()[1:] if line.strip() and line.strip() != "}"]
-    assert all(re.match(r"(const (float|float4|uint4) \w+ = .*;|store_group\(.*\);)$", line)
+    assert all(re.match(r"(const (float|float4|uint4|int|bool) \w+ = .*;|store_group\(.*\);)$", line)
                for line in lines), [l for l in lines if not l.startswith(("const", "store"))]
     # K, the kept rows and the constants are the text's compile-time shape.
     assert f"kCorr = {len(plan.corr_vars)};" in text and f"kKeep = {tape.n_keep};" in text

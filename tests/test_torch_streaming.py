@@ -383,22 +383,36 @@ def test_sibling_and_disjoint_controls():
 
 
 @pytest.mark.parametrize(
-    "call",
-    [
-        lambda s: streaming.estimate(s, 100, method="sobol"),
-        lambda s: streaming.estimate(s, 100, target_sem=0.1),
-        lambda s: streaming.estimate(s, 100, target_rel_sem=0.1),
-        lambda s: streaming.estimate(s, 100, max_size=1000),
-        lambda s: streaming.estimate(s, 100, checkpoint="run.npz"),
-        lambda s: streaming.estimate_many([s], 100),
-        lambda s: streaming.sample_streaming(s, 100, method="lhs"),
-    ],
-    ids=["method", "target_sem", "target_rel_sem", "max_size", "checkpoint", "estimate_many",
-         "streamed_method"],
+    "option",
+    ["method", "target_sem", "target_rel_sem", "max_size", "checkpoint", "estimate_many",
+     "streamed_method"],
 )
-def test_options_out_of_scope_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        call(Distribution("norm"))
+def test_options_out_of_scope_raise(option, tmp_path):
+    """QMC (A9) and ``estimate_many`` (A7b) still raise.  The sequential
+    options and ``checkpoint=`` raised until they were ported; now they
+    run (``tests/test_torch_sequential.py`` holds them to the analytic
+    values) and a checkpoint without a ``random_state`` is refused (R3)."""
+    s = Distribution("norm", loc=3.0)
+    if option in ("method", "estimate_many", "streamed_method"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+            {"method": lambda: streaming.estimate(s, 100, method="sobol"),
+             "estimate_many": lambda: streaming.estimate_many([s], 100),
+             "streamed_method": lambda: streaming.sample_streaming(s, 100, method="lhs")}[option]()
+    elif option == "target_sem":
+        st = streaming.estimate(s, 100, target_sem=0.1, random_state=0)
+        assert st["converged"] and st["sem"] <= 0.1 and st["rounds"] >= 1
+    elif option == "target_rel_sem":
+        st = streaming.estimate(s, 100, target_rel_sem=0.01, random_state=0)
+        assert st["converged"] and st["sem"] <= 0.01 * abs(st["mean"])
+    elif option == "max_size":  # without a target, a fixed-size run
+        st = streaming.estimate(s, 100, max_size=1000, random_state=0)
+        assert st["n"] == 100 and "rounds" not in st
+    else:
+        path = tmp_path / "run.npz"
+        with pytest.raises(ValueError, match="random_state"):
+            streaming.estimate(s, 100, checkpoint=str(path))
+        st = streaming.estimate(s, 100, checkpoint=str(path), random_state=0)
+        assert st["n"] == 100 and not path.exists()
 
 
 def test_executor_resolution():

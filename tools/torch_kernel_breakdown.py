@@ -27,7 +27,12 @@ graphs keep the main paths' distributions and drop the rest:
   ``TABLE_CDF`` (poisson(2000), 470 boundaries), one ``TABLE_DISCRETE``
   (512 values), one ``TABLE_INTERP`` of 512 knots (an Empirical) and one
   of 5 (the elicited Cumulative), each plus 0.0, and ``table_risk``'s
-  sink: the search's cost apart from Philox's and the store's.
+  sink: the search's cost apart from Philox's and the store's;
+* the int32 rows: two uniforms picked into int32 operands (7 or -3 by
+  ``u > 0.5``, 3 or -2) and added, beside the same two divided
+  (``FloorDivide``, which the H100 computes without an integer divider),
+  each plus 0.0, and ``breach_count``'s sink: the division's cost apart
+  from the draws', the picks' and the store's.
 
 Prints one JSON object per line, the card's ``nvidia-smi`` name and
 power limit first.  Needs a CUDA card; run from the repository root.
@@ -164,6 +169,17 @@ def main():
         "table_risk": benchmarks.table_risk()[0],
     }
 
+    def picked(u, a, b):
+        return (u > 0.5) * a + (u <= 0.5) * b
+
+    u1, u2 = Distribution("uniform"), Distribution("uniform")
+    v1, v2 = Distribution("uniform"), Distribution("uniform")
+    typed_cuts = {
+        "int_add": (picked(u1, 7, -3) + picked(u2, 3, -2)) + 0.0,
+        "int_floordiv": (picked(v1, 7, -3) // picked(v2, 3, -2)) + 0.0,
+        "breach_count": benchmarks.breach_count()[0],
+    }
+
     def timed_build(text):
         t = time.perf_counter()
         _build.build_generated("graph_megakernel", text, cuda_exec._HEADERS)
@@ -176,7 +192,7 @@ def main():
     # Every cut is its own generated kernel: build them all at once.
     texts = [tape_of(sink)[1].source
              for sink in (*dag_cuts.values(), *corr_cuts.values(), *family_cuts.values(),
-                          *table_cuts.values())]
+                          *table_cuts.values(), *typed_cuts.values())]
 
     start = time.perf_counter()
     with ThreadPoolExecutor(len(texts) + 1) as pool:
@@ -201,6 +217,9 @@ def main():
     rows = {name: {**kernel_ms(sink), "shared_bytes": tape_of(sink)[1].shared_bytes}
             for name, sink in table_cuts.items()}
     emit({"graph": "table_branch", "kernels": rows})
+
+    rows = {name: kernel_ms(sink) for name, sink in typed_cuts.items()}
+    emit({"graph": "typed_rows", "kernels": rows})
 
     # One sample() call of each path under the profiler: device time by
     # kernel, and the share of the call's wall time the card sat idle.
