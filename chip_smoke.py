@@ -191,6 +191,31 @@ checkpointed estimates:
     wrapping ``streaming._estimate_carry`` from here), resumed, and held
     bitwise to an uninterrupted run, both timed.
 
+The quantile layer beyond iid uniforms (plain PyTorch on the card: the
+megakernel refuses ``method=`` and the copula nodes, as the TPU kernel
+does):
+
+18. ``mixed_dag_20().sample(1e8, gc_strategy=[], method=m)`` for sobol,
+    halton, lhs and antithetic: the sink finite, of shape (1e8,), on the
+    card; each call timed (CUDA events, median of 5) and
+    ``ops/qmc.generate`` alone beside it (median of 3).  ``generate`` on the card bitwise against the same call
+    on the CPU at 2^22 rows from an offset of 2^31 + 3 (Halton, int32
+    indexed, from 2^31 - 2^22 - 5), ``sample_streaming(2^26, method=m)``
+    bitwise against ``sample(2^26, method=m)``'s sink; ``estimate(2^28,
+    method="sobol", replicates=8)`` against ``method=None`` within 5
+    standard errors, its between-replicate sem below the iid sem, and
+    ``estimate(1e9, method="sobol")`` in blocks of 2^24 timed; a
+    checkpointed ``estimate(2^26, method="lhs")`` interrupted after its
+    first segment, resumed, and held bitwise to an uninterrupted run.  The
+    copulas at 1e7 (Clayton(2, d=3), Gumbel(2), Frank(20), Frank(-5),
+    Gaussian, t(df=4), empirical), each marginal shaped by a
+    ``QuantileTransform`` and summed: Kendall's tau of the first two
+    uniforms at 2^16 within 0.02 of the closed form, each uniform marginal
+    KS-tested against U(0, 1) at 2^20 (p > 1e-4), each graph timed with the
+    column-keyed generator's host read.  The Dirichlet and multinomial
+    marginals' means within 5 standard errors at 1e7, and
+    ``executor="cuda"`` refusing each of these graphs.
+
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
@@ -255,6 +280,16 @@ PORTFOLIO_QUANTILES = (0.01, 0.05, 0.5)
 TYPED_SHARE_MAX = 1e-4  # int and bool nodes of K1 and the twin may differ on this share
 N_TYPED_STREAM = 1 << 26
 CHECKPOINT_EVERY = 1 << 26
+QMC_METHODS = ("sobol", "halton", "lhs", "antithetic")
+QMC_OFFSET = (1 << 31) + 3  # generate on the card against the CPU from here
+HALTON_OFFSET = (1 << 31) - (1 << 22) - 5  # Halton's float32 indices are int32
+LHS_TOTAL = QMC_OFFSET + (1 << 22) + 12345  # strata of no power of two: the walk runs
+N_QMC_STREAM = 1 << 26
+N_QMC_ESTIMATE = 1 << 28
+N_COPULA = 10_000_000
+N_TAU = 1 << 16
+N_UNIFORM_KS = 1 << 20
+TAU_TOL = 0.02
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -505,12 +540,13 @@ def ptxas_instances(log):
     return out
 
 
-def cuda_time_ms(fn, repeats=5):
+def cuda_time_ms(fn, repeats=5, warm=True):
     """Median wall time of ``fn`` on the card, by CUDA events, after one
-    warm-up call."""
+    warm-up call (``warm=False``: the caller has just run it)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
@@ -801,6 +837,7 @@ def main():
     portfolio = portfolio_path(torch, np, scipy, cuda_exec, _compile, smi)
     tables = table_path(torch, np, scipy, cuda_exec, _compile, smi, registers)
     typed = typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, here)
+    quantile_layer_path(torch, np, scipy, smi, here)
 
     emit({"kernels": [
         {
@@ -2367,6 +2404,213 @@ def typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, 
     records["checkpointed"] = checkpointed
     return {"k1_launches": launches, "k2_launches": k2_launches, "k1_err": k1_err,
             "k1_abs_err": k1_abs_err, "records": records}
+
+
+def frank_tau(np, theta):
+    """Kendall's tau of a Frank copula, 1 - 4/theta (1 - D_1(theta)) (odd in
+    theta), by quadrature of the Debye function."""
+    from scipy.integrate import quad
+
+    a = abs(theta)
+    d1 = quad(lambda t: t / np.expm1(t), 0.0, a)[0] / a
+    return float(np.sign(theta) * (1.0 - 4.0 / a * (1.0 - d1)))
+
+
+def copula_graphs(np, tau_np):
+    """{label: (sink, uniform marginals, closed-form tau of the first two)}:
+    every copula factory, each marginal shaped by a QuantileTransform and
+    the shaped marginals summed."""
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch.ops import copulas
+
+    rho = copulas.rho_from_tau(0.5)
+    corr = [[1.0, rho], [rho, 1.0]]
+    rng = np.random.default_rng(2027)
+    data = rng.normal(size=(2000, 1)) + rng.normal(size=(2000, 2)) * 0.5
+    shapes = (("norm", (), {}), ("lognorm", (0.5,), {}), ("expon", (), {"scale": 2.0}))
+    factories = {
+        "clayton(2, d=3)": (lambda: pt.ClaytonCopula(2.0, d=3), 2.0 / 4.0),
+        "gumbel(2)": (lambda: pt.GumbelCopula(2.0), 0.5),
+        "frank(20)": (lambda: pt.FrankCopula(20.0), frank_tau(np, 20.0)),
+        "frank(-5)": (lambda: pt.FrankCopula(-5.0), frank_tau(np, -5.0)),
+        "gaussian": (lambda: pt.GaussianCopula(corr), 0.5),
+        "t(df=4)": (lambda: pt.TCopula(corr, df=4.0), 0.5),
+        "empirical": (lambda: pt.EmpiricalCopula(data), tau_np(data[:, 0], data[:, 1])),
+    }
+    graphs = {}
+    for label, (build, tau) in factories.items():
+        us = build()
+        shaped = [pt.QuantileTransform(u, name, *args, **kwargs)
+                  for u, (name, args, kwargs) in zip(us, shapes)]
+        graphs[label] = (sum(shaped[1:], shaped[0]), us, tau)
+    return graphs
+
+
+def quantile_layer_path(torch, np, scipy, smi, here):
+    """Phase 18: QMC and antithetic sampling through sample, sample_streaming
+    and estimate, and the copula and multivariate nodes, on the plain path."""
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch import config
+    from probabilit_tpu_torch.engine import compile as _compile
+    from probabilit_tpu_torch.engine import streaming
+    from probabilit_tpu_torch.models.benchmarks import mixed_dag_20
+    from probabilit_tpu_torch.ops import multivariate, qmc
+
+    t_phase = time.perf_counter()
+    sink = mixed_dag_20()
+    d = _compile.get_plan(sink).d_total
+
+    def offset(m):
+        return HALTON_OFFSET if m == "halton" else QMC_OFFSET
+
+    def on(device, m):
+        return qmc.generate(m, 11, 1 << 22, d, offset=offset(m), total=LHS_TOTAL, device=device)
+
+    # The CPU's words for the card-against-CPU check below, computed on a
+    # host thread while the card runs the timings.
+    pool = ThreadPoolExecutor(1)
+    host_words = pool.submit(lambda: {m: on("cpu", m) for m in QMC_METHODS})
+    rows = {}
+    for m in QMC_METHODS:
+        out = sink.sample(N_MAIN, random_state=0, gc_strategy=[], method=m)
+        check(out.device.type == "cuda", f"{m}: sink lies on {out.device}")
+        check(tuple(out.shape) == (N_MAIN,), f"{m}: sink shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{m}: non-finite sink values")
+        mean = out.double().mean().item()
+        del out
+        sample_ms = cuda_time_ms(
+            lambda m=m: sink.sample(N_MAIN, random_state=0, gc_strategy=[], method=m), warm=False)
+        generate_ms = cuda_time_ms(lambda m=m: qmc.generate(m, 0, N_MAIN, d, device="cuda"),
+                                   repeats=3, warm=False)
+        rows[m] = {"sample_ms": sample_ms, "generate_ms": generate_ms,
+                   "samples_per_sec": N_MAIN / (sample_ms * 1e-3), "sink_mean": mean}
+    emit({"phase": "qmc_sample_timing", "card": smi, "n": N_MAIN, "d": d, "methods": rows})
+
+    # The integer code on the card against the CPU's.
+    agree = {}
+    host = host_words.result()
+    pool.shutdown()
+    for m in QMC_METHODS:
+        diff = int((on("cuda", m).cpu() != host[m]).sum())
+        check(diff == 0, f"generate({m}) on the card differs from the CPU in {diff} entries")
+        agree[m] = {"offset": offset(m), "bitwise_equal": diff == 0}
+    emit({"phase": "qmc_card_vs_cpu", "n": 1 << 22, "d": d, "methods": agree})
+
+    streamed = {}
+    for m in QMC_METHODS:
+        one = sink.sample(N_QMC_STREAM, random_state=4, gc_strategy=[], method=m).cpu().numpy()
+        blocks = streaming.sample_streaming(sink, N_QMC_STREAM, block_size=BLOCK,
+                                            random_state=4, method=m)
+        equal = bool(np.array_equal(one, blocks))
+        check(equal, f"sample_streaming(method={m!r}) differs from sample()")
+        streamed[m] = equal
+    emit({"phase": "qmc_streamed_equals_single_shot", "n": N_QMC_STREAM, "block": BLOCK,
+          "bitwise_equal": streamed})
+
+    rqmc, rqmc_ms = wall_ms(torch, lambda: sink.estimate(
+        N_QMC_ESTIMATE, block_size=BLOCK, random_state=5, method="sobol", replicates=8))
+    iid = sink.estimate(N_QMC_ESTIMATE, block_size=BLOCK, random_state=5)
+    z = estimates_agree(np, rqmc, iid, "estimate(method='sobol', replicates=8)")
+    iid_sem = rqmc["std"] / np.sqrt(rqmc["n"])
+    check(rqmc["sem"] < iid_sem, f"RQMC sem {rqmc['sem']} not below the iid sem {iid_sem}")
+    _, sobol_1e9_ms = wall_ms(torch, lambda: sink.estimate(
+        N_STREAM, block_size=BLOCK, random_state=6, method="sobol"))
+    emit({"phase": "qmc_estimate", "card": smi, "n": N_QMC_ESTIMATE, "replicates": 8,
+          "mean": rqmc["mean"], "between_replicate_sem": rqmc["sem"], "iid_sem": iid_sem,
+          "prng_mean": iid["mean"], "z": z, "replicated_ms": rqmc_ms,
+          "sobol_1e9_ms": sobol_1e9_ms, "sobol_1e9_block": BLOCK})
+
+    path = here / "build" / "chip_smoke_lhs.ckpt.npz"
+    path.unlink(missing_ok=True)
+    opts = dict(block_size=BLOCK, random_state=9, method="lhs", quantiles=(0.5, 0.99),
+                checkpoint=str(path), checkpoint_every=N_QMC_STREAM // 2)
+    full = sink.estimate(N_QMC_STREAM, **opts)
+
+    class Interrupted(Exception):
+        pass
+
+    real, segments = streaming._estimate_carry, []
+
+    def dying(*args, **kwargs):
+        if segments:
+            raise Interrupted
+        segments.append(1)
+        return real(*args, **kwargs)
+
+    streaming._estimate_carry = dying
+    try:
+        sink.estimate(N_QMC_STREAM, **opts)
+        interrupted = False
+    except Interrupted:
+        interrupted = True
+    finally:
+        streaming._estimate_carry = real
+    check(interrupted and path.exists(), "the interrupted LHS run left no checkpoint")
+    resumed = sink.estimate(N_QMC_STREAM, **opts)
+    keys = ("n", "mean", "var", "std", "sem", "min", "max", "q0.5", "q0.99")
+    equal = all(resumed[k] == full[k] for k in keys)
+    check(equal and not path.exists(), "the resumed LHS estimate differs from the uninterrupted one")
+    emit({"phase": "qmc_checkpointed", "n": N_QMC_STREAM, "method": "lhs",
+          "segments_before_cut": 1, "bitwise_equal": equal, "mean": full["mean"]})
+
+    copulas = {}
+    for label, (csink, us, tau) in copula_graphs(np, lambda a, b: scipy.stats.kendalltau(a, b)[0]).items():
+        keep = list(us)
+        x = csink.sample(N_COPULA, random_state=12, gc_strategy=keep)
+        check(x.device.type == "cuda" and bool(torch.isfinite(x).all()), f"{label}: sink")
+        u = [node.samples_ for node in us]
+        got = float(scipy.stats.kendalltau(u[0][:N_TAU].cpu().numpy(), u[1][:N_TAU].cpu().numpy())[0])
+        check(abs(got - tau) <= TAU_TOL, f"{label}: Kendall tau {got} vs {tau}")
+        ks = [float(scipy.stats.kstest(v[:N_UNIFORM_KS].double().cpu().numpy(), "uniform").pvalue)
+              for v in u]
+        check(min(ks) > FAMILY_P_MIN, f"{label}: a marginal fails KS against U(0, 1): {ks}")
+        refused = False
+        try:
+            csink.sample(1000, random_state=0, gc_strategy=[], executor="cuda")
+        except ValueError:
+            refused = True
+        check(refused, f"executor='cuda' accepted the {label} graph")
+        call_ms = cuda_time_ms(lambda csink=csink: csink.sample(N_COPULA, random_state=12,
+                                                                gc_strategy=[]))
+        column = torch.rand(N_COPULA, device="cuda")
+        key_ms = cuda_time_ms(lambda column=column: multivariate._key_from_q(column))
+        copulas[label] = {"kendall_tau": got, "closed_form_tau": tau, "ks_p": ks, "ms": call_ms,
+                          "key_host_read_ms": key_ms, "host_read_share": key_ms / call_ms}
+        del x, u
+    emit({"phase": "copulas", "card": smi, "n": N_COPULA, "tau_n": N_TAU,
+          "ks_n": N_UNIFORM_KS, "graphs": copulas})
+
+    multi = {}
+    for name, kwargs, means in (
+        ("dirichlet", {"alpha": [1.0, 2.0, 3.0]}, [1 / 6, 2 / 6, 3 / 6]),
+        ("multinomial", {"n": 10, "p": [0.1, 0.2, 0.7]}, [1.0, 2.0, 7.0]),
+    ):
+        parts = list(pt.MultivariateDistribution(name, **kwargs))
+        msink = sum(parts[1:], parts[0])
+        msink.sample(N_COPULA, random_state=13, gc_strategy=parts)
+        zs = []
+        for part, mu in zip(parts, means):
+            v = part.samples_.double()
+            zs.append(abs(v.mean().item() - mu) / (v.std().item() / np.sqrt(N_COPULA)))
+        check(max(zs) <= SE_MAX, f"{name}: marginal means off by {zs} standard errors")
+        refused = False
+        try:
+            msink.sample(1000, random_state=0, gc_strategy=[], executor="cuda")
+        except ValueError:
+            refused = True
+        check(refused, f"executor='cuda' accepted the {name} graph")
+        multi[name] = {"z": zs, "ms": cuda_time_ms(lambda msink=msink: msink.sample(
+            N_COPULA, random_state=13, gc_strategy=[]))}
+    for m in QMC_METHODS:
+        refused = False
+        try:
+            sink.sample(1000, random_state=0, gc_strategy=[], method=m, executor="cuda")
+        except ValueError:
+            refused = True
+        check(refused, f"executor='cuda' accepted method={m!r}")
+    check(config.device().type == "cuda", "the phase left the card")
+    emit({"phase": "multivariate", "card": smi, "n": N_COPULA, "graphs": multi,
+          "phase_seconds": time.perf_counter() - t_phase})
 
 
 if __name__ == "__main__":

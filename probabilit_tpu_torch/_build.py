@@ -9,8 +9,11 @@ to ``<name>-<key>.cu`` in the same directory and built the same way, with
 and the headers the text includes.  A build writes to a temporary file
 and renames it into place, so a concurrent process never loads a
 half-written library.  The libraries expose plain ``extern "C"`` entry
-points, loaded with ``ctypes``.  Every failure raises: there is no
-fallback.  Deleting ``build/probabilit_tpu_torch/`` clears every build.
+points, loaded with ``ctypes``.  A host source (``csrc/<name>.cpp``, the
+Sobol direction-number search) is built the same way with the host C++
+compiler (``build_host``, ``load_host``), its key hashing the flags and
+the source.  Every failure raises: there is no fallback.  Deleting
+``build/probabilit_tpu_torch/`` clears every build.
 """
 
 from __future__ import annotations
@@ -23,7 +26,16 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "build_generated", "load_generated", "generated_key", "nvcc_path"]
+__all__ = [
+    "build",
+    "load",
+    "build_generated",
+    "load_generated",
+    "generated_key",
+    "nvcc_path",
+    "build_host",
+    "load_host",
+]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -32,6 +44,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -61,20 +74,23 @@ def _key():
     return digest.hexdigest()[:16]
 
 
-def _compile(source, out):
-    """nvcc ``source`` into the library ``out`` unless it exists; returns
-    the compiler's output (``-Xptxas=-v`` register and spill counts), empty
-    when the library was already built."""
+def _compile(source, out, compiler=None, label="nvcc"):
+    """nvcc (or ``compiler``, a command and its flags, named ``label`` in
+    errors) ``source`` into the library ``out`` unless it exists; returns
+    the compiler's output (``-Xptxas=-v`` register and spill counts),
+    empty when the library was already built."""
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [str(nvcc_path()), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
+    if compiler is None:
+        compiler = [str(nvcc_path()), *NVCC_FLAGS, "-I", str(CSRC)]
+    cmd = [*compiler, "-o", str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{label} failed with exit code {proc.returncode}:\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
@@ -121,6 +137,31 @@ def build_generated(name, text, headers):
         finally:
             tmp.unlink(missing_ok=True)
     return out, _compile(source, out)
+
+
+def cxx_path():
+    """The host C++ compiler: ``$CXX``, else ``g++`` on PATH."""
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("no host C++ compiler found (set CXX or put g++ on PATH).")
+    return found
+
+
+def build_host(name):
+    """Compile the host source ``csrc/<name>.cpp`` with the host C++
+    compiler unless the current build exists; returns ``(path, log)`` as
+    ``build`` does.  Its key hashes the flags and the source."""
+    source = CSRC / f"{name}.cpp"
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    digest.update(source.read_bytes())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    compiler = cxx_path()
+    return out, _compile(source, out, [compiler, *CXX_FLAGS], Path(compiler).name)
+
+
+def load_host(name):
+    """The ``ctypes`` handle of ``csrc/<name>.cpp``, built at first use."""
+    return _load(("host", name), lambda: build_host(name))
 
 
 def _load(key, build_library):

@@ -143,6 +143,13 @@ class Plan:
             for variable in variables:
                 if variable not in isn_set:
                     raise ValueError(f"Cannot correlate variable: {variable}")
+                if getattr(variable, "_vector_valued", False):
+                    # A copula node is (n, d); the correlators stack 1-D
+                    # sample vectors.
+                    raise ValueError(
+                        f"Cannot correlate vector-valued node {variable!r}; "
+                        "correlate scalar marginals or functionals of it instead."
+                    )
 
         variable_sets = [set(variables) for (variables, _) in correlations]
         for i, vars1 in enumerate(variable_sets):

@@ -3,9 +3,11 @@
 Port of ``probabilit_tpu/engine/sampler.py:45-257``.  Two executors:
 
 * ``executor=None``: the plain PyTorch executor on ``config.device()``.
-  Uniforms come from a ``torch.Generator`` seeded by ``random_state``, and
-  ``engine/compile.py::build_body`` evaluates the graph op by op;
-  declared correlations take its sort-free recolouring branch.
+  Uniforms come from a ``torch.Generator`` seeded by ``random_state`` (or,
+  with ``method=``, from a QMC or antithetic sequence, ``ops/qmc.py``),
+  and ``engine/compile.py::build_body`` evaluates the graph op by op;
+  declared correlations take its sort-free recolouring branch on the
+  generator's uniforms and the correlator's own transform on a method's.
 * ``executor="cuda"``: the whole graph in one CUDA kernel generated for
   the graph's structure (``engine/cuda_exec.py``; the first call on a new
   structure builds it with nvcc), with Philox4x32-10 bits drawn inside it; a
@@ -67,23 +69,43 @@ def sample(
         return _sample_cuda(plan, size, random_state, method, correlator, gc_strategy)
     if executor is not None:
         raise ValueError(f"Unknown executor {executor!r}; use None or 'cuda'.")
-    if method is not None:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (QMC: ROADMAP A9); "
-            "use method=None."
-        )
-    gen = torch.Generator(device=config.device())
-    gen.manual_seed(resolve_seed(random_state))
-    quantiles = torch.rand(
-        (size, plan.d),
-        generator=gen,
+    # method=None draws iid uniforms from a torch.Generator, and declared
+    # correlations take the sort-free recolouring; a QMC or antithetic
+    # method gives an explicit quantile matrix of plan.d_total columns,
+    # which the correlator transforms (the JAX package's quantile path).
+    quantiles = _qmc.generate(
+        method,
+        resolve_seed(random_state),
+        size,
+        plan.d_total,
         dtype=config.float_dtype(),
         device=config.device(),
     )
-    generated = plan.corr_matrix is not None and _compile.recolor_eligible(
-        plan, _compile.resolve_correlator(correlator)
+    generated = (
+        method is None
+        and plan.corr_matrix is not None
+        and _compile.recolor_eligible(plan, _compile.resolve_correlator(correlator))
     )
-    return _execute(plan, _qmc.clamp_open_unit(quantiles), correlator, gc_strategy, generated)
+    return _execute(plan, quantiles, correlator, gc_strategy, generated)
+
+
+def cuda_limits():
+    """What ``executor="cuda"`` needs, for its refusals."""
+    from probabilit_tpu_torch.engine import cuda_exec
+
+    return (
+        "executor='cuda' requires method=None (the kernel draws its own "
+        "Philox stream; QMC and antithetic quantiles run on executor=None), "
+        "a narrow gc_strategy keep-list (<= 16 kept nodes; [] keeps just the "
+        f"sink), at most {cuda_exec.MAX_CORR_K} correlated variables, and the "
+        "nodes the kernel has (cuda_exec.supports): constants; the "
+        "megakernel's families with numeric parameters (closed forms, and "
+        "Newton families within their caps); CDF tables and numeric "
+        "Discrete, Cumulative and linear Empirical tables of at most "
+        f"{cuda_exec.TABLE_MAX} entries; and the arithmetic transforms on "
+        "float32, int32 and bool values.  Multivariate, marginal, copula and "
+        "QuantileTransform nodes run on executor=None."
+    )
 
 
 def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
@@ -100,16 +122,7 @@ def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
         or keep_ids is None
         or not cuda_exec.supports(plan, keep_ids)
     ):
-        raise ValueError(
-            "executor='cuda' requires method=None, a narrow gc_strategy "
-            "keep-list (<= 16 kept nodes; [] keeps just the sink), at most "
-            f"{cuda_exec.MAX_CORR_K} correlated variables, the megakernel's "
-            "families with numeric parameters (cuda_exec.supports: closed "
-            "forms, Newton families within their caps, CDF tables and "
-            "numeric Discrete/Cumulative/linear Empirical tables of at most "
-            f"{cuda_exec.TABLE_MAX} entries), and no integer or boolean "
-            "arithmetic."
-        )
+        raise ValueError(cuda_limits())
     if plan.corr_matrix is not None:
         resolved = _compile.resolve_correlator(correlator)
         ic_cls = _compile.CORRELATOR_MAP["imanconover"]

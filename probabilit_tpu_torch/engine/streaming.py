@@ -43,8 +43,20 @@ resumes and gives bitwise the result of the uninterrupted checkpointed
 run.  Unlike the JAX package, ``checkpoint=`` needs an explicit
 ``random_state`` (fresh entropy could never resume: ROADMAP C, R3).
 
-Not ported yet: ``method=`` (QMC, ROADMAP A9) and ``estimate_many``
-(A7b); each raises ``NotImplementedError``.
+``method="sobol"/"halton"/"lhs"/"antithetic"`` streams one long point
+sequence on the plain executor: block b generates points ``[b*B, b*B +
+B)`` (``ops/qmc.generate``'s ``offset``; LHS stratifies over the whole
+run), so ``sample_streaming(method=m)`` equals ``sample(method=m)`` bit
+for bit.  As in the JAX package, a streamed method refuses a correlated
+graph (recolouring per block cannot equal one run) and a graph with a
+column-seeded node (a copula or multivariate node, whose per-block draws
+differ from the one-shot column's), and ``executor="cuda"`` refuses a
+method (the kernel draws its own stream).  Replicated runs re-randomise
+each replicate from ``_derive_seed(seed, 1, r)``; under a QMC method the
+sequential stopping rule needs ``replicates``.
+
+Not ported yet: ``estimate_many`` (ROADMAP A7b) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,8 +70,8 @@ import torch
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import checkpoint as _checkpoint
 from probabilit_tpu_torch.engine import compile as _compile
-from probabilit_tpu_torch.engine.sampler import resolve_seed
-from probabilit_tpu_torch.ops.qmc import clamp_open_unit
+from probabilit_tpu_torch.engine.sampler import cuda_limits, resolve_seed
+from probabilit_tpu_torch.ops import qmc as _qmc
 
 __all__ = ["sample_streaming", "estimate", "estimate_many"]
 
@@ -73,6 +85,7 @@ RECOLOR_SOLVE = "device"
 _HISTOGRAM_MAX_BINS = 512
 _MAX_ROUNDS = 64  # a sequential run stops after this many rounds
 _SEGMENT_BLOCKS = 64  # blocks a checkpointed segment holds by default
+_STREAMED_METHODS = ("sobol", "halton", "lhs", "antithetic")
 
 
 def _not_ported(option, item):
@@ -271,15 +284,60 @@ def _resolve_executor(plan, keep, executor, correlator):
     return "cuda"
 
 
-def _block_program(sink, block_size, executor="auto", correlator="imanconover", extra=None):
+def _find_key_seeded(plan):
+    """The first node whose randomness comes from a generator keyed by its
+    quantile column (a copula node, or a multivariate ``Distribution``),
+    or None."""
+    from probabilit_tpu_torch.models.distributions import Distribution, _scipy_is_multivariate
+
+    for node in plan.topo:
+        if getattr(node, "_key_seeded", False):
+            return node
+        if isinstance(node, Distribution) and _scipy_is_multivariate(node.distr):
+            return node
+    return None
+
+
+def _method_name(method, total_size):
+    """The streamed method's name, after the JAX package's checks: an
+    index-addressable method, within its index cap."""
+    name = method.lower().strip()
+    if name not in _STREAMED_METHODS:
+        raise ValueError(
+            "Streamed sampling requires an index-addressable method "
+            f"('sobol', 'halton', 'lhs' or 'antithetic'), got {method!r}."
+        )
+    # Point indices are 32-bit (Halton's int32 digit loop: 2^31); past the
+    # cap the stream would wrap and repeat points.
+    cap = 2**31 if name == "halton" else 2**32
+    if total_size is not None and total_size > cap:
+        raise ValueError(
+            f"Streamed {name} supports at most 2^{cap.bit_length() - 1} "
+            f"points, got {total_size}. Use the PRNG stream (method=None) "
+            "beyond that."
+        )
+    return name
+
+
+def _block_program(
+    sink, block_size, executor="auto", correlator="imanconover", extra=None, method=None,
+    total_size=None,
+):
     """(plan, run): ``run(b, seed) -> (sink block, extra block(s) or None)``.
 
     ``extra`` (a node, or a tuple of nodes) is sampled alongside the sink
     from the same draws; a node outside the sink's graph is rooted with
     it under a cached ``NoOp``.  Every block has ``block_size`` samples.
+    With ``method=``, block b is rows ``[b*B, b*B + B)`` of the method's
+    one sequence of ``total_size`` points under the seed.
     """
     from probabilit_tpu_torch.engine import cuda_exec
 
+    if getattr(sink, "_vector_valued", False):
+        raise ValueError(
+            f"Cannot stream vector-valued node {sink!r}; stream scalar "
+            "marginals or functionals of it instead."
+        )
     out_sink = sink
     plan = _compile.get_plan(sink)
     single_extra = extra is not None and not isinstance(extra, (tuple, list))
@@ -298,6 +356,42 @@ def _block_program(sink, block_size, executor="auto", correlator="imanconover", 
         return x, tuple(outputs[node._id] for node in extras)
 
     device = config.device()
+    if method is not None:
+        seeded = _find_key_seeded(plan)
+        if seeded is not None:
+            raise ValueError(
+                f"Streamed method={method!r} promises bitwise equality with a "
+                f"single-shot run, but {seeded!r} is column-seeded: it draws "
+                "from a generator keyed by its quantile column, whose per-block "
+                "value differs from the single-shot column (and low-discrepancy "
+                "or antithetic structure cannot reach keyed draws anyway). Use "
+                "method=None for this graph."
+            )
+        if plan.corr_matrix is not None:
+            raise ValueError(
+                "Streamed QMC sampling requires a correlation-free graph; use "
+                "method=None for streamed correlated sampling (per-block "
+                "recolouring) or a single-shot sample()."
+            )
+        if executor == "cuda":
+            raise ValueError(cuda_limits())
+        if executor not in ("auto", None):
+            _resolve_executor(plan, keep, executor, correlator)  # its own errors
+        name = _method_name(method, total_size)
+        body = _compile.build_body(plan, keep, correlator)
+        # LHS stratifies over the whole run: block b draws its rows of the
+        # total_size-point stratification.
+        total = total_size if name == "lhs" else None
+
+        def run(b, seed):
+            q = _qmc.generate(
+                name, seed, block_size, plan.d_total, config.float_dtype(),
+                offset=b * block_size, total=total, device=device,
+            )
+            return pair(body(q))
+
+        return plan, run
+
     if _resolve_executor(plan, keep, executor, correlator) == "cuda":
         order = cuda_exec.keep_order(plan, keep)
         tape = cuda_exec.lowered(plan, order, device)
@@ -321,12 +415,8 @@ def _block_program(sink, block_size, executor="auto", correlator="imanconover", 
     body = _compile.build_body(plan, keep, correlator, generated=generated)
 
     def run(b, seed):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_derive_seed(seed, 0, b))
-        q = torch.rand(
-            (block_size, plan.d), generator=gen, dtype=config.float_dtype(), device=device
-        )
-        return pair(body(clamp_open_unit(q)))
+        q = _qmc.uniform(_derive_seed(seed, 0, b), block_size, plan.d, config.float_dtype(), device)
+        return pair(body(q))
 
     return plan, run
 
@@ -349,13 +439,15 @@ def sample_streaming(
 
     Returns a host (numpy) array of length ``size``; device memory is
     bounded by one block.  Raises on non-finite samples, as ``sample``.
+    ``method=`` streams one long QMC or antithetic sequence, equal to a
+    single-shot ``sample(method=...)`` of the same size bit for bit.
     """
-    if method is not None:
-        raise _not_ported(f"Streamed method={method!r} (QMC)", "A9")
     size = int(size)
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}.")
-    plan, run = _block_program(sink, block_size, executor, correlator)
+    plan, run = _block_program(
+        sink, block_size, executor, correlator, method=method, total_size=size
+    )
     seed = resolve_seed(random_state)
     out = None
     for b in range(-(-size // block_size)):
@@ -412,6 +504,12 @@ def estimate(
     bins with under/overflow, scipy's biased skew and Fisher kurtosis,
     ``where=`` not with ``quantiles``/``cvar``/``control``).
 
+    ``method="sobol"/"halton"/"lhs"/"antithetic"`` folds one long QMC or
+    antithetic sequence instead of the PRNG stream.  Its iid ``sem`` is
+    no valid QMC error bar: ``replicates=R`` re-randomises R streams and
+    reports the between-replicate ``sem``, and a QMC ``target_sem`` needs
+    it.
+
     ``target_sem`` / ``target_rel_sem`` run rounds, the first of ``size``
     draws, until the pooled ``sem`` (with ``replicates``, the
     between-replicate one) meets the target, ``max_size`` draws (default
@@ -421,8 +519,6 @@ def estimate(
     blocks) as they complete and resumes from the file; the file is
     removed once the result is final.
     """
-    if method is not None:
-        raise _not_ported(f"Streamed method={method!r} (QMC)", "A9")
     quantiles = tuple(float(q) for q in quantiles) if quantiles else ()
     for q in quantiles:
         if not 0.0 < q < 1.0:
@@ -441,6 +537,11 @@ def estimate(
     if where is not None:
         if not isinstance(where, Node):
             raise ValueError(f"where must be a graph node, got {where!r}.")
+        if getattr(where, "_vector_valued", False):
+            raise ValueError(
+                f"where condition {where!r} is vector-valued; condition on a "
+                "scalar functional of it instead."
+            )
         if quantiles or cvar:
             raise ValueError(
                 "where= does not compose with quantiles=/cvar= (the row-sort "
@@ -478,10 +579,19 @@ def estimate(
             "checkpoint= needs an explicit random_state: a run seeded from "
             "fresh entropy could never resume from its checkpoint."
         )
+    if sequential and replicates is None:
+        if (method or "").lower().strip() in ("sobol", "halton", "lhs"):
+            raise ValueError(
+                f"target_sem with method={method!r} needs replicates=R (e.g. "
+                "replicates=8): the iid sem is not a valid QMC error bar; the "
+                "between-replicate sem of R independently randomised streams "
+                "is the valid stopping statistic."
+            )
     seed = resolve_seed(random_state)
     opts = dict(
         quantiles=quantiles, cvar=cvar, histogram=histogram, moments=moments,
         correlator=correlator, control_node=control_node, where_node=where,
+        method=method,
     )
     final = dict(
         quantiles=quantiles, control_mu=control_mu, where=where, cvar=cvar,
@@ -667,6 +777,7 @@ def _estimate_carry(
     correlator="imanconover",
     control_node=None,
     where_node=None,
+    method=None,
     block_lo=0,
     n_blocks=None,
     last_count=None,
@@ -679,10 +790,14 @@ def _estimate_carry(
     of ``size`` draws, the window's last holding ``last_count`` draws.  A
     block's index is absolute, so its draws are those of the
     uninterrupted run (``start = b * block_size`` on the kernels,
-    ``_derive_seed(seed, 0, b)`` on the plain path)."""
+    ``_derive_seed(seed, 0, b)`` on the plain path, the method's points
+    ``b * block_size ..`` under ``method=``; ``size`` stays the run's total,
+    over which LHS stratifies)."""
     where_mode = where_node is not None
     aux = control_node if control_node is not None else where_node
-    plan, run = _block_program(sink, block_size, executor, correlator, extra=aux)
+    plan, run = _block_program(
+        sink, block_size, executor, correlator, extra=aux, method=method, total_size=size
+    )
     if plan.finalizers.get(sink._id) is not None:
         # A string-valued DiscreteDistribution samples indices on the
         # device; statistics of indices are not statistics of its values.
@@ -849,11 +964,15 @@ def _next_round(drawn, sem, tgt, max_size):
     return min(need, 3.0 * drawn, float(max_size - drawn))
 
 
-def _round_chunk(chunk, budget):
-    """One round's (per-replicate) draws: at least 1, at most ``budget``.
-    (The JAX package also rounds an LHS chunk up to a power of two, whose
-    program depends on the size; LHS waits for ROADMAP A9.)"""
-    return max(1, min(max(int(chunk), 1), int(budget)))
+def _round_chunk(chunk, budget, method=None):
+    """One round's (per-replicate) draws: at least 1, at most ``budget``;
+    an LHS chunk is rounded up to a power of two first, as in the JAX
+    package (whose LHS program is compiled per stratification size), so
+    both packages size the rounds alike."""
+    chunk = max(int(chunk), 1)
+    if method is not None and method.lower().strip() == "lhs":
+        chunk = 1 << (chunk - 1).bit_length()
+    return max(1, min(chunk, int(budget)))
 
 
 def _estimate_sequential(
@@ -902,7 +1021,8 @@ def _estimate_sequential_replicated(
     where, control_mu = final["where"], final["control_mu"]
     carries = [[] for _ in range(reps)]
     drawn, rounds = 0, 0
-    chunk = _round_chunk(pilot // reps, max(1, max_size // reps))
+    method = opts["method"]
+    chunk = _round_chunk(pilot // reps, max(1, max_size // reps), method)
     while True:
         for r in range(reps):
             carry = _estimate_carry(
@@ -923,7 +1043,7 @@ def _estimate_sequential_replicated(
                     ">= 2. Loosen the where condition or raise max_size."
                 )
             budget = max(1, (max_size - drawn) // reps)
-            chunk = _round_chunk(min(drawn // reps, (max_size - drawn) // reps), budget)
+            chunk = _round_chunk(min(drawn // reps, (max_size - drawn) // reps), budget, method)
             continue
         stats = _finalize_estimate(merged, drawn, **final)
         means = np.asarray(rep_means, np.float64)
@@ -939,7 +1059,7 @@ def _estimate_sequential_replicated(
             stats["replicates"] = reps
             return stats
         need = _next_round(drawn, sem, tgt, max_size)
-        chunk = _round_chunk(int(need) // reps, max(1, (max_size - drawn) // reps))
+        chunk = _round_chunk(int(need) // reps, max(1, (max_size - drawn) // reps), method)
 
 
 def _stream_fingerprint(sink, size, block_size, seg_blocks, seed, executor, opts):
@@ -952,7 +1072,7 @@ def _stream_fingerprint(sink, size, block_size, seg_blocks, seed, executor, opts
     parts = [
         _checkpoint.graph_fingerprint(sink),
         repr((
-            int(size), int(block_size), int(seg_blocks), executor, None,
+            int(size), int(block_size), int(seg_blocks), executor, opts["method"],
             tuple(opts["quantiles"]), tuple(opts["cvar"]), opts["histogram"],
             bool(opts["moments"]),
             _compile.correlator_token(_compile.resolve_correlator(opts["correlator"])),

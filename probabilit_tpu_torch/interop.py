@@ -14,10 +14,15 @@ import numpy as np
 
 from probabilit_tpu_torch.models import graph as _graph
 from probabilit_tpu_torch.models.distributions import (
+    CopulaDistribution,
     CumulativeDistribution,
     DiscreteDistribution,
     Distribution,
+    EllipticalCopulaDistribution,
+    EmpiricalCopulaDistribution,
     EmpiricalDistribution,
+    MarginalDistribution,
+    QuantileTransform,
 )
 
 __all__ = ["from_reference"]
@@ -36,7 +41,10 @@ def from_reference(sink):
     assign the same quantile columns.  Declared correlations are carried
     over as they are.  A subclass of the reference's ``Distribution`` (the
     ``Lognormal`` factory) becomes a ``Distribution`` of its family; the
-    table nodes carry their arrays over as numpy.
+    table nodes carry their arrays over as numpy; the copula nodes their
+    family and parameters (an empirical copula its pseudo-observations,
+    whose own ranks reproduce them); a ``MarginalDistribution`` its slice
+    and a ``QuantileTransform`` its family and parameters.
     """
     seen = {sink._id: sink}
     stack = [sink]
@@ -68,6 +76,21 @@ def from_reference(sink):
             node = CumulativeDistribution(np.array(ref.q), np.array(ref.cumulatives))
         elif name == "DiscreteDistribution":
             node = DiscreteDistribution(np.array(ref.values), np.array(ref.probabilities))
+        elif name == "CopulaDistribution":
+            node = CopulaDistribution(ref.family, ref.theta, ref.d)
+        elif name == "EllipticalCopulaDistribution":
+            node = EllipticalCopulaDistribution(ref.family, np.array(ref.corr), ref.df)
+        elif name == "EmpiricalCopulaDistribution":
+            node = EmpiricalCopulaDistribution(np.array(ref.pseudo))
+        elif name == "MarginalDistribution":
+            node = MarginalDistribution(mapping[ref.distr._id], ref.d)
+        elif name == "QuantileTransform":
+            node = QuantileTransform(
+                mapping[ref.node._id],
+                ref.distr,
+                *(convert(a) for a in ref.args),
+                **{k: convert(v) for k, v in ref.kwargs.items()},
+            )
         elif isinstance(cls, type) and issubclass(cls, _graph.Transform):
             node = cls(*(mapping[p._id] for p in ref.get_parents()))
         else:

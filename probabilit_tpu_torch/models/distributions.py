@@ -6,8 +6,13 @@ inverse CDF (``ops/ppf.py``) of its quantile column, and the three table
 nodes: ``EmpiricalDistribution`` (observed data), ``CumulativeDistribution``
 (a piecewise-linear CDF) and ``DiscreteDistribution`` (values with
 probabilities; non-numeric values are sampled as indices and gathered on
-the host at the output).  Multivariate, marginal and copula nodes are
-still to port (ROADMAP A8).
+the host at the output); and (``:107-139``, ``:328-659``) the
+multivariate ``Distribution`` with its ``MarginalDistribution`` slices,
+the copula nodes (``CopulaDistribution``, ``EllipticalCopulaDistribution``,
+``EmpiricalCopulaDistribution``), whose (n, d) draws come from a
+generator keyed by the node's quantile column (``ops/multivariate.py``),
+and ``QuantileTransform``, which pushes a (0, 1)-valued node through a
+family's wide-range inverse CDF.
 """
 
 from __future__ import annotations
@@ -28,6 +33,12 @@ __all__ = [
     "EmpiricalDistribution",
     "CumulativeDistribution",
     "DiscreteDistribution",
+    "MarginalDistribution",
+    "MultivariateDistribution",
+    "CopulaDistribution",
+    "EllipticalCopulaDistribution",
+    "EmpiricalCopulaDistribution",
+    "QuantileTransform",
     "interp",
 ]
 
@@ -147,12 +158,18 @@ class Distribution(AbstractDistribution):
         )
         return ("Distribution", self.distr, sig_args, sig_kwargs)
 
+    def _mv_dim(self):
+        """Event dimension of a multivariate distribution (scipy draws one
+        event once, on the host)."""
+        if not hasattr(self, "_mv_dim_cache"):
+            import scipy.stats as sps
+
+            frozen = getattr(sps, self.distr)(*self.args, **self.kwargs)
+            draw = np.atleast_2d(np.asarray(frozen.rvs(size=1, random_state=0)))
+            self._mv_dim_cache = draw.shape[-1]
+        return self._mv_dim_cache
+
     def _emit(self, ctx):
-        if _scipy_is_multivariate(self.distr):
-            raise NotImplementedError(
-                f"Multivariate distribution {self.distr!r} is not ported yet "
-                "(ROADMAP A8)."
-            )
         q = ctx.column(self)
 
         def unpack(arg):
@@ -160,6 +177,17 @@ class Distribution(AbstractDistribution):
 
         args = tuple(unpack(a) for a in self.args)
         kwargs = {k: unpack(v) for k, v in self.kwargs.items()}
+        if _scipy_is_multivariate(self.distr):
+            # (n, d) draws from a generator keyed by the column: the
+            # multivariate normal, Dirichlet and multinomial on the device,
+            # any other family through scipy's rvs on the host.
+            from probabilit_tpu_torch.ops import multivariate as mv
+
+            shape = (ctx.n, self._mv_dim())
+            native = mv.lookup(self.distr)
+            if native is not None:
+                return native(q, shape, *args, **kwargs)
+            return ppf.scipy_fallback_rvs(self.distr, q, shape, *args, **kwargs)
         return ppf.call(self.distr, q, *args, **kwargs)
 
 
@@ -335,3 +363,254 @@ class DiscreteDistribution(AbstractDistribution):
             return values[np.asarray(idx)]
 
         return gather
+
+
+class CopulaDistribution(AbstractDistribution):
+    """(n, d) draws with uniform marginals and an Archimedean copula's
+    dependence.  Unpack through ``MarginalDistribution`` slices (the
+    ``ClaytonCopula`` / ``GumbelCopula`` / ``FrankCopula`` factories), then
+    shape each marginal with ``QuantileTransform``.
+
+    The node consumes one quantile column and draws from a generator keyed
+    by it (``ops/multivariate._key_from_q``).
+
+    >>> CopulaDistribution("clayton", theta=2.0, d=3)
+    CopulaDistribution("clayton", theta=2, d=3)
+    """
+
+    is_leaf = True
+    # (n, d)-valued: cannot join a correlate() declaration (Plan checks).
+    _vector_valued = True
+    # Its randomness comes from a column-keyed generator: a streamed
+    # method= run refuses the graph.
+    _key_seeded = True
+
+    def __init__(self, family, theta, d):
+        from probabilit_tpu_torch.ops import copulas
+
+        theta, d = copulas.validate(family, theta, d)
+        self.family = str(family)
+        self.theta = theta
+        self.d = d
+        super().__init__()
+
+    def __repr__(self):
+        return f'{type(self).__name__}("{self.family}", theta={self.theta:g}, d={self.d})'
+
+    def get_parents(self):
+        return iter(())
+
+    def _rewire(self, update):
+        pass
+
+    def _static_signature(self):
+        return ("CopulaDistribution", self.family, self.theta, self.d)
+
+    def _mv_dim(self):
+        return self.d
+
+    def _emit(self, ctx):
+        from probabilit_tpu_torch.ops import copulas
+        from probabilit_tpu_torch.ops import multivariate as mv
+
+        q = ctx.column(self)
+        return copulas.sample(
+            self.family, mv._key_from_q(q), (ctx.n, self.d), self.theta,
+            config.float_dtype(), q.device,
+        )
+
+
+class MarginalDistribution(Transform):
+    """A 'slice' of a multivariate distribution.
+
+    >>> distr = Distribution("multinomial", n=10, p=[0.1, 0.2, 0.7])
+    >>> MarginalDistribution(distr, d=0)
+    MarginalDistribution(Distribution("multinomial", n=10, p=[0.1, 0.2, 0.7]), d=0)
+    """
+
+    is_leaf = False
+
+    def __init__(self, distr, d):
+        self.distr = distr
+        self.d = d
+        super().__init__()
+
+    def get_parents(self):
+        yield self.distr
+
+    def _rewire(self, update):
+        self.distr = update(self.distr)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.distr}, d={self.d})"
+
+    def _static_signature(self):
+        return ("MarginalDistribution", self.d)
+
+    def _emit(self, ctx):
+        return torch.atleast_2d(ctx.value(self.distr))[:, self.d]
+
+
+class EllipticalCopulaDistribution(AbstractDistribution):
+    """(n, d) uniform-marginal draws with Gaussian or Student-t dependence
+    (a shape matrix and, for the t, ``df``); use the ``GaussianCopula`` /
+    ``TCopula`` factories.  Keyed by its column as ``CopulaDistribution``."""
+
+    is_leaf = True
+    _vector_valued = True
+    _key_seeded = True
+
+    def __init__(self, family, corr, df=None):
+        from probabilit_tpu_torch.ops import copulas
+
+        chol, d, df = copulas.validate_elliptical(family, corr, df)
+        self.family = str(family)
+        self.corr = np.asarray(corr, np.float64)
+        self._chol = chol
+        self.df = df
+        self.d = d
+        super().__init__()
+
+    def __repr__(self):
+        extra = "" if self.df is None else f", df={self.df:g}"
+        return f'{type(self).__name__}("{self.family}", d={self.d}{extra})'
+
+    def get_parents(self):
+        return iter(())
+
+    def _rewire(self, update):
+        pass
+
+    def _static_signature(self):
+        return ("EllipticalCopulaDistribution", self.family, self.corr.tobytes(), self.df)
+
+    def _mv_dim(self):
+        return self.d
+
+    def _emit(self, ctx):
+        from probabilit_tpu_torch.ops import copulas
+        from probabilit_tpu_torch.ops import multivariate as mv
+
+        q = ctx.column(self)
+        return copulas.elliptical_sample(
+            self.family, mv._key_from_q(q), ctx.n, self._chol, self.df,
+            config.float_dtype(), q.device,
+        )
+
+
+class EmpiricalCopulaDistribution(AbstractDistribution):
+    """(n, d) draws with the empirical dependence of observed data: rows of
+    its rank pseudo-observations ``rank/(m+1)``, bootstrapped.  Use the
+    ``EmpiricalCopula`` factory.  Keyed by its column as
+    ``CopulaDistribution``."""
+
+    is_leaf = True
+    _vector_valued = True
+    _key_seeded = True
+
+    def __init__(self, data):
+        from probabilit_tpu_torch.ops import copulas
+
+        self.pseudo = copulas.empirical_pseudo_observations(data)
+        self.d = self.pseudo.shape[1]
+        super().__init__()
+
+    def __repr__(self):
+        return f"{type(self).__name__}(m={self.pseudo.shape[0]}, d={self.d})"
+
+    def get_parents(self):
+        return iter(())
+
+    def _rewire(self, update):
+        pass
+
+    def _static_signature(self):
+        return ("EmpiricalCopulaDistribution", self.pseudo.tobytes())
+
+    def _mv_dim(self):
+        return self.d
+
+    def _emit(self, ctx):
+        from probabilit_tpu_torch.ops import copulas
+        from probabilit_tpu_torch.ops import multivariate as mv
+
+        q = ctx.column(self)
+        return copulas.empirical_sample(
+            mv._key_from_q(q), ctx.n, self.pseudo, config.float_dtype(), q.device
+        )
+
+
+class QuantileTransform(Transform):
+    """Push a (0, 1)-valued node through a named family's inverse CDF.
+
+    Turns a copula marginal, a computed probability or a rank statistic
+    into draws from a scipy.stats family.  Parameters may be numbers or
+    nodes.  Values are clamped to the open unit interval at the float's
+    normal-range floor (``ops/qmc.clamp_open_unit_wide``), not the 2^-24
+    grid, and families with a wide ppf (norm, lognorm: ``ppf.call_wide``)
+    resolve them down to ~1e-37 in float32.
+
+    >>> QuantileTransform(Distribution("uniform"), "norm", loc=1)
+    QuantileTransform(Distribution("uniform"), "norm", loc=1)
+    """
+
+    def __init__(self, node, distr, *args, **kwargs):
+        if not isinstance(node, Node):
+            raise TypeError(f"QuantileTransform needs a graph node, got {node!r}.")
+        self.node = node
+        self.distr = str(distr)
+        self.args = args
+        self.kwargs = kwargs
+        super().__init__()
+
+    def __repr__(self):
+        if Transform._repr_capped():
+            return f'{type(self).__name__}(..., "{self.distr}")'
+        with Transform._repr_frame():
+            parts = [repr(self.node), f'"{self.distr}"']
+            parts += [repr(a) for a in self.args]
+            parts += [f"{k}={v!r}" for k, v in self.kwargs.items()]
+        return f"{type(self).__name__}({', '.join(parts)})"
+
+    def get_parents(self):
+        yield self.node
+        for arg in self.args + tuple(self.kwargs.values()):
+            if isinstance(arg, Node):
+                yield arg
+
+    def _rewire(self, update):
+        self.node = update(self.node)
+        self.args = tuple(update(a) for a in self.args)
+        self.kwargs = {k: update(v) for k, v in self.kwargs.items()}
+
+    def _static_signature(self):
+        sig_args = tuple("<node>" if isinstance(a, Node) else repr(a) for a in self.args)
+        sig_kwargs = tuple(
+            (k, "<node>" if isinstance(v, Node) else repr(v))
+            for k, v in sorted(self.kwargs.items())
+        )
+        return ("QuantileTransform", self.distr, sig_args, sig_kwargs)
+
+    def _emit(self, ctx):
+        from probabilit_tpu_torch.ops.qmc import clamp_open_unit_wide
+
+        def unpack(arg):
+            return ctx.value(arg) if isinstance(arg, Node) else arg
+
+        u = clamp_open_unit_wide(torch.as_tensor(ctx.value(self.node)).to(config.float_dtype()))
+        args = tuple(unpack(a) for a in self.args)
+        kwargs = {k: unpack(v) for k, v in self.kwargs.items()}
+        return ppf.call_wide(self.distr, u, *args, **kwargs)
+
+
+def MultivariateDistribution(distr, *args, **kwargs):
+    """The marginal slices of a multivariate distribution, one per event
+    dimension.
+
+    >>> d1, d2 = MultivariateDistribution("dirichlet", alpha=[1, 2])
+    >>> d1
+    MarginalDistribution(Distribution("dirichlet", alpha=[1, 2]), d=0)
+    """
+    node = Distribution(distr, *args, **kwargs)
+    d = node._mv_dim()
+    yield from (MarginalDistribution(node, d=i) for i in range(d))

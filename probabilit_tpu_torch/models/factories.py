@@ -5,8 +5,9 @@ re-parametrizations on top of
 :class:`~probabilit_tpu_torch.models.distributions.Distribution`.  The
 ``Lognormal`` parameters are themselves graph expressions, so composite
 distributions work; the ``Triangular`` percentile fit is a damped Newton
-solve on the triangular CDF, in numpy.  The copula factories wait for the
-port's copulas (ROADMAP A8).
+solve on the triangular CDF, in numpy; and (``:191-295``) the copula
+factories, each returning the ``MarginalDistribution`` slices of one
+copula node.
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ __all__ = [
     "Lognormal",
     "PERT",
     "Triangular",
+    "ClaytonCopula",
+    "GumbelCopula",
+    "FrankCopula",
+    "GaussianCopula",
+    "TCopula",
+    "EmpiricalCopula",
 ]
 
 
@@ -182,3 +189,70 @@ def Triangular(low, mode, high, low_perc=0.1, high_perc=0.9):
             low=low, mode=mode, high=high, low_perc=low_perc, high_perc=high_perc
         )
     return Distribution("triang", loc=loc, scale=scale, c=c)
+
+
+def _copula(family, theta, d):
+    from probabilit_tpu_torch.models.distributions import CopulaDistribution, MarginalDistribution
+
+    node = CopulaDistribution(family, theta=theta, d=d)
+    return tuple(MarginalDistribution(node, d=i) for i in range(d))
+
+
+def _slices(node):
+    from probabilit_tpu_torch.models.distributions import MarginalDistribution
+
+    return tuple(MarginalDistribution(node, d=i) for i in range(node.d))
+
+
+def ClaytonCopula(theta, d=2):
+    """``d`` dependent Uniform(0,1) nodes with Clayton-copula dependence:
+    lower-tail dependent (``lambda_L = 2^(-1/theta)``), Kendall's
+    ``tau = theta / (theta + 2)``.  Shape the marginals with
+    ``QuantileTransform``.
+
+    >>> u1, u2 = ClaytonCopula(theta=2.0)
+    >>> u1
+    MarginalDistribution(CopulaDistribution("clayton", theta=2, d=2), d=0)
+    """
+    return _copula("clayton", theta, d)
+
+
+def GumbelCopula(theta, d=2):
+    """``d`` dependent Uniform(0,1) nodes with Gumbel-copula dependence:
+    upper-tail dependent (``lambda_U = 2 - 2^(1/theta)``), ``tau = 1 -
+    1/theta``; ``theta=1`` is independence."""
+    return _copula("gumbel", theta, d)
+
+
+def FrankCopula(theta, d=2):
+    """``d`` dependent Uniform(0,1) nodes with Frank-copula dependence:
+    tail-free and radially symmetric; ``theta > 0`` for any ``d``, and
+    ``-30 <= theta < 0`` (negative dependence) for ``d = 2``."""
+    return _copula("frank", theta, d)
+
+
+def GaussianCopula(corr):
+    """d dependent Uniform(0,1) nodes with Gaussian-copula dependence on the
+    shape matrix ``corr`` (calibrate from rank data with
+    ``ops.copulas.rho_from_tau``); no tail dependence."""
+    from probabilit_tpu_torch.models.distributions import EllipticalCopulaDistribution
+
+    return _slices(EllipticalCopulaDistribution("gaussian", corr))
+
+
+def TCopula(corr, df=4.0):
+    """d dependent Uniform(0,1) nodes with Student-t copula dependence:
+    symmetric tail dependence ``2 t_{df+1}(-sqrt((df+1)(1-rho)/(1+rho)))``
+    at shape ``rho``."""
+    from probabilit_tpu_torch.models.distributions import EllipticalCopulaDistribution
+
+    return _slices(EllipticalCopulaDistribution("t", corr, df=df))
+
+
+def EmpiricalCopula(data):
+    """d dependent nodes with the rank dependence of ``data`` (an
+    ``(observations, d)`` array): a bootstrap of its rank
+    pseudo-observations, no parametric family assumed."""
+    from probabilit_tpu_torch.models.distributions import EmpiricalCopulaDistribution
+
+    return _slices(EmpiricalCopulaDistribution(data))

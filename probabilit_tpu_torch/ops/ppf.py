@@ -56,7 +56,10 @@ __all__ = [
     "static_cdf_table",
     "static_quantile_table",
     "scipy_fallback_ppf",
+    "scipy_fallback_rvs",
     "is_multivariate",
+    "register_wide",
+    "call_wide",
     "score_call",
     "score_emit",
 ]
@@ -74,6 +77,30 @@ def register(name):
 
 def lookup(name):
     return _REGISTRY.get(name)
+
+
+# Deep-tail variants for DERIVED quantiles (``QuantileTransform``): the
+# generators' uniforms never fall below the 2^-24 float32 grid, so the hot
+# path's ppfs may saturate there; a quantile computed by a graph (a copula
+# marginal, a tilt) can be far smaller, and a family registered here
+# resolves it down to the float's normal range (~1e-37 in float32).
+_WIDE_REGISTRY = {}
+
+
+def register_wide(name):
+    def deco(fn):
+        _WIDE_REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def call_wide(name, q, *args, **kwargs):
+    """``call``, with the family's deep-tail ppf where it has one."""
+    kernel = _WIDE_REGISTRY.get(name)
+    if kernel is not None:
+        return kernel(q, *args, **kwargs)
+    return call(name, q, *args, **kwargs)
 
 
 def families():
@@ -137,6 +164,16 @@ def expon(q, loc=0.0, scale=1.0):
 @register("lognorm")
 def lognorm(q, s, loc=0.0, scale=1.0):
     return _f(loc) + _f(scale) * torch.exp(_f(s) * special.ndtri_fast(_f(q)))
+
+
+@register_wide("norm")
+def norm_wide(q, loc=0.0, scale=1.0):
+    return _f(loc) + _f(scale) * special.ndtri_fast_wide(_f(q))
+
+
+@register_wide("lognorm")
+def lognorm_wide(q, s, loc=0.0, scale=1.0):
+    return _f(loc) + _f(scale) * torch.exp(_f(s) * special.ndtri_fast_wide(_f(q)))
 
 
 @register("triang")
@@ -1338,6 +1375,20 @@ def scipy_fallback_ppf(name, q, *args, **kwargs):
     frozen = dist(*(host(a) for a in args), **{k: host(v) for k, v in kwargs.items()})
     out = frozen.ppf(q.detach().cpu().numpy().astype(np.float64))
     return torch.from_numpy(np.asarray(out, config.np_float_dtype())).to(q.device)
+
+
+def scipy_fallback_rvs(name, q, shape, *args, **kwargs):
+    """A multivariate family without a sampler of its own: scipy's ``rvs``
+    on the host, seeded with ``int(q[0] * 2**20)`` (one read of the
+    column's first value), reshaped to ``shape`` and returned on ``q``'s
+    device in the float dtype."""
+    import scipy.stats as sps
+
+    seed = int(float(q.reshape(-1)[0]) * 2**20)
+    frozen = getattr(sps, name)(*args, **kwargs)
+    draws = frozen.rvs(size=shape[0], random_state=seed)
+    out = np.asarray(draws, config.np_float_dtype()).reshape(shape)
+    return torch.from_numpy(out).to(q.device)
 
 
 # Normal-score shortcuts: families whose ppf is an elementwise function

@@ -7,7 +7,8 @@ the Abramowitz & Stegun 7.1.26 normal CDF and its survival and scaled
 forms, ``expm1_safe``, and the incomplete gamma and beta functions with
 their safeguarded-Newton inverses (``gammaincinv``, ``betaincinv``), the
 generic ``continuous_ppf_newton`` and the discrete
-``discrete_ppf_bisect``.  The device kernels
+``discrete_ppf_bisect``; and for the copulas the Student-t CDF ``t_cdf``
+and the chi-square draws ``chi2_draws``.  The device kernels
 (``csrc/sampling_math.cuh``, ``csrc/special_ops.cuh``) transcribe the
 same coefficients, so the plain and kernel paths compute the same
 functions.
@@ -46,6 +47,8 @@ __all__ = [
     "gammainccinv",
     "betaincinv",
     "continuous_ppf_newton",
+    "t_cdf",
+    "chi2_draws",
 ]
 
 
@@ -387,7 +390,8 @@ def _betainc(a, b, x, log_beta, cf_iters):
     x)`` or ``(b, a, 1 - x)``): elementwise the same arithmetic as
     evaluating both and selecting.
     """
-    xc = torch.clamp(x, _TINY, 1.0 - 1e-7)
+    # The float32 kernel's ceiling; float64 keeps its own last step below 1.
+    xc = torch.clamp(x, _TINY, 1.0 - (1e-7 if x.dtype == torch.float32 else 2.0**-53))
     log_bt = log_beta(a + b) - log_beta(a) - log_beta(b) + a * torch.log(xc) + b * torch.log1p(-xc)
     bt = torch.exp(log_bt)
     direct = xc < (a + 1.0) / (a + b + 2.0)
@@ -629,3 +633,46 @@ def discrete_ppf_bisect(cdf, q, hi, max_iters=40):
         lo = torch.where(go_right, mid, lo)
         hi = torch.where(go_right, hi, mid)
     return hi
+
+
+def t_cdf(x, df):
+    """Student-t CDF through the regularized incomplete beta function:
+    ``P(T <= x) = 1 - I_z(df/2, 1/2) / 2`` for ``x >= 0`` with
+    ``z = df / (df + x^2)``, mirrored below zero.  The tail is the
+    computed quantity, so both tails keep their relative accuracy.
+    float32 takes the kernel's 40-pair ``betainc_kernel`` (as the JAX
+    package's float32 path does), float64 ``betainc``."""
+    dtype = x.dtype if x.is_floating_point() else torch.float32
+    x = x.to(dtype)
+    df = torch.as_tensor(df, dtype=dtype, device=x.device)
+    z = df / (df + x * x)
+    half = torch.full((), 0.5, dtype=dtype, device=x.device)
+    incomplete = betainc_kernel if dtype == torch.float32 else betainc
+    tail = 0.5 * incomplete(0.5 * df, half, z)
+    return torch.where(x >= 0, 1.0 - tail, tail)
+
+
+def chi2_draws(generator, df, n, dtype, device):
+    """(n,) chi-square(df) draws from ``generator`` (the t copula's and the
+    gamma frailty's mixing).
+
+    Integer df in [1, 128] takes the exact loop-free decomposition
+    ``chi2(2k + r) = -2 log(U_1 ... U_k) + r Z^2``: k uniforms and, for odd
+    df, one normal.  Any other df inverts the incomplete gamma function of
+    one uniform (``gammaincinv``).
+    """
+    from probabilit_tpu_torch.ops.qmc import clamp_open_unit
+
+    fdf = float(df)
+    if fdf.is_integer() and 1.0 <= fdf <= 128.0:
+        k, r = divmod(int(fdf), 2)
+        w = torch.zeros((n,), dtype=dtype, device=device)
+        if k:
+            u = clamp_open_unit(torch.rand((k, n), generator=generator, dtype=dtype, device=device))
+            w = -2.0 * torch.log(u).sum(dim=0)
+        if r:
+            z = torch.randn((n,), generator=generator, dtype=dtype, device=device)
+            w = w + z * z
+        return torch.clamp(w, min=torch.finfo(dtype).tiny)
+    u = clamp_open_unit(torch.rand((n,), generator=generator, dtype=dtype, device=device))
+    return 2.0 * gammaincinv(torch.full((n,), 0.5 * fdf, dtype=dtype, device=device), u)

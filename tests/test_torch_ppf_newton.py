@@ -203,5 +203,7 @@ def test_table_tier_and_unregistered_families_name_a8(name, args):
         np.testing.assert_allclose(got, ref, rtol=4e-6, atol=4e-6)
     else:
         np.testing.assert_array_equal(got, ref)
-    with pytest.raises(NotImplementedError, match="A8"):
-        Distribution("multivariate_normal", mean=[0, 0]).sample(4, random_state=0)
+    # A multivariate node samples now (ops/multivariate.py), (n, d) as in
+    # the JAX package.
+    mvn = Distribution("multivariate_normal", mean=[0, 0]).sample(4, random_state=0)
+    assert mvn.shape == (4, 2) and bool(torch.isfinite(mvn).all())

@@ -176,8 +176,22 @@ def test_executor_arguments_are_checked():
         sink.sample(10, executor="cuda")  # keep-everything is refused
     with pytest.raises(ValueError, match="Unknown executor"):
         sink.sample(10, executor="xla")
-    with pytest.raises(NotImplementedError, match="A9"):
-        sink.sample(10, method="sobol")
+    # QMC is ported: method= runs on the plain executor, and the kernel
+    # refuses it (test_cuda_refusal_states_its_limits).
+    out = sink.sample(10, method="sobol")
+    assert out.shape == (10,) and bool(torch.isfinite(out).all())
+
+
+def test_cuda_refusal_states_its_limits():
+    """executor='cuda' refuses method= with a message that states what the
+    kernel takes now (int32 and bool values included) and what it does not."""
+    sink = benchmarks.mixed_dag_20()
+    with pytest.raises(ValueError) as err:
+        sink.sample(10, random_state=0, gc_strategy=[], method="sobol", executor="cuda")
+    message = str(err.value)
+    assert "method=None" in message and "int32 and bool values" in message
+    assert "copula" in message and "QuantileTransform" in message
+    assert "no integer or boolean" not in message
 
 
 @pytest.fixture

@@ -148,7 +148,8 @@ def test_error_paths():
         streaming.estimate(x, 1024, target_rel_sem=-1.0, random_state=0)
     with pytest.raises(ValueError, match="max_size"):
         streaming.estimate(x, 1024, target_sem=0.1, max_size=512, random_state=0)
-    with pytest.raises(NotImplementedError, match="A9"):  # QMC stopping waits for A9
+    # QMC sequential stopping needs replicates (the between-replicate sem).
+    with pytest.raises(ValueError, match="QMC error bar"):
         streaming.estimate(x, 1024, target_sem=0.1, method="sobol", random_state=0)
 
 

@@ -129,12 +129,22 @@ def test_ppf_takes_tensor_parameters():
 
 
 def test_unported_family_names_the_roadmap_item():
-    # poisson is ported since (the CDF-table tier, exact); a multivariate
-    # node is not (ROADMAP A8).
+    # poisson is ported since (the CDF-table tier, exact), and the
+    # multivariate nodes too: a marginal slice samples, while the (n, 2)
+    # node plus an (n,) constant fails to broadcast, as in the JAX package.
+    from probabilit_tpu.models.distributions import Distribution as JaxDistribution
+
+    from probabilit_tpu_torch.models.distributions import MarginalDistribution
+
     got = ppf.call("poisson", torch.from_numpy(Q), mu=2.0)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_ppf.call("poisson", jnp.asarray(Q), mu=2.0)))
-    with pytest.raises(NotImplementedError, match="A8"):
+    mvn = Distribution("multivariate_normal", mean=[0, 0])
+    out = (MarginalDistribution(mvn, 1) + 1.0).sample(4000, random_state=0).numpy()
+    assert out.shape == (4000,) and abs(out.mean() - 1.0) < 0.1
+    with pytest.raises(RuntimeError):
         (Distribution("multivariate_normal", mean=[0, 0]) + 1.0).sample(4, random_state=0)
+    with pytest.raises(ValueError, match="[Ii]ncompatible shapes"):
+        (JaxDistribution("multivariate_normal", mean=[0, 0]) + 1.0).sample(4, random_state=0)
 
 
 def test_clamp_open_unit_matches_jax():

@@ -388,16 +388,22 @@ def test_sibling_and_disjoint_controls():
      "streamed_method"],
 )
 def test_options_out_of_scope_raise(option, tmp_path):
-    """QMC (A9) and ``estimate_many`` (A7b) still raise.  The sequential
-    options and ``checkpoint=`` raised until they were ported; now they
-    run (``tests/test_torch_sequential.py`` holds them to the analytic
-    values) and a checkpoint without a ``random_state`` is refused (R3)."""
+    """``estimate_many`` (A7b) still raises.  The sequential options,
+    ``checkpoint=`` and ``method=`` raised until they were ported; now they
+    run (``tests/test_torch_sequential.py`` and
+    ``tests/test_torch_qmc_streaming.py`` hold them to the analytic
+    values and to ``sample``) and a checkpoint without a ``random_state``
+    is refused (R3)."""
     s = Distribution("norm", loc=3.0)
-    if option in ("method", "estimate_many", "streamed_method"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            {"method": lambda: streaming.estimate(s, 100, method="sobol"),
-             "estimate_many": lambda: streaming.estimate_many([s], 100),
-             "streamed_method": lambda: streaming.sample_streaming(s, 100, method="lhs")}[option]()
+    if option == "estimate_many":
+        with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+            streaming.estimate_many([s], 100)
+    elif option == "method":
+        st = streaming.estimate(s, 4096, block_size=1024, method="sobol", random_state=0)
+        assert st["n"] == 4096 and abs(st["mean"] - 3.0) < 1e-2
+    elif option == "streamed_method":
+        out = streaming.sample_streaming(s, 100, block_size=64, method="lhs", random_state=0)
+        np.testing.assert_array_equal(out, s.sample(100, random_state=0, method="lhs").numpy())
     elif option == "target_sem":
         st = streaming.estimate(s, 100, target_sem=0.1, random_state=0)
         assert st["converged"] and st["sem"] <= 0.1 and st["rounds"] >= 1

@@ -204,9 +204,18 @@ def test_table_drivers_are_generatable():
 
 
 def test_multivariate_node_names_a8():
-    sink = Distribution("multivariate_normal", mean=[0, 0]) + 1.0
-    with pytest.raises(NotImplementedError, match="A8"):
-        sink.sample(10, random_state=0)
+    # Ported since: the multivariate node samples (n, d) from a generator
+    # keyed by its column, its marginals are slices, and it is no table
+    # (the kernels refuse it).
+    from probabilit_tpu_torch.engine import cuda_exec
+    from probabilit_tpu_torch.models.distributions import MultivariateDistribution
+
+    a, b = MultivariateDistribution("multivariate_normal", mean=[0, 0], cov=[[1, 0.8], [0.8, 1]])
+    sink = a + b + 1.0
+    x = sink.sample(20000, random_state=0).numpy()
+    assert x.shape == (20000,) and abs(x.mean() - 1.0) < 0.05 and abs(x.var() - 3.6) < 0.15
+    assert not cuda_exec._table_node_ok(a.distr)
+    assert not cuda_exec.supports(tcompile.get_plan(sink), {sink._id})
 
 
 def _jax_table_risk_correlated(seed=2027):
