@@ -73,8 +73,10 @@ The streamed path, ``estimate`` and ``sample_streaming``:
 
 13. (run before phase 11) holds both kernels at a ``start`` and an ``n``
     that are no multiples of 4 against their twins (the tolerances of
-    phases 4 and 8) and K1's rows bitwise against the rows of a longer
-    run from sample 0 (the float4 path), down to n = 1; and runs two
+    phases 4 and 8; the Newton family graph's as phase 14 holds them) and
+    K1's rows bitwise against the rows of a longer run from sample 0 (the
+    float4 path), down to n = 1, for ``mixed_dag_20``,
+    ``mixed_correlated_50`` and the Newton family graph; and runs two
     graphs that differ only in their constants, which must share one
     library and each match its own twin.
 
@@ -109,7 +111,12 @@ The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
     geom and randint), p > 1e-4 each; K1 of each graph is timed at 1e8
     with its bound (``OP_COST``: a Newton op at the twin's mean trip count
     on the phase's draws times one trip's floating-point operations), the
-    twin at 2^22.
+    twin at 2^22.  The Newton graph adds ``sample_streaming`` against
+    ``sample`` (2 blocks of 2^24 and a partial one) bitwise, and a second
+    bound re-priced at the Newton tier's own counts (the series terms and
+    fraction pairs its stopping rule takes on the same draws, counted by
+    ``engine/newton_tier.py``); each of the 15 Newton families alone (one
+    node a graph) is timed at 1e8 with both bounds and its counts.
 15. ``benchmarks.portfolio_var()``, the correlated portfolio of
     ``examples/03_portfolio_var.py`` (a t(df = 4), a lognormal and a
     normal; the analyst's guess repaired by ``nearest_correlation_matrix``):
@@ -118,10 +125,13 @@ The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
     drivers' normal scores (the t's through scipy's CDF on the host, then
     ``ndtri``) must carry the repaired target within 2e-3 at 1e7; the
     sink's mean and std through ``cuda`` and ``None`` must agree within 5
-    standard errors; ``estimate(1e9, quantiles=(0.01, 0.05, 0.5),
-    executor="auto")`` must launch K1 and K2 60 times each and agree with
-    the one-shot run within 5 standard errors; both calls are timed, with
-    the host share.
+    standard errors; K1 launched block by block as ``estimate`` launches
+    it (3 blocks of 2^24 and a partial one) must equal one launch over the
+    same rows bitwise, given one recolour transform; ``estimate(1e9,
+    quantiles=(0.01, 0.05, 0.5), executor="auto")`` must launch K1 and K2
+    60 times each and agree with the one-shot run within 5 standard
+    errors; both calls are timed, with the host share, and K1 with both
+    bounds (phase 14's).
 
 The table branch (K1's ``TABLE_CDF``, ``TABLE_DISCRETE`` and
 ``TABLE_INTERP`` rows, ``csrc/table_ops.cuh``) and the plain path's table
@@ -346,6 +356,12 @@ OP_COST.update({f"PPF_{name.upper()}": (0, flops) for name, flops in FAMILY_FLOP
 # the partial numerator with its division, two guarded reciprocals).
 GAMMA_GUESS, GAMMA_TRIP = _WIDE + 2 * 40 + 20, 48 * 7 + 20
 BETA_GUESS, BETA_TRIP = _WIDE + 3 * 40 + 30, 40 * 58 + 40
+# The re-priced bound (the Newton tier's stopped fractions): a trip's own
+# work (20 gamma, 40 beta) and each series term (7) or fraction pair (58)
+# that the tier's stopping rule takes on the same draws, counted per lane
+# by engine/newton_tier.py.
+GAMMA_TRIP_OWN, GAMMA_TERM = 20, 7
+BETA_TRIP_OWN, BETA_PAIR = 40, 58
 # The table rows, per sample: a search over nb boundaries takes
 # ceil(log2(nb + 1)) steps of a shared load, a compare and a select (3
 # operations); TABLE_CDF then converts the count (1), TABLE_DISCRETE loads
@@ -407,55 +423,35 @@ def tape_cost(tape, cuda_exec, newton=None, int_cost=None):
     return ints, flops
 
 
-def newton_inverses(torch, name, args, q):
-    """The incomplete-function inverses ``ppf_<name>`` (csrc/ppf_ops.cuh)
-    calls on the quantiles ``q``: ``(kind, a, b, p)``."""
-    from probabilit_tpu_torch.ops import special
-
-    def full(v):
-        return torch.full_like(q, float(v))
-
-    if name in ("gamma", "loggamma", "nakagami"):
-        return "gamma", full(args[0]), None, q
-    if name == "invgamma":
-        return "gamma", full(args[0]), None, 1.0 - q
-    if name in ("chi2", "chi"):
-        return "gamma", full(0.5 * args[0]), None, q
-    if name == "maxwell":
-        return "gamma", full(1.5), None, q
-    if name == "dgamma":
-        p = torch.where(q < 0.5, 1.0 - (2.0 * q).clamp(1e-7, 1.0), (2.0 * q - 1.0).clamp(0.0, 0.9999999))
-        return "gamma", full(args[0]), None, p
-    if name == "gengamma":
-        return "gamma", full(args[0]), None, q if args[1] > 0 else 1.0 - q
-    if name == "argus":
-        p_chi = special.gammainc_kernel(torch.tensor(1.5), torch.tensor(0.5 * args[0] ** 2))
-        return "gamma", full(1.5), None, (1.0 - q) * p_chi.to(q.device)
-    if name in ("beta", "betaprime"):
-        return "beta", full(args[0]), full(args[1]), q
-    if name == "t":
-        return "beta", full(0.5 * args[0]), full(0.5), 2.0 * torch.minimum(q, 1.0 - q)
-    if name == "f":
-        return "beta", full(0.5 * args[0]), full(0.5 * args[1]), q
-    if name == "rdist":
-        return "beta", full(0.5 * args[0]), full(0.5 * args[0]), q
-    raise KeyError(name)
-
-
 def newton_cost(torch, name, args, q):
-    """(mean trips, float32 operations per sample) of a Newton family's
-    op on the quantiles ``q``: the twin's trips (``special.newton_*``, under
-    ``kernel_safe_special``, each lane's own) times one trip's operations,
-    plus the guess."""
+    """A Newton family's op on the quantiles ``q``, priced two ways:
+    ``{"trips": the twin's mean trips, "flops": its float32 operations per
+    sample at those trips with fixed-length fractions, "tier_trips",
+    "tier_inner": the Newton tier's mean trips and series terms or
+    fraction pairs per sample (engine/newton_tier.py), "tier_flops": the
+    operations per sample at those counts}``, each plus the guess."""
+    from probabilit_tpu_torch.engine import newton_tier
     from probabilit_tpu_torch.ops import special
 
-    kind, a, b, p = newton_inverses(torch, name, args, q)
+    kind, a, b, p = newton_tier.family_args(name, q, args)
+    n = q.numel()
     with special.kernel_safe_special():
         if kind == "gamma":
-            trips = special.newton_gammaincinv(a, p)[1] / q.numel()
-            return trips, GAMMA_GUESS + trips * GAMMA_TRIP
-        trips = special.newton_betaincinv(a, b, p)[1] / q.numel()
-        return trips, BETA_GUESS + trips * BETA_TRIP
+            trips = special.newton_gammaincinv(a, p)[1] / n
+            _, tier_trips, inner = newton_tier.gammaincinv(a, p)
+        else:
+            trips = special.newton_betaincinv(a, b, p)[1] / n
+            _, tier_trips, inner = newton_tier.betaincinv(a, b, p)
+    tier_trips = tier_trips.double().mean().item()
+    inner = inner.double().mean().item()
+    if kind == "gamma":
+        flops = GAMMA_GUESS + trips * GAMMA_TRIP
+        tier_flops = GAMMA_GUESS + tier_trips * GAMMA_TRIP_OWN + inner * GAMMA_TERM
+    else:
+        flops = BETA_GUESS + trips * BETA_TRIP
+        tier_flops = BETA_GUESS + tier_trips * BETA_TRIP_OWN + inner * BETA_PAIR
+    return {"trips": trips, "flops": flops, "tier_trips": tier_trips, "tier_inner": inner,
+            "tier_flops": tier_flops}
 
 
 def stats_cost(k):
@@ -615,6 +611,8 @@ def generated_tapes(cuda_exec, _compile):
     for label, (sink, nodes) in family_graphs().items():
         families[label] = tape(sink)
         families[f"{label}, all nodes"] = tape(sink, family_keep(nodes))
+    for name in cuda_exec.INCOMPLETE_FAMILY_CAPS:
+        families[f"newton family {name}"] = tape(newton_family(name))
     typed = {}
     sink, leaves, _ = typed_ops()
     for label, group in typed_ops_groups(leaves).items():
@@ -861,6 +859,14 @@ def main():
             # the largest error relative to each node's largest value.
             "family_graphs": families["graphs"],
             "portfolio_var": portfolio["record"],
+            # The Newton tier (csrc/newton_ops.cuh): K1 at 1e8 beside the
+            # bound at the twin's trips with fixed-length fractions and the
+            # bound re-priced at the tier's own counts.
+            "newton_tier": {
+                label: {key: record[key] for key in ("ms", "bound_ms", "tier_bound_ms")}
+                for label, record in (("newton_graph", families["graphs"]["newton"]),
+                                      ("portfolio_var", portfolio["record"]))
+            },
             # The table branch: large_table's K1 with its twin, bound and
             # library call (torch.searchsorted + loc on drawn uniforms), the
             # other table graphs' records, and the largest error relative
@@ -1014,9 +1020,10 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
 
 
 def unaligned_and_shared_path(torch, cuda_exec, _compile, _build):
-    """Phase 13: a ``start`` and an ``n`` that are no multiples of 4, and
-    one library for two graphs that differ only in their constants."""
-    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50, mixed_dag_20
+    """Phase 13: a ``start`` and an ``n`` that are no multiples of 4 (the
+    main graphs and the Newton family graph), and one library for two
+    graphs that differ only in their constants."""
+    from probabilit_tpu_torch.models.benchmarks import family_graphs, mixed_correlated_50, mixed_dag_20
 
     start, n = N_UNALIGNED
     words = cuda_exec.seed_words(9)
@@ -1061,6 +1068,33 @@ def unaligned_and_shared_path(torch, cuda_exec, _compile, _build):
         errs["k1"] = max(errs["k1"], k1_err)
         emit(record)
         del got, whole, twin
+
+    # The Newton tier at the same start and n: a block's solve covers the
+    # partial first and last groups, and every row equals the aligned run's.
+    sink, nodes = family_graphs()["newton"]
+    plan = _compile.get_plan(sink)
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, family_keep(nodes)(plan)), "cuda")
+    got, flag = cuda_exec.run(tape, words, n, start=start)
+    whole, _ = cuda_exec.run(tape, words, -(-(start + n) // 4) * 4)
+    bitwise = bool(torch.equal(got, whole[:, start:start + n]))
+    check(bitwise, f"newton: rows {start}..{start + n} differ from the aligned run's")
+    check(int(flag) == 0, "newton: the unaligned run flagged non-finite values")
+    for tiny in (1, 2, 3, 6):
+        part, _ = cuda_exec.run(tape, words, tiny, start=start - 2)
+        check(bool(torch.equal(part, whole[:, start - 2:start - 2 + tiny])),
+              f"newton: {tiny} samples from {start - 2} differ from the aligned run's")
+    del whole
+    U = cuda_exec.philox_uniforms(words, n, plan.d, device="cuda", start=start)
+    ref = cuda_exec.run_tape(tape, U)
+    rows, worst = nodes_held(plan, tape, sink, nodes, got, ref, U, newton=True)
+    for row in rows:
+        check(row["held_err"] <= row["tolerance"], f"newton: unaligned kernel vs twin: {row}")
+        errs["k1"] = max(errs["k1"], row["held_err"])
+    emit({"phase": "unaligned_vs_twin", "graph": "newton", "start": start, "n": n,
+          "k1_bitwise_rows_of_aligned_run": bitwise, "tiny_n_checked": [1, 2, 3, 6],
+          "held_on": f"uniforms in {list(NEWTON_CENTRAL)}", "max_rel_err": worst,
+          "nodes": rows})
+    del got, ref, U
 
     # Two graphs that differ only in their constants: one text, one library.
     libraries = len(_build._LIBS)
@@ -1593,6 +1627,21 @@ def family_path(torch, np, stats, cuda_exec, _compile, smi):
               f"{label}: the sink is not finite or not of shape (1e8,)")
         launches_total += launches
         del out
+        if newton:
+            # Streamed through the entry point a user calls, bitwise equal
+            # to one shot: each block's solves give every lane its own value.
+            n_streamed = 2 * BLOCK + 4099
+            cuda_exec.LAUNCHES = 0
+            one_shot = sink.sample(n_streamed, random_state=5, gc_strategy=[],
+                                   executor="cuda").cpu().numpy()
+            streamed = sink.sample_streaming(n_streamed, block_size=BLOCK, random_state=5,
+                                             executor="cuda")
+            launches_total += cuda_exec.LAUNCHES
+            check(np.array_equal(streamed, one_shot),
+                  "newton: sample_streaming differs from one-shot sample")
+            emit({"phase": "newton_streamed_equals_single_shot", "n": n_streamed,
+                  "block": BLOCK, "k1_launches": cuda_exec.LAUNCHES, "bitwise_equal": True})
+            del one_shot, streamed
 
         # Every kept node against the twin at 2^22.
         keep = family_keep(nodes)(plan)
@@ -1604,40 +1653,22 @@ def family_path(torch, np, stats, cuda_exec, _compile, smi):
         ref = cuda_exec.run_tape(tape, U)
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t0
-        central = ((U >= NEWTON_CENTRAL[0]) & (U <= NEWTON_CENTRAL[1])).all(dim=1)
-        name_of = {node._id: name for name, node in nodes}
-        term_scale = sum(ref[k].abs().max().item() for k, nid in enumerate(tape.keep_order)
-                         if nid != sink._id)
-        rows, worst = [], 0.0
-        for k, nid in enumerate(tape.keep_order):
-            err = (got[k] - ref[k]).abs()
-            scale = ref[k].abs().max().item()
-            name = name_of.get(nid, "sink")
-            if newton:
-                col = central if nid == sink._id else (
-                    (U[:, plan.col_of[nid]] >= NEWTON_CENTRAL[0])
-                    & (U[:, plan.col_of[nid]] <= NEWTON_CENTRAL[1]))
-                held = err[col].max().item()
-                tol = REL_TOL * (term_scale if nid == sink._id else scale)
-            else:
-                held, tol = err.max().item(), REL_TOL * scale
-            row = {"node": name, "max_abs_err": err.max().item(), "held_err": held,
-                   "tolerance": tol, "max_abs_twin": scale, "rel_err": held / max(scale, 1e-30)}
-            rows.append(row)
-            worst = max(worst, row["rel_err"])
-            check(held <= tol, f"{label}: kernel vs twin per node: {row}")
+        rows, worst = nodes_held(plan, tape, sink, nodes, got, ref, U, newton)
+        for row in rows:
+            check(row["held_err"] <= row["tolerance"], f"{label}: kernel vs twin per node: {row}")
         emit({"phase": "family_kernel_vs_twin", "graph": label, "n": N_NODES,
               "rel_tolerance": REL_TOL, "held_on": (
                   f"uniforms in {list(NEWTON_CENTRAL)}; the sink within the sum of its "
                   "terms' tolerances" if newton else "every sample"),
               "twin_seconds": twin_s, "nodes": rows})
 
-        # Newton ops priced at the twin's mean trips on these draws.
-        newton_ops, trips = {}, {}
+        # Newton ops priced at the twin's mean trips on these draws, and at
+        # the Newton tier's counts.
+        prices = {}
         if newton:
             for name, node in nodes:
-                trips[name], newton_ops[cuda_exec._FAMILY_OPS[name]] = newton_cost(
-                    torch, name, sweep[name][0], U[:, plan.col_of[node._id]])
+                prices[name] = newton_cost(torch, name, sweep[name][0],
+                                           U[:, plan.col_of[node._id]])
         del got, ref, U
 
         # Each family's column at 2^20 against scipy.stats (a seed per
@@ -1660,17 +1691,97 @@ def family_path(torch, np, stats, cuda_exec, _compile, smi):
                              repeats=3 if newton else 5)
         twin_ms = cuda_time_ms(lambda: cuda_exec.run_reference(sink_tape, words, N_NODES),
                                repeats=1)
-        cost = tape_cost(sink_tape, cuda_exec, newton_ops)
+        cost = tape_cost(sink_tape, cuda_exec, {
+            cuda_exec._FAMILY_OPS[name]: price["flops"] for name, price in prices.items()})
         bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
         record = {"families": [name for name, _ in nodes], "launches": launches,
                   "ms": k1_ms, "twin_ms_at_2^22": twin_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by, "flops_per_sample": cost[1],
                   "int_instr_per_sample": cost[0], "max_rel_err": worst}
         if newton:
-            record["mean_newton_trips"] = trips
+            record.update(newton_prices(sink_tape, cuda_exec, prices))
         graphs[label] = record
         emit({"phase": "family_timing", "graph": label, "card": smi, "n": N_MAIN, **record})
+    graphs["newton_families"] = newton_family_timings(torch, cuda_exec, _compile, smi)
     return {"k1_launches": launches_total, "graphs": graphs}
+
+
+def nodes_held(plan, tape, sink, nodes, got, ref, U, newton):
+    """Phase 14's per-node check of K1's rows ``got`` against the twin's
+    ``ref`` on the uniforms ``U``: every sample, or for a Newton graph the
+    samples whose uniforms lie in NEWTON_CENTRAL (the sink on those whose
+    every uniform does, within the sum of its terms' tolerances).  Returns
+    (rows, the largest held error relative to its node's largest value)."""
+    central = ((U >= NEWTON_CENTRAL[0]) & (U <= NEWTON_CENTRAL[1])).all(dim=1)
+    name_of = {node._id: name for name, node in nodes}
+    term_scale = sum(ref[k].abs().max().item() for k, nid in enumerate(tape.keep_order)
+                     if nid != sink._id)
+    rows, worst = [], 0.0
+    for k, nid in enumerate(tape.keep_order):
+        err = (got[k] - ref[k]).abs()
+        scale = ref[k].abs().max().item()
+        if newton:
+            col = central if nid == sink._id else (
+                (U[:, plan.col_of[nid]] >= NEWTON_CENTRAL[0])
+                & (U[:, plan.col_of[nid]] <= NEWTON_CENTRAL[1]))
+            held = err[col].max().item()
+            tol = REL_TOL * (term_scale if nid == sink._id else scale)
+        else:
+            held, tol = err.max().item(), REL_TOL * scale
+        rows.append({"node": name_of.get(nid, "sink"), "max_abs_err": err.max().item(),
+                     "held_err": held, "tolerance": tol, "max_abs_twin": scale,
+                     "rel_err": held / max(scale, 1e-30)})
+        worst = max(worst, rows[-1]["rel_err"])
+    return rows, worst
+
+
+def newton_prices(tape, cuda_exec, prices):
+    """The Newton rows of ``tape`` priced both ways (``newton_cost``): the
+    bound at the twin's trips with fixed-length fractions is the record's
+    ``bound_ms``; this adds the re-priced bound at the Newton tier's
+    counts, with the counts."""
+    ops = {cuda_exec._FAMILY_OPS[name]: price["tier_flops"] for name, price in prices.items()}
+    cost = tape_cost(tape, cuda_exec, ops)
+    tier_ms, tier_by = bound(N_MAIN, 4 * N_MAIN, cost)
+    return {"mean_newton_trips": {name: price["trips"] for name, price in prices.items()},
+            "tier_counts": {name: {"trips": price["tier_trips"], "inner": price["tier_inner"]}
+                            for name, price in prices.items()},
+            "tier_bound_ms": tier_ms, "tier_bound_by": tier_by,
+            "tier_flops_per_sample": cost[1]}
+
+
+def newton_family(name):
+    """A graph of one Newton family's node at its FAMILY_SWEEP parameters."""
+    from probabilit_tpu_torch.models.benchmarks import FAMILY_SWEEP
+    from probabilit_tpu_torch.models.distributions import Distribution
+
+    (args, kwargs), = [(a, k) for n, a, k in FAMILY_SWEEP if n == name]
+    return Distribution(name, *args, **kwargs)
+
+
+def newton_family_timings(torch, cuda_exec, _compile, smi):
+    """Each of the 15 Newton families alone: K1 of its one-node graph at
+    1e8 beside both bounds, with the twin's and the tier's counts."""
+    from probabilit_tpu_torch.models.benchmarks import FAMILY_SWEEP
+
+    words = cuda_exec.seed_words(4)
+    records = {}
+    for name in cuda_exec.INCOMPLETE_FAMILY_CAPS:
+        node = newton_family(name)
+        plan = _compile.get_plan(node)
+        tape = cuda_exec.lowered(plan, [node._id], "cuda")
+        ms = cuda_time_ms(lambda: cuda_exec.run(tape, words, N_MAIN), repeats=3)
+        args = [a for n, a, _ in FAMILY_SWEEP if n == name][0]
+        q = cuda_exec.philox_uniforms(words, N_NODES, 1, device="cuda")[:, 0]
+        price = newton_cost(torch, name, args, q)
+        cost = tape_cost(tape, cuda_exec, {cuda_exec._FAMILY_OPS[name]: price["flops"]})
+        bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
+        record = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  **newton_prices(tape, cuda_exec, {name: price})}
+        records[name] = record
+        emit({"phase": "newton_family_timing", "family": name, "card": smi, "n": N_MAIN,
+              **record})
+    return records
 
 
 def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
@@ -1730,6 +1841,21 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
           "corr_max_abs_err": corr_err, "corr_tolerance": CORR_TOL,
           **executors_agree(np, sink, "portfolio")})
 
+    # K1 block by block, as estimate launches it (block b from b * BLOCK),
+    # against one launch over the same rows, given one recolour transform:
+    # a lane's Newton solve is its own, so the two are equal bitwise.
+    n_streamed = 3 * BLOCK + 4099  # a partial last block
+    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    ab = cuda_exec.recolor_transform(plan, words, n_streamed, device="cuda")
+    one_shot, _ = cuda_exec.run(sink_tape, words, n_streamed, ab)
+    blocks = [cuda_exec.run(sink_tape, words, min(BLOCK, n_streamed - lo), ab, start=lo)[0]
+              for lo in range(0, n_streamed, BLOCK)]
+    streamed_bitwise = bool(torch.equal(torch.cat(blocks, dim=1), one_shot))
+    check(streamed_bitwise, "portfolio: K1 streamed block by block differs from one launch")
+    del one_shot, blocks
+    emit({"phase": "portfolio_streamed_equals_one_shot", "n": n_streamed, "block": BLOCK,
+          "bitwise_equal": streamed_bitwise})
+
     n_blocks = -(-N_STREAM // BLOCK)
     cuda_exec.LAUNCHES = 0
     cuda_exec.STATS_LAUNCHES = 0
@@ -1742,7 +1868,6 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
           **{f"q{q:g}": st[f"q{q:g}"] for q in PORTFOLIO_QUANTILES}})
 
     # Timings: the kernels alone, sample(1e8) and estimate(1e9), host share.
-    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
     ab = cuda_exec.recolor_transform(plan, words, N_MAIN, device="cuda")
     k1_ms = cuda_time_ms(lambda: cuda_exec.run(sink_tape, words, N_MAIN, ab))
     k2_ms = cuda_time_ms(lambda: cuda_exec.corr_stats(words, N_MAIN, columns, "cuda"))
@@ -1766,15 +1891,16 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
     # quantiles are uniform too).
     t_col = cuda_exec.philox_uniforms(
         words, N_NODES, plan.d, device="cuda", columns=[plan.col_of[assets["commodities"]._id]])
-    trips, t_flops = newton_cost(torch, "t", (4,), t_col[:, 0])
+    price = newton_cost(torch, "t", (4,), t_col[:, 0])
     del t_col
-    cost = tape_cost(sink_tape, cuda_exec, {"PPF_T": t_flops})
+    cost = tape_cost(sink_tape, cuda_exec, {"PPF_T": price["flops"]})
     bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
     k2_bytes = 4 * cuda_exec._stats_width(K) * cuda_exec.stats_grid(K, N_MAIN)
     k2_bound_ms, k2_bound_by = bound(N_MAIN, k2_bytes, stats_cost(K))
     record = {"launches": k1_launches, "ms": k1_ms, "twin_ms_at_2^22": twin_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "flops_per_sample": cost[1],
-              "mean_newton_trips_t": trips, "k2_ms": k2_ms, "k2_bound_ms": k2_bound_ms,
+              **newton_prices(sink_tape, cuda_exec, {"t": price}),
+              "k2_ms": k2_ms, "k2_bound_ms": k2_bound_ms,
               "k2_bound_by": k2_bound_by, "sample_cuda_ms": sample_ms,
               "sample_plain_ms": plain_ms,
               "sample_host_share": (sample_ms - k1_ms - k2_ms) / sample_ms,

@@ -1,18 +1,16 @@
 // ppf_ops.cuh: the family branches of the graph megakernel.
 //
 // Replaces the inverse CDFs that probabilit_tpu/engine/pallas_exec.py's
-// kernel body traces from probabilit_tpu/ops/ppf.py: the closed-form
-// families of its whitelist (_SAFE_FAMILIES) and the families it solves by
-// Newton on the incomplete gamma and beta functions
-// (_INCOMPLETE_FAMILY_CAPS, their shapes within the caps that
-// engine/cuda_exec.py::supports enforces).  Each ppf_<family> transcribes
-// its plain PyTorch twin in ops/ppf.py at the default loc (and scale): it
-// returns the family's standard variate from q and the shape parameters,
-// and the tape's next row applies loc + scale * x (the discrete families:
-// k + loc).  A tape row holds four operands; truncnorm, beta, burr and
-// their kind need five with loc and scale, truncweibull_min six.  Where the
-// twin's formula is loc - scale * y or loc + scale / y, the standard
-// variate is -y or 1 / y.
+// kernel body traces from probabilit_tpu/ops/ppf.py for the closed-form
+// families of its whitelist (_SAFE_FAMILIES); the families it solves by
+// Newton on the incomplete gamma and beta functions are newton_ops.cuh's.
+// Each ppf_<family> transcribes its plain PyTorch twin in ops/ppf.py at
+// the default loc (and scale): it returns the family's standard variate
+// from q and the shape parameters, and the tape's next row applies loc +
+// scale * x (the discrete families: k + loc).  A tape row holds four
+// operands; truncnorm, burr and their kind need five with loc and scale,
+// truncweibull_min six.  Where the twin's formula is loc - scale * y or
+// loc + scale / y, the standard variate is -y or 1 / y.
 //
 // Where the twin evaluates every branch of a select, these evaluate the
 // one the lane takes.  ndtri_fast is the draws' fast quantile
@@ -33,9 +31,7 @@ namespace ppf_ops {
 
 using sampling_math::ndtr_fast;
 using sampling_math::ndtri_fast;
-using special_ops::betaincinv;
 using special_ops::expm1_safe;
-using special_ops::gammaincinv;
 using special_ops::ndtri_fast_wide;
 
 constexpr float kPi = 3.141592653589793f;
@@ -341,89 +337,6 @@ __device__ __forceinline__ float ppf_geom(float q, float p) {
 __device__ __forceinline__ float ppf_randint(float q, float low, float high) {
   const float k = ceilf(q * (high - low)) - 1.0f + low;
   return fminf(fmaxf(k, low), high - 1.0f);
-}
-
-// ---- Newton on the incomplete gamma and beta functions ------------------
-
-__device__ __forceinline__ float ppf_gamma(float q, float a) { return gammaincinv(a, q); }
-
-__device__ __forceinline__ float ppf_invgamma(float q, float a) {
-  return 1.0f / gammaincinv(a, 1.0f - q);
-}
-
-__device__ __forceinline__ float ppf_chi2(float q, float df) {
-  return 2.0f * gammaincinv(0.5f * df, q);
-}
-
-__device__ __forceinline__ float ppf_chi(float q, float df) {
-  return sqrtf(2.0f * gammaincinv(0.5f * df, q));
-}
-
-__device__ __forceinline__ float ppf_maxwell(float q) {
-  return sqrtf(2.0f * gammaincinv(1.5f, q));
-}
-
-__device__ __forceinline__ float ppf_nakagami(float q, float nu) {
-  return sqrtf(gammaincinv(nu, q) / nu);
-}
-
-__device__ __forceinline__ float ppf_beta(float q, float a, float b) {
-  return betaincinv(a, b, q);
-}
-
-__device__ __forceinline__ float ppf_betaprime(float q, float a, float b) {
-  const float x = betaincinv(a, b, q);
-  return x / (1.0f - x);
-}
-
-__device__ __forceinline__ float ppf_t(float q, float df) {
-  // Two-tailed: I_x(df/2, 1/2) = 2 min(q, 1 - q).
-  const float x = betaincinv(0.5f * df, 0.5f, 2.0f * fminf(q, 1.0f - q));
-  const float tval = sqrtf(df * (1.0f - x) / fmaxf(x, 1e-30f));
-  return q < 0.5f ? -tval : tval;
-}
-
-__device__ __forceinline__ float ppf_f(float q, float dfn, float dfd) {
-  const float x = betaincinv(0.5f * dfn, 0.5f * dfd, q);
-  return (dfd * x) / (dfn * (1.0f - x));
-}
-
-__device__ __forceinline__ float ppf_dgamma(float q, float a) {
-  if (q < 0.5f) return -gammaincinv(a, 1.0f - fminf(fmaxf(2.0f * q, 1e-7f), 1.0f));
-  return gammaincinv(a, fminf(fmaxf(2.0f * q - 1.0f, 0.0f), 0.9999999f));
-}
-
-__device__ __forceinline__ float ppf_loggamma(float q, float c) {
-  return logf(gammaincinv(c, q));
-}
-
-__device__ __forceinline__ float ppf_gengamma(float q, float a, float c) {
-  return powf(c > 0.0f ? gammaincinv(a, q) : gammaincinv(a, 1.0f - q), 1.0f / c);
-}
-
-__device__ __forceinline__ float ppf_rdist(float q, float c) {
-  return 2.0f * betaincinv(0.5f * c, 0.5f * c, q) - 1.0f;
-}
-
-__device__ __forceinline__ float ppf_argus(float q, float chi) {
-  // SF = P(3/2, chi^2 (1 - x^2)/2) / P(3/2, chi^2/2); near x = 0 two
-  // Newton steps on the cubic series of the CDF in y = x^2.
-  const float a = 0.5f * chi * chi;
-  const float p_chi = special_ops::gammainc_kernel(1.5f, a, special_ops::lgamma_kernel(1.5f));
-  const float u = gammaincinv(1.5f, (1.0f - q) * p_chi);
-  const float x = sqrtf(fmaxf(1.0f - u / a, 0.0f));
-  if (!(x * x < 0.05f / fmaxf(a, 1.0f))) return x;
-  const float k = chi * chi * chi * expf(-a) / (kSqrt2Pi * 0.5f * p_chi);
-  const float c2 = 0.25f * (a - 0.5f);
-  const float c3 = (0.5f * a * a - 0.5f * a - 0.125f) / 6.0f;
-  const float target = q / k;
-  float y = 2.0f * target;
-  for (int i = 0; i < 2; ++i) {
-    const float g = y * (0.5f + y * (c2 + y * c3));
-    const float gp = 0.5f + y * (2.0f * c2 + y * 3.0f * c3);
-    y = fmaxf(y - (g - target) / gp, 0.0f);
-  }
-  return sqrtf(fmaxf(y, 0.0f));
 }
 
 }  // namespace ppf_ops

@@ -43,8 +43,10 @@ beta, burr and their kind have two shapes, truncweibull_min three) and
 an ``AFFINE`` row ``loc + scale * x`` (``ADD`` for the discrete
 families, which have no scale).  The hand-written bodies of the ops live in
 ``csrc/graph_ops.cuh``, ``csrc/ppf_ops.cuh``, ``csrc/special_ops.cuh``
-``csrc/sampling_math.cuh`` and ``csrc/table_ops.cuh``; the generated text
-is those includes, a grid-stride loop and one line per row and lane.
+``csrc/sampling_math.cuh``, ``csrc/table_ops.cuh`` and
+``csrc/newton_ops.cuh``; the generated text is those includes, a
+grid-stride loop and one line per row and lane (a tape with Newton
+families adds the Newton tier's solve to each turn, ``generate``).
 
 Table nodes (the TPU kernel's table branch, ``pallas_exec.py:217-439``):
 a static discrete family (``poisson``, ``binom``, ``nbinom`` and scipy's
@@ -163,9 +165,17 @@ MAX_KEEP = 16
 MAX_CORR_K = 16
 LANES = 4  # samples per Philox call, and per thread and loop turn
 _THREADS = 256
+_TILE = _THREADS * LANES  # samples of one turn of a block's loop
 _HEADERS = (
     "sampling_math.cuh", "special_ops.cuh", "ppf_ops.cuh", "graph_ops.cuh", "table_ops.cuh",
+    "newton_ops.cuh",
 )
+# The Newton tier (csrc/newton_ops.cuh): a block solves the quantiles of
+# a turn together, one float per Newton row and sample in shared memory.
+# A turn of a tape with R Newton rows covers max(1, NEWTON_SLOTS // R)
+# groups a thread, as shared memory allows: about 12 K quantiles and 48 KB
+# a block, so that four blocks of 256 threads share an SM.
+NEWTON_SLOTS = 12
 
 # pallas_exec._TABLE_MAX: the most entries a table node may have (knots of
 # a trimmed CDF table, values of a Discrete, points of a Cumulative or an
@@ -212,6 +222,13 @@ INCOMPLETE_FAMILY_CAPS = {
 _FAMILY_OPS = {
     family: f"PPF_{family.upper()}"
     for family in (*_CLOSED_FORM_FAMILIES, *INCOMPLETE_FAMILY_CAPS)
+}
+NEWTON_OPS = {_FAMILY_OPS[family]: family for family in INCOMPLETE_FAMILY_CAPS}
+# The kind of inverse each Newton family solves: "gamma" (P(a, x) = p) or
+# "beta" (I_x(a, b) = p).
+NEWTON_KIND = {
+    family: "beta" if family in ("beta", "betaprime", "t", "f", "rdist") else "gamma"
+    for family in INCOMPLETE_FAMILY_CAPS
 }
 
 _TRANSFORM_OPS = {
@@ -564,9 +581,35 @@ class Tape:
 
     @property
     def shared_bytes(self):
-        """Shared memory a block of the kernel takes: the tables (dynamic)
-        and the recolour arrays (static)."""
-        return 4 * self.tables.numel() + _recolor_bytes(self.n_corr)
+        """Shared memory a block of the kernel takes: the tables and the
+        Newton tier's quantiles (dynamic), the recolour arrays and the
+        Newton rows' constants (static)."""
+        return 4 * (self.tables.numel() + self.slot_floats) + _recolor_bytes(self.n_corr) + (
+            _newton_static_bytes(len(self.newton_rows)))
+
+    @functools.cached_property
+    def newton_rows(self):
+        """The indices of ``program``'s Newton rows (``NEWTON_OPS``)."""
+        return tuple(i for i, row in enumerate(self.program) if OPCODES[row[0]] in NEWTON_OPS)
+
+    @property
+    def newton_groups(self):
+        """Groups a thread covers in each turn of the Newton tier's loop:
+        ``NEWTON_SLOTS // R`` for R Newton rows, or fewer where the tables
+        and the recolour arrays leave less shared memory (at least one; 0
+        without Newton rows)."""
+        rows = len(self.newton_rows)
+        if not rows:
+            return 0
+        free = (MAX_SHARED_BYTES - 4 * self.tables.numel() - _recolor_bytes(self.n_corr)
+                - _newton_static_bytes(rows))
+        return max(1, min(NEWTON_SLOTS // rows, free // (4 * _TILE * rows)))
+
+    @property
+    def slot_floats(self):
+        """Floats of dynamic shared memory that hold the Newton tier's
+        quantiles: one per sample of a turn and Newton row."""
+        return self.newton_groups * len(self.newton_rows) * _TILE
 
     def to(self, device):
         return Tape(
@@ -604,6 +647,13 @@ class Tape:
 
 def _pad4(n):
     return -(-n // 4) * 4
+
+
+def _newton_static_bytes(rows):
+    """Static shared memory of the Newton tier: each row's family, shapes
+    and constants (``newton_ops::Row``, 20 bytes) and the block's work
+    counter."""
+    return 20 * rows + 4 if rows else 0
 
 
 def _recolor_bytes(k):
@@ -886,8 +936,10 @@ def _allocate_slots(rows):
 # functions are csrc/graph_ops.cuh's and csrc/ppf_ops.cuh's and CUDA's
 # float32 libm.  DRAW, LOADK, STORE, SCORE and RECOLOR have their own
 # shapes (see ``generate``).  A family's row calls ``ppf_<family>`` on q
-# and its shapes; a table row (csrc/table_ops.cuh) its search on q, with
-# {b} the table's offset in shared memory and {c} its boundaries.
+# and its shapes, a Newton family's reads the block's solve (``{slot}``:
+# its offset in ``s_newton``); a table row (csrc/table_ops.cuh) its search
+# on q, with {b} the table's offset in shared memory and {c} its
+# boundaries.
 _EMIT = {
     "DRAW": "bits_to_open_unit({word})",
     "LOADK": "k.v[{index}]",
@@ -901,8 +953,10 @@ _EMIT = {
     "TABLE_INTERP": "table_interp<{c}>(s_tab + {b}, {a})",
     **{
         op: f"ppf_{family}(" + ", ".join("{%s}" % f for f in "abcd"[: 1 + _n_shapes(family)]) + ")"
-        for family, op in _FAMILY_OPS.items()
+        for family, op in _FAMILY_OPS.items() if op not in NEWTON_OPS
     },
+    # A Newton row reads its value where the block's solve left it.
+    **{op: "s_newton[{slot} + threadIdx.x]" for op in NEWTON_OPS},
     "SCORE_NORM": "score_norm({a}, {b}, {c})",
     "SCORE_LOGNORM": "score_lognorm({a}, {b}, {c}, {d})",
     "ADD": "{a} + {b}",
@@ -1046,6 +1100,8 @@ constexpr int kKeep = {n_keep};      // kept rows
 constexpr int kConsts = {n_consts};  // LOADK immediates, 32-bit words
 constexpr int kRowPad = {row_pad};   // floats a row of A takes in shared memory
 constexpr int kTableFloats = {table_floats};  // Tape.tables: dynamic shared memory
+constexpr int kSlotFloats = {slot_floats};  // the Newton tier's quantiles, after the tables
+constexpr int kGroups = {groups};  // groups a thread covers in a turn of the loop
 
 // A float constant is read as k.v[j], an int32 or a bool one as the
 // word's bits (__float_as_int(k.v[j])).
@@ -1098,6 +1154,51 @@ _KERNEL_LOOP = """\
     const int64_t r0 = static_cast<int64_t>(g << 2) - start;  // lane 0's output row
 """
 
+# A tape with Newton rows: each block keeps its Newton rows (family,
+# shapes, constants), its work counter and, after the tables in dynamic
+# shared memory, the quantiles it solves; kFamilies, the bits of the
+# tape's Newton families, leaves every other family's code out.
+_KERNEL_NEWTON = """\
+  // The families of the Newton rows: the solve holds their code alone.
+  constexpr unsigned kFamilies = {families};
+  __shared__ newton_ops::Row s_rows[kNewtonRows];
+  __shared__ int s_next;
+  extern __shared__ float4 s_dyn4[];
+  float* s_newton = reinterpret_cast<float*>(s_dyn4) + kTableFloats;
+"""
+
+# The loop of a tape with Newton rows: each turn of a block covers
+# kThreads * kGroups groups; the block writes their Newton quantiles to
+# shared memory, solves them together and runs the straight-line code on
+# the values, kGroups groups a thread.  Every thread of the block is
+# present for the solve; the threads past g_end of the last turn only help.
+_KERNEL_LOOP_NEWTON = """\
+  // Groups g_first .. g_end - 1 cover samples start .. start + n - 1; when
+  // start and n are multiples of 4 every group is whole and aligned.
+  const bool vec = ((start | n) & 3) == 0;
+  const uint64_t g_first = static_cast<uint64_t>(start) >> 2;
+  const uint64_t g_end = ((static_cast<uint64_t>(start + n) - 1) >> 2) + 1;
+  constexpr uint64_t kTurn = static_cast<uint64_t>(kThreads) * kGroups;
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kTurn;
+  bool bad = false;
+  for (uint64_t base = g_first + static_cast<uint64_t>(blockIdx.x) * kTurn; base < g_end;
+       base += stride) {
+    const int live_groups = static_cast<int>(g_end - base < kTurn ? g_end - base : kTurn);
+    __syncthreads();  // the previous turn's reads of s_newton are done
+    for (int sub = 0; sub < kGroups; ++sub) {
+      const uint64_t g = base + static_cast<uint64_t>(sub) * kThreads + threadIdx.x;
+{quantiles}    }
+    if (threadIdx.x == 0) s_next = 0;
+    __syncthreads();
+    newton_ops::solve<kThreads, kGroups, kFamilies>(s_newton, s_rows, &s_next, {rows},
+                                                    live_groups);
+    __syncthreads();
+    for (int sub = 0; sub < kGroups; ++sub) {
+      const uint64_t g = base + static_cast<uint64_t>(sub) * kThreads + threadIdx.x;
+      const bool live = g < g_end;
+      const int64_t r0 = static_cast<int64_t>(g << 2) - start;  // lane 0's output row
+"""
+
 _KERNEL_TAIL = """\
   }
   if (bad) atomicOr(nonfinite, 1);
@@ -1125,32 +1226,72 @@ extern "C" int graph_megakernel_launch(const uint32_t* consts, int n_consts, con
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  constexpr int kTableBytes = 4 * kTableFloats;
+  constexpr int kDynamicBytes = 4 * (kTableFloats + kSlotFloats);
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && kTableBytes > 48 * 1024) {
-    // Above 48 KB a block may hold dynamic shared memory only when asked.
+  if (err == cudaSuccess && kDynamicBytes > 0) {
+    // Above 48 KB in all, static and dynamic, a block may hold dynamic
+    // shared memory only when asked.
     err = cudaFuncSetAttribute(graph_megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kTableBytes);
+                               kDynamicBytes);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, graph_megakernel, kThreads,
-                                                        kTableBytes);
+                                                        kDynamicBytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t groups = ((start + n - 1) >> 2) - (start >> 2) + 1;
-  const int64_t wanted = (groups + kThreads - 1) / kThreads;
+  const int64_t wanted = (groups + kThreads * kGroups - 1) / (kThreads * kGroups);
   const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   Consts k;
   std::memcpy(k.v, consts, sizeof(uint32_t) * kConsts);
   graph_megakernel<<<static_cast<int>(wanted < resident ? wanted : resident), kThreads,
-                     kTableBytes, static_cast<cudaStream_t>(stream)>>>(
+                     kDynamicBytes, static_cast<cudaStream_t>(stream)>>>(
       k, static_cast<const float*>(ab), static_cast<const float4*>(tables), seed0, seed1,
       start, n, static_cast<float*>(out), static_cast<int*>(nonfinite));
   return static_cast<int>(cudaGetLastError());
 }
 """
+
+
+def _newton_plan(tape):
+    """How ``generate`` lays out a tape's Newton rows: ``(rows, feeders,
+    first)``.
+
+    ``rows``: the Newton rows (program indices), gamma rows first, each
+    its number in ``s_rows`` and its place in ``s_newton``.  ``feeders``:
+    per Newton row, the rows that compute its quantile (its ``DRAW``, or
+    the ``RECOLOR`` and ``NDTR`` of a correlated variable), which only it
+    reads.  ``first``: the rows the turn runs before its solve, to write
+    the quantiles: the feeders and what they read (a ``RECOLOR`` reads
+    every score), in program order.
+    """
+    program = tape.program
+    row_of, readers = {}, {}
+    for i, row in enumerate(program):
+        has_dst, fields = _register_fields(row[0])
+        if has_dst:
+            row_of[row[1]] = i
+        for f in fields:
+            if row[f] >= 0:
+                readers[row[f]] = readers.get(row[f], 0) + 1
+    feeders = {}
+    for i in tape.newton_rows:
+        chain = [row_of[program[i][2]]]
+        if OPCODES[program[chain[0]][0]] == "NDTR":
+            chain.insert(0, row_of[program[chain[0]][2]])
+        if any(readers[program[f][1]] != 1 for f in chain):
+            raise ValueError("A Newton row's quantile must be read by that row alone.")
+        feeders[i] = chain
+    needed = {f for chain in feeders.values() for f in chain}
+    if any(OPCODES[program[f][0]] == "RECOLOR" for f in needed):
+        for i, row in enumerate(program):
+            if OPCODES[row[0]] == "SCORE":
+                needed |= {i, row_of[row[2]]}
+    rows = sorted(tape.newton_rows,
+                  key=lambda i: NEWTON_KIND[NEWTON_OPS[OPCODES[program[i][0]]]] == "beta")
+    return rows, feeders, sorted(needed)
 
 
 def generate(tape):
@@ -1168,12 +1309,29 @@ def generate(tape):
     is read.  The text holds no array indexed at run time and prints no
     number that came from the graph's data: a table row prints its offset
     and its count of boundaries, never its values.
+
+    A tape with Newton rows (``NEWTON_OPS``) gets the Newton tier of
+    ``csrc/newton_ops.cuh`` (``_KERNEL_LOOP_NEWTON``): each turn writes
+    its Newton quantiles to shared memory (the rows ``_newton_plan``
+    puts first), the block solves them together (``newton_ops::solve``),
+    and the straight-line code of the other rows reads the values back.
+    A tape without one gets none of it.
     """
     K = tape.n_corr
     row_pad = _pad4(K)
+    kind_of = {  # value number -> kind
+        row[1]: kind for row, kind in zip(tape.program, tape.kinds) if kind is not None
+    }
     const_of = {}  # value number -> index into the parameter block
-    kind_of = {}  # value number -> kind
-    lines = []
+    for row in tape.program:
+        if OPCODES[row[0]] == "LOADK":
+            const_of[row[1]] = len(const_of)
+    newton, feeders, first = _newton_plan(tape) if tape.newton_rows else ([], {}, [])
+    groups = tape.newton_groups
+    slot_of = {}  # a Newton row's value number -> its lanes' offsets in s_newton
+    for j, i in enumerate(newton):
+        slot_of[tape.program[i][1]] = [(j * groups * LANES + lane) * _THREADS
+                                       for lane in range(LANES)]
 
     def operand(v, lane, to="f"):
         if v in const_of:
@@ -1186,13 +1344,14 @@ def generate(tape):
             text = f"v{v}_{lane}"
         return _convert(text, kind_of[v], to)
 
-    for (op, dst, a, b, c, d), kind in zip(tape.program, tape.kinds):
+    def slot(v, lane):
+        """A Newton value's place in s_newton, for this thread and group."""
+        return f"{slot_of[v][lane]} + sub * {LANES * _THREADS}"
+
+    def emit_row(lines, op, dst, a, b, c, d, kind):
         name = OPCODES[op]
-        if kind is not None:
-            kind_of[dst] = kind
         if name == "LOADK":
-            const_of[dst] = len(const_of)
-            continue
+            return
         if name == "DRAW":
             lines.append(f"const uint4 w{dst} = philox_group(g, {a}u, k0, k1);")
             for lane, word in enumerate("xyzw"):
@@ -1200,7 +1359,7 @@ def generate(tape):
                 lines.append(f"const float v{dst}_{lane} = {text};")
         elif name == "STORE":
             lanes = ", ".join(operand(a, lane) for lane in range(LANES))
-            lines.append(_EMIT[name].format(row=dst, lanes=lanes))
+            lines.append(("if (live) " if newton else "") + _EMIT[name].format(row=dst, lanes=lanes))
         elif name == "SCORE":
             for lane in range(LANES):
                 text = _EMIT[name].format(a=operand(a, lane))
@@ -1219,6 +1378,10 @@ def generate(tape):
                 )
                 text = _EMIT[name].format(b=f"s_b[{a}]", terms=terms)
                 lines.append(f"const float v{dst}_{lane} = {text};")
+        elif name in NEWTON_OPS:
+            for lane in range(LANES):
+                text = _EMIT[name].format(slot=slot(dst, lane))
+                lines.append(f"const float v{dst}_{lane} = {text};")
         else:
             srcs = {f: v for f, v in zip("abcd", (a, b, c, d)) if v >= 0}
             compute = _compute_kind(name, [kind_of[v] for v in srcs.values()], kind)
@@ -1226,16 +1389,55 @@ def generate(tape):
             for lane in range(LANES):
                 fields = {f: operand(v, lane, compute) for f, v in srcs.items()}
                 lines.append(f"const {_CTYPE[kind]} v{dst}_{lane} = {template.format(**fields)};")
+
+    hoisted = {f for chain in feeders.values() for f in chain}
+    lines = []
+    for i, (row, kind) in enumerate(zip(tape.program, tape.kinds)):
+        if i not in hoisted:
+            emit_row(lines, *row, kind)
     table_floats = tape.tables.numel()
     head = _KERNEL_HEAD.format(
         threads=_THREADS, n_corr=K, n_keep=tape.n_keep, n_consts=len(const_of), row_pad=row_pad,
-        table_floats=table_floats, includes="\n".join(f'#include "{h}"' for h in _HEADERS),
+        table_floats=table_floats, slot_floats=tape.slot_floats, groups=max(groups, 1),
+        includes="\n".join(f'#include "{h}"' for h in _HEADERS),
     )
-    body = "".join(f"    {line}\n" for line in lines)
     copies = (_KERNEL_RECOLOR if K else "") + (_KERNEL_TABLES if table_floats else "")
-    if copies:
-        copies += "  __syncthreads();\n"
-    return head + copies + _KERNEL_LOOP + body + _KERNEL_TAIL
+    if not newton:
+        body = "".join(f"    {line}\n" for line in lines)
+        if copies:
+            copies += "  __syncthreads();\n"
+        return head + copies + _KERNEL_LOOP + body + _KERNEL_TAIL
+
+    # The quantiles of the turn's Newton rows, written before its solve.
+    quantiles = []
+    for i in first:
+        emit_row(quantiles, *tape.program[i], tape.kinds[i])
+    for i in newton:
+        q, dst = tape.program[i][2], tape.program[i][1]
+        for lane in range(LANES):
+            quantiles.append(f"s_newton[{slot(dst, lane)} + threadIdx.x] = {operand(q, lane)};")
+    families = sorted({NEWTON_OPS[OPCODES[tape.program[i][0]]] for i in newton},
+                      key=list(INCOMPLETE_FAMILY_CAPS).index)
+    copies += _KERNEL_NEWTON.replace("kNewtonRows", str(len(newton))).replace(
+        "{families}", " | ".join(f"(1u << newton_ops::{_NEWTON_FAMILY_ID[f]})" for f in families))
+    for j, i in enumerate(newton):
+        family = NEWTON_OPS[OPCODES[tape.program[i][0]]]
+        shapes = [v for v in tape.program[i][3:] if v >= 0]
+        if any(v not in const_of for v in shapes):
+            raise ValueError(f"A {family} row's shape parameters must be constants.")
+        s0, s1 = ([operand(v, 0) for v in shapes] + ["0.0f", "0.0f"])[:2]
+        copies += (f"  if (threadIdx.x == {j % _THREADS}) s_rows[{j}] = "
+                   f"newton_ops::make_row<kFamilies>(newton_ops::{_NEWTON_FAMILY_ID[family]}, "
+                   f"{s0}, {s1});\n")
+    copies += "  __syncthreads();\n"
+    loop = _KERNEL_LOOP_NEWTON.replace("{rows}", str(len(newton))).replace(
+        "{quantiles}", "".join(f"      {line}\n" for line in quantiles))
+    body = "".join(f"      {line}\n" for line in lines) + "    }\n"
+    return head + copies + loop + body + _KERNEL_TAIL
+
+
+# Each Newton family's name in csrc/newton_ops.cuh's enum Family.
+_NEWTON_FAMILY_ID = {family: f"kFam{family.capitalize()}" for family in INCOMPLETE_FAMILY_CAPS}
 
 
 def seed_words(seed):

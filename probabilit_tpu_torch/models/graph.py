@@ -389,8 +389,12 @@ class Constant(Node, OverloadMixin):
 
 
 def _as_float(x):
-    """Integer and bool inputs of float-valued functions become floats."""
-    return x if x.is_floating_point() else x.to(config.float_dtype())
+    """Integer and bool inputs of float-valued functions become floats: an
+    integer the configured float dtype, a bool float32 in either mode, as
+    jnp computes a float function of a bool in float32 under x64 too."""
+    if x.is_floating_point():
+        return x
+    return x.to(torch.float32 if x.dtype == torch.bool else config.float_dtype())
 
 
 def _promote(a, b):
@@ -438,9 +442,9 @@ def _float_op(fn):
 
 
 def _bool_as_int(x):
-    # jnp computes //, %, ** and the square of bools in int32; torch
-    # refuses them or widens to int64.
-    return x.to(config.int_dtype()) if x.dtype == torch.bool else x
+    # jnp computes //, %, ** and the square of bools in int32, under x64
+    # too; torch refuses them or widens to int64.
+    return x.to(torch.int32) if x.dtype == torch.bool else x
 
 
 def _integer_division(fn, by_zero):

@@ -26,7 +26,7 @@ import torch
 
 from probabilit_tpu_torch import _build, config
 from probabilit_tpu_torch.engine import compile as tcompile
-from probabilit_tpu_torch.engine import cuda_exec, streaming
+from probabilit_tpu_torch.engine import cuda_exec, newton_tier, streaming
 from probabilit_tpu_torch.models import benchmarks, graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution, EmpiricalDistribution
 from probabilit_tpu_torch.ops import bitonic_sort as bs
@@ -412,6 +412,61 @@ def test_family_branches_match_twin(cuda_card, label):
             assert err[central.all(dim=1)].max() <= REL_TOL * terms
         else:
             assert err[central[:, plan.col_of[nid]]].max() <= REL_TOL * ref[k].abs().max(), k
+    if label == "newton":
+        # The Newton tier against its transcription on the same quantiles.
+        args = {name: a for name, a, _ in benchmarks.FAMILY_SWEEP}
+        for name, node in nodes:
+            q = U[:, plan.col_of[node._id]]
+            x = newton_tier.ppf(name, q, args[name])[0]
+            want = node.kwargs.get("loc", 0.0) + node.kwargs.get("scale", 1.0) * x
+            k = tape.keep_order.index(node._id)
+            held = central[:, plan.col_of[node._id]]
+            assert (got[k] - want).abs()[held].max() <= REL_TOL * want.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", cuda_exec.INCOMPLETE_FAMILY_CAPS)
+def test_each_newton_family_alone_matches_twin(cuda_card, name):
+    # One Newton node: a turn covers NEWTON_SLOTS groups a thread (48 KB
+    # of quantiles in shared memory).
+    args = {family: a for family, a, _ in benchmarks.FAMILY_SWEEP}[name]
+    sink = Distribution(name, *args)
+    plan = tcompile.get_plan(sink)
+    tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    assert tape.newton_groups == cuda_exec.NEWTON_SLOTS
+    words = cuda_exec.seed_words(6)
+    got, flag = cuda_exec.run(tape, words, N)
+    U = cuda_exec.philox_uniforms(words, N, plan.d, device="cuda")
+    ref = cuda_exec.run_tape(tape, U)
+    assert int(flag) == 0
+    held = (U[:, 0] >= NEWTON_CENTRAL[0]) & (U[:, 0] <= NEWTON_CENTRAL[1])
+    assert (got[0] - ref[0]).abs()[held].max() <= REL_TOL * ref[0].abs().max()
+
+
+@pytest.mark.cuda
+def test_newton_graph_at_an_unaligned_start(cuda_card):
+    # The block's solves cover partial first and last groups; every row
+    # equals the aligned run's, and the twin's as phase 14 holds them.
+    sink, nodes = benchmarks.family_graphs()["newton"]
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {node._id for _, node in nodes}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    words = cuda_exec.seed_words(9)
+    start, n = 5, (1 << 22) + 3
+    got, flag = cuda_exec.run(tape, words, n, start=start)
+    whole, _ = cuda_exec.run(tape, words, -(-(start + n) // 4) * 4)
+    assert int(flag) == 0
+    assert torch.equal(got, whole[:, start:start + n])
+    for tiny in (1, 2, 3, 6):
+        part, _ = cuda_exec.run(tape, words, tiny, start=start - 2)
+        assert torch.equal(part, whole[:, start - 2:start - 2 + tiny])
+    U = cuda_exec.philox_uniforms(words, n, plan.d, device="cuda", start=start)
+    ref = cuda_exec.run_tape(tape, U)
+    central = (U >= NEWTON_CENTRAL[0]) & (U <= NEWTON_CENTRAL[1])
+    for k, nid in enumerate(tape.keep_order):
+        if nid != sink._id:
+            err = (got[k] - ref[k]).abs()[central[:, plan.col_of[nid]]].max()
+            assert err <= REL_TOL * ref[k].abs().max(), k
 
 
 @pytest.mark.cuda
@@ -427,6 +482,10 @@ def test_portfolio_through_both_kernels(cuda_card):
     assert int(flag) == 0
     for k in range(tape.n_keep):
         assert (got[k] - ref[k]).abs().max() <= REL_TOL * ref[k].abs().max(), k
+    # K1 in blocks, as a stream launches it, equals one launch bitwise.
+    blocks = [cuda_exec.run(tape, words, min(N // 3, N - lo), ab, start=lo)[0]
+              for lo in range(0, N, N // 3)]
+    assert torch.equal(torch.cat(blocks, dim=1), got)
     launches, stats = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
     x = sink.sample(N, random_state=0, gc_strategy=[], executor="cuda")
     assert cuda_exec.LAUNCHES == launches + 1 and cuda_exec.STATS_LAUNCHES == stats + 1

@@ -197,7 +197,10 @@ def test_family_rows_and_device_functions():
             op = cuda_exec._FAMILY_OPS[family]
             i = names.index(op)
             assert names[i + 1] == ("ADD" if family in ("bernoulli", "geom", "randint") else "AFFINE")
-            assert f"ppf_{family}(" in tape.source
+            if family in cuda_exec.INCOMPLETE_FAMILY_CAPS:  # the Newton tier's row
+                assert f"newton_ops::{cuda_exec._NEWTON_FAMILY_ID[family]}," in tape.source
+            else:
+                assert f"ppf_{family}(" in tape.source
     # The first five families too.
     sink = Distribution("triang", 0.4, loc=1.0, scale=2.0) + 0
     tape = cuda_exec.lower(tcompile.get_plan(sink), [sink._id])

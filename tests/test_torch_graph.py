@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from probabilit_tpu import config as jax_config
 from probabilit_tpu.engine import compile as jax_compile
 from probabilit_tpu.models import benchmarks as jax_benchmarks
 from probabilit_tpu.models import graph as jg
@@ -179,17 +180,48 @@ def _emit_both(name, xs):
     return ref, port, port_ctx
 
 
+@pytest.fixture(params=["float32", "float64"])
+def both_dtypes(request):
+    """Both packages in one float mode (JAX's float64 is ``jax_enable_x64``)."""
+    config.set_dtype(getattr(torch, request.param))
+    jax_config.set_dtype(getattr(jnp, request.param))
+    try:
+        yield request.param
+    finally:
+        config.set_dtype(torch.float32)
+        jax_config.set_dtype(jnp.float32)
+
+
+# Functions of bools that jnp computes in int32 in either float mode.
+BOOL_INT32 = ("FloorDivide", "Mod", "Power", "Square")
+
+
 @pytest.mark.parametrize("name", [n for n in ARITY if n != "NoOp"])
-def test_transform_on_bool_inputs_matches_jax(name):
-    # jnp keeps abs, floor and ceil of a bool as bool and computes //, % and
-    # ** of bools in int32 (a False divisor as an integer zero).
+def test_transform_on_bool_inputs_matches_jax(name, both_dtypes):
+    # jnp keeps abs, floor and ceil of a bool as bool, computes //, % and
+    # ** of bools in int32 (a False divisor as an integer zero), and a
+    # float function of bools in float32, under x64 too.
     rng = np.random.default_rng(zlib.crc32(name.encode()) + 1)
     xs = [rng.random(N) < 0.5 for _ in range(ARITY[name])]
     ref, port, ctx = _emit_both(name, xs)
     if ref is None:  # jnp refuses bool here (neg, sign, bool - bool): no value to match
         assert name in ("Negate", "Sign", "Subtract")
         return
-    _assert_same(ref, port._emit(ctx))
+    got = port._emit(ctx)
+    _assert_same(ref, got)
+    if name in BOOL_INT32:
+        assert got.dtype == torch.int32
+
+
+def test_exp_of_a_bool_is_float32_in_both_modes(both_dtypes):
+    # ROADMAP's C5 input: under x64 the port computed exp(True) in float64.
+    q = np.array([[0.2], [0.7]])
+    ref = JaxDistribution("norm") > 0
+    port = Distribution("norm") > 0
+    ref_out = np.asarray(jg.Exp(ref).sample_from_quantiles(q))
+    got = tg.Exp(port).sample_from_quantiles(q)
+    assert ref_out.dtype == np.float32 and got.dtype == torch.float32
+    assert got.tolist() == ref_out.tolist() == [1.0, 2.7182817459106445]
 
 
 ZERO_DIVISOR_CASES = {

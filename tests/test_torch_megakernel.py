@@ -349,6 +349,25 @@ def test_every_opcode_has_an_emitter(name):
         assert "store_group(out + 1 * n, r0, n, vec, k.v[0], k.v[0], k.v[0], k.v[0], bad);" in body
         return
     template = cuda_exec._EMIT[name]
+    if name in cuda_exec.NEWTON_OPS:
+        # q goes to the block's shared memory, the block solves it, and the
+        # row reads its value back; the shapes are constants of its row.
+        family = cuda_exec.NEWTON_OPS[name]
+        shapes = (2, 3)[: cuda_exec._n_shapes(family)]
+        text = _hand_tape([("DRAW", 0, 0), ("LOADK", 2), ("LOADK", 3), (name, 4, 0, *shapes),
+                           ("STORE", 0, 4)]).source
+        solve = ("newton_ops::solve<kThreads, kGroups, kFamilies>(s_newton, s_rows, &s_next, 1,\n"
+                 "                                                    live_groups);")
+        before, after = text.split(solve)
+        for lane in range(cuda_exec.LANES):
+            slot = f"{lane * cuda_exec._THREADS} + sub * {cuda_exec._TILE}"
+            assert f"s_newton[{slot} + threadIdx.x] = v0_{lane};" in before
+            assert f"const float v4_{lane} = {template.format(slot=slot)};" in after
+        args = ", ".join([f"k.v[{i}]" for i in range(len(shapes))] + ["0.0f"] * (2 - len(shapes)))
+        family_id = cuda_exec._NEWTON_FAMILY_ID[family]
+        assert f"s_rows[0] = newton_ops::make_row<kFamilies>(newton_ops::{family_id}, {args});" in text
+        assert f"constexpr unsigned kFamilies = (1u << newton_ops::{family_id});" in text
+        return
     if name.startswith("TABLE_"):
         # q, then two literals: the table's offset and its boundaries.
         body = _loop_body(_hand_tape(head + [(name, 4, 1, 8, 5), ("STORE", 0, 4)]).source)
