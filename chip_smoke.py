@@ -116,7 +116,19 @@ The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
     bound re-priced at the Newton tier's own counts (the series terms and
     fraction pairs its stopping rule takes on the same draws, counted by
     ``engine/newton_tier.py``); each of the 15 Newton families alone (one
-    node a graph) is timed at 1e8 with both bounds and its counts.
+    node a graph) is timed at 1e8 with both bounds and its counts.  The
+    closed forms (``csrc/fast_math.cuh`` under ``csrc/ppf_ops.cuh``): every
+    rewritten family node of the four closed-form graphs is held at 2^22
+    against its PyTorch transcription (``ops/fast_math.py``) as against
+    the twin; the four graphs' kernels (sink only and all nodes) must hold
+    no ``CALL`` and no ``STL``/``LDL`` in their SASS (``cuobjdump -sass``,
+    counted with ``MUFU`` and printed with ptxas's registers, beside
+    ``mixed_dag_20``'s and the portfolio's); and each of the eleven
+    families that ``torch.distributions`` inverts (``LIBRARY_FAMILIES``)
+    alone: K1 at 1e8 with its bound beside the library's ``icdf`` plus loc
+    on the same uniforms (drawn beforehand; the largest difference is
+    printed, not checked: the library computes its own formula), K1
+    against the twin and the transcription at 2^22.
 15. ``benchmarks.portfolio_var()``, the correlated portfolio of
     ``examples/03_portfolio_var.py`` (a t(df = 4), a lognormal and a
     normal; the analyst's guess repaired by ``nearest_correlation_matrix``):
@@ -285,6 +297,23 @@ N_STREAM = 1_000_000_000
 BLOCK = 1 << 24
 N_FAMILY_KS = 1 << 20
 FAMILY_P_MIN = 1e-4
+# The eleven families torch.distributions inverts (its icdf), each alone at
+# these parameters (FAMILY_SWEEP's where it has the family): phase 14 times
+# K1 of each beside the library call on the same uniforms.
+LIBRARY_FAMILIES = {
+    "norm": ((), {"loc": 1.0, "scale": 2.0}),
+    "lognorm": ((0.5,), {"scale": 2.0}),
+    "uniform": ((), {"loc": 1.0, "scale": 2.0}),
+    "expon": ((), {"scale": 2.0}),
+    "cauchy": ((), {"loc": 1, "scale": 2}),
+    "laplace": ((), {"loc": 0, "scale": 1.5}),
+    "gumbel_r": ((), {"loc": 1, "scale": 2}),
+    "pareto": ((2.5,), {}),
+    "weibull_min": ((1.7,), {"scale": 2}),
+    "halfnorm": ((), {"scale": 1.5}),
+    "halfcauchy": ((), {}),
+}
+CLOSED_FORM_GRAPHS = tuple(f"closed_form_{i}" for i in range(4))
 NEWTON_CENTRAL = (0.001, 0.999)  # the uniforms on which a Newton node is held to its twin
 PORTFOLIO_QUANTILES = (0.01, 0.05, 0.5)
 TYPED_SHARE_MAX = 1e-4  # int and bool nodes of K1 and the twin may differ on this share
@@ -536,6 +565,45 @@ def ptxas_instances(log):
     return out
 
 
+def sass_counts(_build, library):
+    """The SASS of the generated kernel in ``library`` (``cuobjdump
+    -sass``): its instructions and its ``CALL``, ``STL``/``LDL`` (local
+    memory) and ``MUFU`` instructions."""
+    cuobjdump = _build.nvcc_path().parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    ops = [re.sub(r"^@!?U?P[T0-9]\s+", "", m.group(1).strip()).split()[0].split(".")[0]
+           for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", sass)]
+    return {"instructions": len(ops), **{op: ops.count(op) for op in ("CALL", "STL", "LDL", "MUFU")}}
+
+
+def library_icdf(torch, name, args, kwargs):
+    """``(icdf, class name)``: the ``torch.distributions`` inverse CDF of the
+    scipy family ``name`` at ``args``, ``kwargs``, plus the loc its class
+    lacks, as a function of float32 uniforms on the card."""
+    D = torch.distributions
+    loc, scale = float(kwargs.get("loc", 0.0)), float(kwargs.get("scale", 1.0))
+    loc_t, scale_t = (torch.tensor(v, device="cuda") for v in (loc, scale))
+    shape = torch.tensor(float(args[0]), device="cuda") if args else None
+    if name in ("norm", "cauchy", "laplace", "gumbel_r"):
+        classes = {"norm": D.Normal, "cauchy": D.Cauchy, "laplace": D.Laplace,
+                   "gumbel_r": D.Gumbel}
+        dist, loc = classes[name](loc_t, scale_t), 0.0
+    elif name == "uniform":
+        dist, loc = D.Uniform(loc_t, loc_t + scale_t), 0.0
+    elif name == "lognorm":
+        dist = D.LogNormal(torch.log(scale_t), shape)
+    elif name == "expon":
+        dist = D.Exponential(1.0 / scale_t)
+    elif name == "pareto":
+        dist = D.Pareto(scale_t, shape)
+    elif name == "weibull_min":
+        dist = D.Weibull(scale_t, shape)
+    else:
+        dist = {"halfnorm": D.HalfNormal, "halfcauchy": D.HalfCauchy}[name](scale_t)
+    return (lambda u: loc + dist.icdf(u)), type(dist).__name__
+
+
 def cuda_time_ms(fn, repeats=5, warm=True):
     """Median wall time of ``fn`` on the card, by CUDA events, after one
     warm-up call (``warm=False``: the caller has just run it)."""
@@ -613,6 +681,8 @@ def generated_tapes(cuda_exec, _compile):
         families[f"{label}, all nodes"] = tape(sink, family_keep(nodes))
     for name in cuda_exec.INCOMPLETE_FAMILY_CAPS:
         families[f"newton family {name}"] = tape(newton_family(name))
+    for name in LIBRARY_FAMILIES:
+        families[f"single {name}"] = tape(single_family(name))
     typed = {}
     sink, leaves, _ = typed_ops()
     for label, group in typed_ops_groups(leaves).items():
@@ -649,6 +719,14 @@ def generated_tapes(cuda_exec, _compile):
         "table_risk_correlated, drivers": tape(table_risk_correlated()[0], portfolio_keep),
         **typed,
     }
+
+
+def single_family(name):
+    """A graph of one node of ``name`` at its LIBRARY_FAMILIES parameters."""
+    from probabilit_tpu_torch.models.distributions import Distribution
+
+    args, kwargs = LIBRARY_FAMILIES[name]
+    return Distribution(name, *args, **kwargs)
 
 
 def typed_ops_groups(leaves):
@@ -745,6 +823,18 @@ def main():
                 registers[label] = record["registers_and_spill_bytes"]["graph_megakernel"]
         emit(record)
     check(len(texts) < len(generated), "graphs that differ only in constants gave two texts")
+    # The closed-form family kernels run on fast_math.cuh alone: no call
+    # (libm's slow paths, IEEE division) and no local memory in their SASS.
+    sass = {label: sass_counts(_build, built[generated[label].source][0])
+            for label in (*CLOSED_FORM_GRAPHS, *(f"{g}, all nodes" for g in CLOSED_FORM_GRAPHS),
+                          "mixed_dag_20", "portfolio_var",
+                          *(f"single {name}" for name in LIBRARY_FAMILIES))}
+    emit({"phase": "closed_form_sass", "kernels": {
+        label: {**counts, "registers_and_spill_bytes": registers[label]}
+        for label, counts in sass.items()}})
+    for label in (*CLOSED_FORM_GRAPHS, *(f"{g}, all nodes" for g in CLOSED_FORM_GRAPHS)):
+        check(sass[label]["CALL"] == sass[label]["STL"] == sass[label]["LDL"] == 0,
+              f"{label}: a call or local memory in the closed-form kernel: {sass[label]}")
 
     config.set_device("cuda")
     config.set_dtype(torch.float32)
@@ -858,6 +948,11 @@ def main():
             # The family branches: per graph at 1e8, the twin at 2^22, and
             # the largest error relative to each node's largest value.
             "family_graphs": families["graphs"],
+            # The closed forms on fast_math.cuh: their kernels' SASS counts,
+            # and the eleven torch.distributions families alone, K1 beside
+            # the library's icdf on the same uniforms.
+            "closed_form_sass": sass,
+            "closed_form_library": families["library"],
             "portfolio_var": portfolio["record"],
             # The Newton tier (csrc/newton_ops.cuh): K1 at 1e8 beside the
             # bound at the twin's trips with fixed-length fractions and the
@@ -1656,6 +1751,10 @@ def family_path(torch, np, stats, cuda_exec, _compile, smi):
         rows, worst = nodes_held(plan, tape, sink, nodes, got, ref, U, newton)
         for row in rows:
             check(row["held_err"] <= row["tolerance"], f"{label}: kernel vs twin per node: {row}")
+        if not newton:
+            transcribed = transcription_held(plan, tape, nodes, got, ref, U, sweep)
+            for row in rows:
+                row["transcription_rel_err"] = transcribed.get(row["node"])
         emit({"phase": "family_kernel_vs_twin", "graph": label, "n": N_NODES,
               "rel_tolerance": REL_TOL, "held_on": (
                   f"uniforms in {list(NEWTON_CENTRAL)}; the sink within the sum of its "
@@ -1703,7 +1802,69 @@ def family_path(torch, np, stats, cuda_exec, _compile, smi):
         graphs[label] = record
         emit({"phase": "family_timing", "graph": label, "card": smi, "n": N_MAIN, **record})
     graphs["newton_families"] = newton_family_timings(torch, cuda_exec, _compile, smi)
-    return {"k1_launches": launches_total, "graphs": graphs}
+    return {"k1_launches": launches_total, "graphs": graphs,
+            "library": library_family_timings(torch, cuda_exec, _compile, smi)}
+
+
+def transcription_held(plan, tape, nodes, got, ref, U, sweep):
+    """Phase 14's check of K1's rewritten closed-form rows against their
+    PyTorch transcription (ops/fast_math.py) on the same uniforms: {family:
+    max |K1 - transcription| / max |twin|}, each within REL_TOL."""
+    from probabilit_tpu_torch.ops import fast_math
+
+    out = {}
+    for name, node in nodes:
+        if name not in fast_math.FAMILIES:
+            continue
+        k = tape.keep_order.index(node._id)
+        want = fast_math.value(name, U[:, plan.col_of[node._id]], *sweep[name])
+        out[name] = (got[k] - want).abs().max().item() / max(ref[k].abs().max().item(), 1e-30)
+        check(out[name] <= REL_TOL, f"{name}: K1 against its transcription: {out[name]}")
+    return out
+
+
+def library_family_timings(torch, cuda_exec, _compile, smi):
+    """Each LIBRARY_FAMILIES family alone: K1 at 1e8 beside its bound and
+    beside torch.distributions' icdf on the same uniforms (drawn
+    beforehand), the largest difference between the two, and K1 against
+    its twin and its transcription at 2^22 (REL_TOL)."""
+    from probabilit_tpu_torch.ops import fast_math
+
+    distributions = torch.distributions.Distribution
+    validate = distributions._validate_args
+    distributions.set_default_validate_args(False)  # no support checks in the timed call
+    words = cuda_exec.seed_words(4)
+    u = cuda_exec.philox_uniforms(words, N_MAIN, 1, device="cuda")[:, 0]
+    records = {}
+    try:
+        for name, (args, kwargs) in LIBRARY_FAMILIES.items():
+            node = single_family(name)
+            tape = cuda_exec.lowered(_compile.get_plan(node), [node._id], "cuda")
+            out, flag = cuda_exec.run(tape, words, N_MAIN)
+            check(int(flag) == 0, f"single {name}: non-finite values")
+            icdf, library = library_icdf(torch, name, args, kwargs)
+            diff = (icdf(u) - out[0]).abs().max().item()
+            ref = cuda_exec.run_tape(tape, u[:N_NODES, None])[0]
+            scale = ref.abs().max().item()
+            record = {"twin_rel_err": (out[0, :N_NODES] - ref).abs().max().item() / scale}
+            check(record["twin_rel_err"] <= REL_TOL, f"single {name}: K1 vs twin: {record}")
+            if name in fast_math.FAMILIES:
+                want = fast_math.value(name, u[:N_NODES], args, kwargs)
+                record["transcription_rel_err"] = (out[0, :N_NODES] - want).abs().max().item() / scale
+                check(record["transcription_rel_err"] <= REL_TOL,
+                      f"single {name}: K1 vs its transcription: {record}")
+            del out
+            bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, tape_cost(tape, cuda_exec))
+            record.update(
+                ms=cuda_time_ms(lambda: cuda_exec.run(tape, words, N_MAIN)),
+                library_ms=cuda_time_ms(lambda: icdf(u)),
+                library_call=f"torch.distributions.{library}.icdf",
+                library_max_abs_diff=diff, max_abs=scale, bound_ms=bound_ms, bound_by=bound_by)
+            records[name] = record
+            emit({"phase": "family_library", "family": name, "card": smi, "n": N_MAIN, **record})
+    finally:
+        distributions.set_default_validate_args(validate)
+    return records
 
 
 def nodes_held(plan, tape, sink, nodes, got, ref, U, newton):

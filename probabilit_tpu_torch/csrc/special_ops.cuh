@@ -2,7 +2,8 @@
 //
 // Each function transcribes its plain PyTorch twin in ops/special.py under
 // kernel_safe_special (the functions the TPU kernel lowers): the wide-range
-// normal quantile, expm1_safe, the Lanczos log-gamma and the series and
+// normal quantile (the Newton tier's guesses; the closed forms take
+// fast_math.cuh's), the Lanczos log-gamma and the series and
 // continued-fraction incomplete gamma (argus's normaliser).  Where the
 // twin evaluates both branches of a select (the series and the continued
 // fraction) these evaluate only the branch the lane takes: the value is
@@ -22,19 +23,6 @@
 namespace special_ops {
 
 constexpr float kTiny = 1e-30f;
-
-// exp(x) - 1: a 7-term Taylor branch below |x| < 0.25, else expf(x) - 1.
-__device__ __forceinline__ float expm1_safe(float x) {
-  if (fabsf(x) < 0.25f) {
-    return x * (1.0f +
-                x * (0.5f +
-                     x * (0.16666666666666666f +
-                          x * (0.041666666666666664f +
-                               x * (0.008333333333333333f +
-                                    x * (0.001388888888888889f + x / 5040.0f))))));
-  }
-  return expf(x) - 1.0f;
-}
 
 // Standard-normal quantile accurate for q down to 1e-37: the Giles
 // branches in w = -log(4 q (1 - q)) computed from q directly, and past the

@@ -167,8 +167,8 @@ LANES = 4  # samples per Philox call, and per thread and loop turn
 _THREADS = 256
 _TILE = _THREADS * LANES  # samples of one turn of a block's loop
 _HEADERS = (
-    "sampling_math.cuh", "special_ops.cuh", "ppf_ops.cuh", "graph_ops.cuh", "table_ops.cuh",
-    "newton_ops.cuh",
+    "sampling_math.cuh", "special_ops.cuh", "fast_math.cuh", "ppf_ops.cuh", "graph_ops.cuh",
+    "table_ops.cuh", "newton_ops.cuh",
 )
 # The Newton tier (csrc/newton_ops.cuh): a block solves the quantiles of
 # a turn together, one float per Newton row and sample in shared memory.

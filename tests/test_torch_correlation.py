@@ -517,6 +517,9 @@ def test_kernel_sources_share_the_caps_and_the_math():
     generated = cuda_exec.lowered(tcompile.get_plan(sink), [sink._id]).source
     stats = (csrc / "corr_stats.cu").read_text()
     assert f"kMaxCorr = {cuda_exec.MAX_CORR_K};" in stats and "kCorr = 10;" in generated
+    # K2 keeps sampling_math's normal scores; the closed forms' fast_math.cuh
+    # is the generated kernel's alone.
+    assert '#include "fast_math.cuh"' in generated and "fast_math" not in stats
     for src in (generated, stats):
         assert '#include "sampling_math.cuh"' in src
         # Both kernels draw whole groups from the one shared generator.

@@ -30,6 +30,7 @@ from probabilit_tpu_torch.engine import cuda_exec, newton_tier, streaming
 from probabilit_tpu_torch.models import benchmarks, graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution, EmpiricalDistribution
 from probabilit_tpu_torch.ops import bitonic_sort as bs
+from probabilit_tpu_torch.ops import fast_math
 
 REL_TOL = 1e-4
 STATS_TOL = 1e-5
@@ -422,6 +423,39 @@ def test_family_branches_match_twin(cuda_card, label):
             k = tape.keep_order.index(node._id)
             held = central[:, plan.col_of[node._id]]
             assert (got[k] - want).abs()[held].max() <= REL_TOL * want.abs().max(), name
+
+
+# The closed forms alone: FAMILY_SWEEP's parameters, the first five's here.
+FIRST_FIVE = {
+    "uniform": ((), {"loc": 1.0, "scale": 2.0}),
+    "norm": ((), {"loc": 1.0, "scale": 2.0}),
+    "expon": ((), {"scale": 2.0}),
+    "lognorm": ((0.5,), {"scale": 2.0}),
+    "triang": ((0.4,), {"loc": 1.0, "scale": 2.0}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", cuda_exec._CLOSED_FORM_FAMILIES)
+def test_each_closed_form_family_alone_matches_twin_and_transcription(cuda_card, name):
+    # At an unaligned start: the first and last groups are partial.  The
+    # rewritten bodies (csrc/fast_math.cuh) are also held to their PyTorch
+    # transcription (ops/fast_math.py) on the same uniforms.
+    sweep = {family: (a, k) for family, a, k in benchmarks.FAMILY_SWEEP}
+    args, kwargs = FIRST_FIVE.get(name) or sweep[name]
+    sink = Distribution(name, *args, **kwargs)
+    tape = cuda_exec.lowered(tcompile.get_plan(sink), [sink._id], "cuda")
+    words = cuda_exec.seed_words(10)
+    start, n = 5, N + 3
+    got, flag = cuda_exec.run(tape, words, n, start=start)
+    U = cuda_exec.philox_uniforms(words, n, 1, device="cuda", start=start)
+    ref = cuda_exec.run_tape(tape, U)
+    assert int(flag) == 0
+    scale = ref.abs().max()
+    assert (got - ref).abs().max() <= REL_TOL * scale
+    if name in fast_math.FAMILIES:
+        want = fast_math.value(name, U[:, 0], args, kwargs)
+        assert (got[0] - want).abs().max() <= REL_TOL * scale
 
 
 @pytest.mark.cuda

@@ -412,6 +412,10 @@ def test_opcodes_and_caps_match_the_kernel_source():
     called = set(re.findall(r"(\w+)\(", " ".join(templates)))
     assert called <= libm | defined, called - libm - defined
     assert {"philox_group", "store_group", "ndtri_fast", "floor_divide", "ppf_triang"} <= defined
+    # The closed forms compute on fast_math.cuh, which every generated text
+    # includes before them.
+    assert '#include "fast_math.cuh"' in headers["ppf_ops.cuh"]
+    assert {"log_fast", "log1p_fast", "exp_fast", "pow_fast", "tan_or_cot"} <= defined
     # A 4 KB parameter space holds the constants beside the other arguments.
     assert 4 * cuda_exec.MAX_CONSTS + 64 <= 4096
 

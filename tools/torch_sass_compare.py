@@ -3,9 +3,10 @@
     python3 tools/torch_sass_compare.py ROOT_A ROOT_B
 
 For each checkout, dumps the SASS of every
-``build/probabilit_tpu_torch/graph_megakernel-*.so`` it holds (what its
-runs built) with ``cuobjdump -sass``, drops the addresses and encodings,
-and hashes each library's instructions.  Prints one JSON object per
+``build/probabilit_tpu_torch/graph_megakernel-*.so`` and
+``corr_stats-*.so`` it holds (what its runs built) with ``cuobjdump
+-sass``, drops the addresses and encodings, and hashes each library's
+instructions.  Prints one JSON object per
 checkout ({library: [hash, instructions]}) and one with the hashes both
 share and those only one has: two checkouts whose generated text differs
 only in host code build the same device code.  Needs the CUDA toolkit
@@ -29,8 +30,8 @@ def device_code(cuobjdump, library):
     """(hash, instruction count) of a library's SASS, addresses dropped."""
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
-    body = [re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
-            for line in sass.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", line)]
+    body = [re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+            for line in sass.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
     return hashlib.sha256("\n".join(body).encode()).hexdigest()[:16], len(body)
 
 
@@ -42,7 +43,8 @@ def main():
     cuobjdump = _build.nvcc_path().parent / "cuobjdump"
     found = {}
     for root in sys.argv[1:]:
-        libraries = sorted(Path(root, "build", "probabilit_tpu_torch").glob("graph_megakernel-*.so"))
+        built = Path(root, "build", "probabilit_tpu_torch")
+        libraries = sorted([*built.glob("graph_megakernel-*.so"), *built.glob("corr_stats-*.so")])
         found[root] = {lib.name: device_code(cuobjdump, lib) for lib in libraries}
         print(json.dumps({"root": root, "libraries": found[root]}), flush=True)
     a, b = ({tuple(v) for v in found[root].values()} for root in sys.argv[1:])
