@@ -163,13 +163,19 @@ tiers:
     at 2^20 (chi-square, or KS against the piecewise-linear CDF), p >
     1e-4; ``cuda`` against ``None`` within 5 standard errors at 1e7; K1
     timed with its bound, registers, spills and shared-memory bytes.
+    Each table graph's K1 also beside the bound re-priced for the
+    guide-indexed search (``table_prices``: its shared-memory wavefronts
+    as ``ops/table_search.py`` counts them on the twin's quantiles at
+    2^22, held bitwise to the twin's rows).
     ``benchmarks.table_risk_correlated()`` (an Empirical, a Cumulative and
     a Poisson driver correlated with a normal one): K2 and K1's recolour
     branch into the table rows against their twins (the count within 1 on
     at most 1e-3 of the samples, its quantile having gone through the
     hardware's ``ndtr_fast``; the rest within 1e-4 where the counts
-    agree), the drivers' normal scores (through their exact CDFs; the
-    count's correlation with them scaled by corr(F^-1(Phi(Y)), Y)) on the
+    agree), its three tables drawn directly (``correlated_tables_drawn``)
+    bitwise against the twin at 2^22, the drivers' normal scores (through
+    their exact CDFs; the count's correlation with them scaled by
+    corr(F^-1(Phi(Y)), Y)) on the
     repaired target within 2e-3 at 1e7, ``cuda`` against ``None`` and
     streamed ``estimate(1e9)`` against one-shot within 5 standard errors,
     each timed with its host share.  The plain path on the card at 1e7:
@@ -398,6 +404,13 @@ BETA_TRIP_OWN, BETA_PAIR = 40, 58
 # multiplies, adds and selects the right end (4).
 TABLE_STEP = 3
 TABLE_TAIL = {"TABLE_CDF": 1, "TABLE_DISCRETE": 1, "TABLE_INTERP": 7}
+# The guide-indexed search (csrc/table_ops.cuh), re-priced: the shared-
+# memory wavefronts a lookup takes (its guide's word, each step of its
+# window or of the full search, the gather after it), each path once for
+# a warp whose lanes take it, as ops/table_search.py counts them on this
+# run's draws, at one wavefront a clock per SM; and TABLE_STEP operations
+# a load.
+SHARED_WAVEFRONTS_PER_S = 132 * 1.98e9
 
 
 def table_flops(name, nb):
@@ -413,12 +426,14 @@ def check(cond, message):
         raise AssertionError(message)
 
 
-def tape_cost(tape, cuda_exec, newton=None, int_cost=None):
+def tape_cost(tape, cuda_exec, newton=None, int_cost=None, tables=None):
     """(integer instructions, float32 flops) per sample of ``tape``;
     ``newton`` prices this run's Newton ops (``newton_cost``), ``int_cost``
     the rows that compute in int32 or bool and the conversions of their
     operands, in SASS instructions (``int_op_sass``; without it, one
-    each).  A constant's conversion is loop-invariant and costs nothing."""
+    each), ``tables`` a table row's flops by its value number (without it,
+    ``table_flops``: the full search).  A constant's conversion is
+    loop-invariant and costs nothing."""
     int_cost = int_cost or {}
     ints = flops = 0
     kind_of, consts = {}, set()
@@ -428,7 +443,8 @@ def tape_cost(tape, cuda_exec, newton=None, int_cost=None):
             kind_of[dst] = kind
             consts.add(dst)
             continue
-        fields = () if name in ("DRAW", "RECOLOR") else (a, b, nb, d)
+        fields = (() if name in ("DRAW", "RECOLOR") else (a,) if name in TABLE_TAIL
+                  else (a, b, nb, d))
         operands = [v for v in fields if v in kind_of]
         compute = (cuda_exec._compute_kind(name, [kind_of[v] for v in operands], kind)
                    if name in cuda_exec._TRANSFORM_FN else "f")
@@ -443,7 +459,7 @@ def tape_cost(tape, cuda_exec, newton=None, int_cost=None):
         if name == "RECOLOR":
             i, f = 0, 2 * tape.n_corr
         elif name in TABLE_TAIL:
-            i, f = 0, table_flops(name, nb)
+            i, f = 0, (tables or {}).get(dst, table_flops(name, nb))
         elif newton and name in newton:
             i, f = 0, newton[name]
         else:
@@ -717,6 +733,7 @@ def generated_tapes(cuda_exec, _compile):
             table_risk()[0], lambda plan: {plan.sink._id} | {n._id for n in plan.dist_nodes}),
         "table_risk_correlated": tape(table_risk_correlated()[0]),
         "table_risk_correlated, drivers": tape(table_risk_correlated()[0], portfolio_keep),
+        "table_risk_correlated, drawn": tape(correlated_tables_drawn()[0], dist_keep),
         **typed,
     }
 
@@ -2126,6 +2143,68 @@ def fit_p(np, stats, law, x):
     return stats.kstest(x, exact).pvalue
 
 
+def correlated_tables_drawn():
+    """``table_risk_correlated``'s margin on its own nodes, uncorrelated:
+    its Empirical, Cumulative and Poisson tables searched from the
+    kernel's own draws.  Returns ``(margin, {name: node})``."""
+    from probabilit_tpu_torch.models.benchmarks import table_risk_correlated
+
+    _, n = table_risk_correlated()
+    return n["orders"] * (n["price"] - n["unit_cost"]) - n["lead_time"] * 50.0, n
+
+
+def dist_keep(plan):
+    """The sink and every distribution node."""
+    return {plan.sink._id} | {node._id for node in plan.dist_nodes}
+
+
+def table_prices(torch, cuda_exec, tape, words, ab=None):
+    """``tape``'s table rows through the guide-indexed search on the twin's
+    quantiles at N_NODES: the transcription (``ops/table_search.py``) held
+    bitwise to the twin's rows, its loads a lookup and its wavefronts a
+    sample (``table_search.warp_wavefronts``), and the bound at N_MAIN
+    re-priced at those counts: the larger of the bytes, the operations
+    (``TABLE_STEP`` a load of the search) and the wavefronts at
+    ``SHARED_WAVEFRONTS_PER_S``."""
+    import dataclasses
+
+    from probabilit_tpu_torch.ops import table_search
+
+    rows = [row for row in tape.program if cuda_exec.OPCODES[row[0]] in TABLE_TAIL]
+    store = cuda_exec._OPCODE["STORE"]
+    # The same tape, also storing each table row's quantile.
+    probe = dataclasses.replace(
+        tape,
+        program=tape.program + tuple((store, tape.n_keep + i, row[2], -1, -1, -1)
+                                     for i, row in enumerate(rows)),
+        keep_order=tape.keep_order + tuple(range(len(rows))),
+        imm=torch.cat([tape.imm, tape.imm.new_zeros(len(rows))]))
+    U = cuda_exec.philox_uniforms(words, N_NODES, tape.d, device="cuda")
+    quantiles = cuda_exec.run_program(probe, U, ab)[tape.n_keep:]
+    del U
+    guides = {dst: tuple(guide) for dst, *guide in tape.guides}
+    per_row, wavefronts, flops = [], 0.0, {}
+    for (op, dst, _, offset, nb, _), q in zip(rows, quantiles):
+        name = cuda_exec.OPCODES[op]
+        value, steps = table_search.lookup(name, tape.tables, offset, nb, q, guides.get(dst))
+        twin = cuda_exec._table_row(name, tape.tables, offset, nb, q)
+        check(torch.equal(value, twin), f"{name} of {nb} boundaries: transcription != twin")
+        loads = steps.double().mean().item() + (dst in guides)
+        warp = table_search.warp_wavefronts(name, steps, dst in guides)
+        flops[dst] = TABLE_STEP * loads + TABLE_TAIL[name]
+        wavefronts += warp
+        per_row.append({"row": name, "boundaries": nb, "guide": guides.get(dst, (0, 1, 0))[1:],
+                        "search_loads_per_lookup": loads, "warp_wavefronts_per_sample": warp})
+    shared_ms = wavefronts * N_MAIN / SHARED_WAVEFRONTS_PER_S * 1e3
+    bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN * tape.n_keep,
+                               tape_cost(tape, cuda_exec, tables=flops))
+    if shared_ms > bound_ms:
+        bound_ms, bound_by = shared_ms, "shared memory"
+    return {"table_rows": per_row, "wavefronts_per_sample": wavefronts,
+            "shared_wavefront_ms": shared_ms, "repriced_bound_ms": bound_ms,
+            "repriced_bound_by": bound_by, "guide_floats": tape.guide_floats}
+
+
 def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
     """Phase 16: K1's table branch (large_table, table_risk,
     table_risk_correlated) and the plain path's table, PCHIP and string
@@ -2185,11 +2264,12 @@ def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
                   library_searchsorted_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                   flops_per_sample=cost[1], int_instr_per_sample=cost[0], chi2_p=p,
                   shared_bytes=sink_tape.shared_bytes,
-                  registers_and_spill_bytes=registers.get("large_table"))
+                  registers_and_spill_bytes=registers.get("large_table"),
+                  **table_prices(torch, cuda_exec, sink_tape, words))
     emit({"phase": "table_large", "card": smi, "n": [N_MAIN, 4 * N_MAIN], **record})
     records["large_table"] = record
     main = {"ms": k1_ms, "plain_ms": twin_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "repriced_bound_ms": record["repriced_bound_ms"]}
 
     # table_risk(): every kind of table node on one tape.
     sink, nodes = table_risk()
@@ -2238,7 +2318,8 @@ def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
     record = {"launches": launches, "k1_ms": k1_ms, "twin_ms_at_2_22": twin_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "flops_per_sample": cost[1],
               "int_instr_per_sample": cost[0], "shared_bytes": sink_tape.shared_bytes,
-              "registers_and_spill_bytes": registers.get("table_risk"), **agree}
+              "registers_and_spill_bytes": registers.get("table_risk"), **agree,
+              **table_prices(torch, cuda_exec, sink_tape, words)}
     emit({"phase": "table_risk_timing", "card": smi, "n": N_MAIN, **record})
     records["table_risk"] = record
 
@@ -2287,6 +2368,30 @@ def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
     emit({"phase": "table_correlated_vs_twin", "n_k2": N_MAIN, "k2_max_abs_err": k2_err,
           "k2_tolerance": STATS_TOL * N_MAIN, "n_k1": N_NODES, "rel_tolerance": REL_TOL,
           "nodes": rows})
+    del got, ref
+
+    # Its table nodes drawn directly (the same tables, no recolour): bitwise.
+    drawn, drawn_nodes = correlated_tables_drawn()
+    drawn_plan = _compile.get_plan(drawn)
+    drawn_keep = cuda_exec.keep_order(drawn_plan, dist_keep(drawn_plan))
+    drawn_tape = cuda_exec.lowered(drawn_plan, drawn_keep, "cuda")
+    got, flag = cuda_exec.run(drawn_tape, words, N_NODES)
+    ref = cuda_exec.run_reference(drawn_tape, words, N_NODES)
+    check(int(flag) == 0, "table_risk_correlated, drawn: non-finite values")
+    name_of = {node._id: name for name, node in drawn_nodes.items()}
+    rows = []
+    for k, nid in enumerate(drawn_tape.keep_order):
+        name = name_of.get(nid, "sink")
+        err = (got[k] - ref[k]).abs().max().item()
+        rows.append({"node": name, "bitwise": bool(torch.equal(got[k], ref[k])),
+                     "max_abs_err": err})
+        if name in ("unit_cost", "lead_time", "orders"):
+            check(rows[-1]["bitwise"],
+                  f"table_risk_correlated, drawn: {name} differs from its twin")
+        else:
+            check(err <= REL_TOL * ref[k].abs().max().item(),
+                  f"table_risk_correlated, drawn: {rows[-1]}")
+    emit({"phase": "table_correlated_drawn_vs_twin", "n": N_NODES, "nodes": rows})
     del got, ref
 
     # The drivers carry the repaired target at 1e7: the continuous ones'
@@ -2365,7 +2470,8 @@ def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
               "estimate_block_k2_ms": block_k2,
               "estimate_host_share": (wall - stream_kernel_ms) / wall,
               "shared_bytes": sink_tape.shared_bytes,
-              "registers_and_spill_bytes": registers.get("table_risk_correlated")}
+              "registers_and_spill_bytes": registers.get("table_risk_correlated"),
+              **table_prices(torch, cuda_exec, sink_tape, words, ab)}
     emit({"phase": "table_correlated_timing", "card": smi, "n": N_MAIN, "k": K, **record})
     records["table_risk_correlated"] = record
 

@@ -56,12 +56,19 @@ trimmed to the reachable quantiles, ``trimmed_cdf_table``), a numeric
 ``EmpiricalDistribution`` of at most ``TABLE_MAX`` entries each.  Their
 data lives in ``Tape.tables``, one float32 array, every table padded to a
 multiple of four floats; a table row's operands are its quantile and two
-literals, the table's offset and its count of boundaries.  Each block
-copies the tables into dynamic shared memory, and each lane runs a
-branch-free binary search there (``csrc/table_ops.cuh``): ceil(log2(n+1))
-loads and compares where the TPU kernel's select tree evaluates all n.
-Offsets and counts are part of the text; the values are not, so graphs
-whose tables differ only in their values share one build.
+literals, the table's offset and its count of boundaries.  After the
+tables, ``Tape.tables`` holds each table's guide (``table_guide``: M
+32-bit words, for cell ``floor(q M)`` the start of a window of
+``GUIDE_WINDOW`` boundaries that holds the cell), M a power of two from
+the tape's structure (``guide_cells``: at least four times the table's
+intervals, within the shared memory the tape leaves; none below
+``GUIDE_MIN_BOUNDARIES``; ``Tape.guides``).  Each block copies the tables
+into dynamic shared memory, and each lane reads its cell's word and
+searches that window (``csrc/table_ops.cuh``): three loads for most lanes
+where the TPU kernel's select tree evaluates all n (a crowded cell's
+lanes, and a table without a guide, run the full binary search).
+Offsets, counts, M and the window are part of the text; the values are
+not, so graphs whose tables differ only in their values share one build.
 
 Random bits: sample ``i`` (the global index, ``start`` + row) of column
 ``c`` is word ``i & 3`` of Philox4x32-10 at counter
@@ -100,7 +107,7 @@ import functools
 import inspect
 import itertools
 import numbers
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -184,6 +191,23 @@ NEWTON_SLOTS = 12
 # fit in it.  The TPU kernel has no such total cap (ROADMAP C).
 TABLE_MAX = 512
 MAX_SHARED_BYTES = 232_448
+# The table guides (csrc/table_ops.cuh) take only the shared memory a tape
+# leaves once its tables, recolour arrays and Newton tier have theirs: a
+# guide has the smallest power of two of cells at least GUIDE_SPREAD times
+# the table's NB + 1 intervals, at most GUIDE_MAX_CELLS, and guides shrink
+# (``guide_cells``) to fit MAX_SHARED_BYTES and, where four blocks of the
+# tape without guides share an SM (SM_SHARED_BYTES, 1 KB of it reserved per
+# block), to keep four.  A cell of at most GUIDE_WINDOW boundaries is
+# searched in a window of that many.  A table of fewer than
+# GUIDE_MIN_BOUNDARIES boundaries (a full search of at most four loads)
+# keeps the full search.  Spread 4, window 2 and tables from 9 boundaries
+# measured the fastest of spreads 2 and 4, windows 1 to 8 and tables from
+# 3, 9 or 17 boundaries on an H100 (PERF.md, the table branch finding).
+GUIDE_SPREAD = 4
+GUIDE_MAX_CELLS = 2048
+GUIDE_WINDOW = 2
+GUIDE_MIN_BOUNDARIES = 9
+SM_SHARED_BYTES = 233_472
 
 # Score-linear families: ppf(ndtr(y)) has a closed form in the score y.
 _SCORE_OPS = {"norm": "SCORE_NORM", "lognorm": "SCORE_LOGNORM"}
@@ -568,8 +592,12 @@ class Tape:
     n_corr: int = 0  # correlated variables: (A, b) holds n_corr^2 + n_corr floats
     program: tuple = ()  # the rows of ``code`` on value numbers: what ``generate`` reads
     consts: tuple = ()  # the LOADK rows' immediates in row order: float (float32), int or bool
-    # float32: every table row's data, each table padded to a multiple of 4
+    # float32: every table row's data, each table padded to a multiple of 4,
+    # then the guides (their 32-bit words)
     tables: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
+    # per table row with a guide: (its value number, the guide's offset in
+    # ``tables``, its cells, its search window)
+    guides: tuple = ()
 
     @property
     def n_instr(self):
@@ -601,9 +629,14 @@ class Tape:
         rows = len(self.newton_rows)
         if not rows:
             return 0
-        free = (MAX_SHARED_BYTES - 4 * self.tables.numel() - _recolor_bytes(self.n_corr)
-                - _newton_static_bytes(rows))
+        free = (MAX_SHARED_BYTES - 4 * (self.tables.numel() - self.guide_floats)
+                - _recolor_bytes(self.n_corr) - _newton_static_bytes(rows))
         return max(1, min(NEWTON_SLOTS // rows, free // (4 * _TILE * rows)))
+
+    @property
+    def guide_floats(self):
+        """The floats of ``tables`` that hold the guides (after the tables)."""
+        return sum(cells for _, _, cells, _ in self.guides)
 
     @property
     def slot_floats(self):
@@ -615,6 +648,7 @@ class Tape:
         return Tape(
             self.code.to(device), self.imm.to(device), self.n_slots, self.d,
             self.keep_order, self.n_corr, self.program, self.consts, self.tables.to(device),
+            self.guides,
         )
 
     @functools.cached_property
@@ -730,6 +764,67 @@ def table_data(node):
     return ("TABLE_INTERP", *interp_layout(np.linspace(0.0, 1.0, len(data)), data), None)
 
 
+def table_guide(bounds, cells, window):
+    """The guide of a table row's sorted float32 ``bounds`` with ``cells``
+    cells (a power of two) for a search ``window`` of 1, 2, 4 or 8
+    boundaries, as the float32 bit patterns of its 32-bit words.  Cell j
+    covers q in [j / cells, (j + 1) / cells) (the first from -inf, the last
+    to +inf) and holds the boundaries from lo_j, the count below j / cells
+    (0 for cell 0), to lo_{j+1} (the last: all of them); j / cells is exact
+    in float32, so every count is exact.  A cell of at most ``window``
+    boundaries has the first boundary of a window of ``window`` that holds
+    them, ``min(lo_j, nb - window)``; a crowded one has its top bit set and
+    lo_j below it (the kernel searches the whole table).
+    ``csrc/table_ops.cuh`` reads the word of cell ``floor(q cells)``."""
+    bounds = np.asarray(bounds, np.float32)
+    edges = (np.arange(1, cells) / cells).astype(np.float32)
+    lo = np.concatenate([[0], np.searchsorted(bounds, edges, side="left"), [len(bounds)]])
+    occupancy, lo = np.diff(lo), lo[:-1]
+    words = np.where(occupancy <= window, np.minimum(lo, len(bounds) - window), (1 << 31) | lo)
+    return words.astype(np.uint32).view(np.float32)
+
+
+def guide_cells(nbs, free_bytes, window=None):
+    """The cells of each table row's guide, for tables of ``nbs``
+    boundaries in ``free_bytes`` of shared memory: the smallest power of
+    two at least ``GUIDE_SPREAD * (nb + 1)``, within 4 .. ``GUIDE_MAX_CELLS``;
+    while the guides exceed ``free_bytes``, the first of the largest halves,
+    and a guide of 4 cells goes (1 cell: no guide, the full search).  A
+    table of fewer than ``GUIDE_MIN_BOUNDARIES`` boundaries, or no more
+    than the ``window`` (default ``GUIDE_WINDOW``), has none.  A function of
+    the structure alone, never of the boundaries' values."""
+    window = GUIDE_WINDOW if window is None else window
+    cells = [1 if nb <= window or nb < GUIDE_MIN_BOUNDARIES
+             else min(GUIDE_MAX_CELLS, max(4, 1 << (GUIDE_SPREAD * (nb + 1) - 1).bit_length()))
+             for nb in nbs]
+    while 4 * sum(c for c in cells if c > 1) > free_bytes:
+        i = cells.index(max(cells))
+        cells[i] = cells[i] // 2 if cells[i] > 4 else 1
+    return cells
+
+
+def _with_guides(tape, table_rows):
+    """``tape`` with a guide after its tables for each of ``table_rows``
+    (value number, boundaries, them in float32) that ``guide_cells``
+    gives room: what is left of ``MAX_SHARED_BYTES`` and, where four blocks
+    of ``tape`` share an SM, of a quarter of ``SM_SHARED_BYTES``."""
+    base = tape.shared_bytes
+    four = SM_SHARED_BYTES // 4 - 1024
+    limit = four if base <= four else MAX_SHARED_BYTES
+    cells = guide_cells([nb for _, nb, _ in table_rows], limit - base)
+    offset = tape.tables.numel()
+    guides, words = [], []
+    for (dst, _, bounds), m in zip(table_rows, cells):
+        if m > 1:
+            guides.append((dst, offset, m, GUIDE_WINDOW))
+            words.append(table_guide(bounds, m, GUIDE_WINDOW))
+            offset += m
+    if not guides:
+        return tape
+    tables = torch.cat([tape.tables, torch.from_numpy(np.concatenate(words))])
+    return replace(tape, tables=tables, guides=tuple(guides))
+
+
 def lower(plan, keep_order):
     """Turn ``plan`` into a ``Tape`` whose ``STORE k`` rows write the nodes
     of ``keep_order``; raises ``ValueError`` on a graph ``supports`` refuses.
@@ -773,6 +868,7 @@ def lower(plan, keep_order):
         return emit("AFFINE", [x, params[k], params[k + 1]])
 
     tables = []  # float32 sections, each a multiple of 4 floats
+    table_rows = []  # per table row: (value number, boundaries, them in float32)
 
     def emit_sampler(node, q):
         """The node's inverse CDF at the value ``q``."""
@@ -782,6 +878,7 @@ def lower(plan, keep_order):
         v = emit(op, [q])
         rows[-1][3:5] = [sum(map(len, tables)), nb]  # b, c: offset and boundaries (literals)
         tables.append(data)
+        table_rows.append((v, nb, data[:nb]))
         return v if loc is None else emit("ADD", [v, emit("LOADK", imm=float(loc))])
 
     corr_index = {v._id: i for i, v in enumerate(plan.corr_vars)}
@@ -863,7 +960,7 @@ def lower(plan, keep_order):
             f"{tape.n_slots} slots and {tape.shared_bytes} bytes of shared memory; "
             f"the caps are {MAX_INSTR}, {MAX_CONSTS}, {MAX_SLOTS} and {MAX_SHARED_BYTES}."
         )
-    return tape
+    return _with_guides(tape, table_rows)
 
 
 def lowered(plan, keep_order, device="cpu"):
@@ -937,9 +1034,9 @@ def _allocate_slots(rows):
 # float32 libm.  DRAW, LOADK, STORE, SCORE and RECOLOR have their own
 # shapes (see ``generate``).  A family's row calls ``ppf_<family>`` on q
 # and its shapes, a Newton family's reads the block's solve (``{slot}``:
-# its offset in ``s_newton``); a table row (csrc/table_ops.cuh) its search
-# on q, with {b} the table's offset in shared memory and {c} its
-# boundaries.
+# its offset in ``s_newton``); a table row (csrc/table_ops.cuh) its full
+# search on q, with {b} the table's offset in shared memory and {c} its
+# boundaries (``_GUIDED_EMIT``: with a guide).
 _EMIT = {
     "DRAW": "bits_to_open_unit({word})",
     "LOADK": "k.v[{index}]",
@@ -1003,6 +1100,12 @@ _EMIT = {
     "LOG1P": "log1pf({a})",
     "EXPM1": "expm1f({a})",
     "TO_FLOAT": "{a}",
+}
+
+# A table row with a guide: {g} the guide's offset in shared memory, {m}
+# its cells and {w} its window.
+_GUIDED_EMIT = {
+    name: _EMIT[name][:-1] + ", s_guide + {g}, {m}, {w})" for name in _TABLE_OPS
 }
 
 # The bodies of the rows that compute in int32 or in bool (``_compute_kind``),
@@ -1077,9 +1180,9 @@ _KERNEL_HEAD = """\
 // four independent chains fill the pipes, and a kept row's four values
 // leave in one 16-byte store; constants are read from the kernel's
 // parameter block as operands.  Table nodes (the TPU kernel's select
-// trees over up to 512 knots) search a copy of their tables in shared
-// memory, a binary search per lane: log2 of the table's loads where the
-// select tree evaluates all of it.
+// trees over up to 512 knots) look q up in a copy of their tables in
+// shared memory: a guide's word for cell floor(q M), then a search of a
+// window that holds the cell, where the select tree evaluates the table.
 
 #include <cstdint>
 #include <cstring>
@@ -1139,6 +1242,11 @@ _KERNEL_TABLES = """\
   extern __shared__ float4 s_tab4[];
   const float* s_tab = reinterpret_cast<const float*>(s_tab4);
   for (int t = threadIdx.x; t < kTableFloats / 4; t += kThreads) s_tab4[t] = tables[t];
+"""
+
+# The guides, words of the same copy (a guide's offset is a multiple of 4).
+_KERNEL_GUIDES = """\
+  const uint32_t* s_guide = reinterpret_cast<const uint32_t*>(s_tab4);
 """
 
 _KERNEL_LOOP = """\
@@ -1327,6 +1435,7 @@ def generate(tape):
         if OPCODES[row[0]] == "LOADK":
             const_of[row[1]] = len(const_of)
     newton, feeders, first = _newton_plan(tape) if tape.newton_rows else ([], {}, [])
+    guide_of = {dst: guide for dst, *guide in tape.guides}
     groups = tape.newton_groups
     slot_of = {}  # a Newton row's value number -> its lanes' offsets in s_newton
     for j, i in enumerate(newton):
@@ -1365,8 +1474,10 @@ def generate(tape):
                 text = _EMIT[name].format(a=operand(a, lane))
                 lines.append(f"const float z{dst}_{lane} = {text};")
         elif name in _TABLE_OPS:
+            template = _GUIDED_EMIT[name] if dst in guide_of else _EMIT[name]
+            g, m, w = guide_of.get(dst, (None, None, None))
             for lane in range(LANES):
-                text = _EMIT[name].format(a=operand(a, lane), b=b, c=c)
+                text = template.format(a=operand(a, lane), b=b, c=c, g=g, m=m, w=w)
                 lines.append(f"const float v{dst}_{lane} = {text};")
         elif name == "RECOLOR":
             # b_i, then + A_ij z_j for j = 0..K-1: the twin's order.
@@ -1401,7 +1512,8 @@ def generate(tape):
         table_floats=table_floats, slot_floats=tape.slot_floats, groups=max(groups, 1),
         includes="\n".join(f'#include "{h}"' for h in _HEADERS),
     )
-    copies = (_KERNEL_RECOLOR if K else "") + (_KERNEL_TABLES if table_floats else "")
+    copies = ((_KERNEL_RECOLOR if K else "") + (_KERNEL_TABLES if table_floats else "")
+              + (_KERNEL_GUIDES if tape.guides else ""))
     if not newton:
         body = "".join(f"    {line}\n" for line in lines)
         if copies:

@@ -579,6 +579,40 @@ def test_tables_above_48_kb_of_shared_memory(cuda_card):
             assert torch.equal(got[k], ref[k]), k
 
 
+def _tables_at_the_cap(newton):
+    """Empirical tables of 512 points summed until the block's shared memory
+    is nearly full: 22 beside 16 correlated normals, or 14 beside a gamma
+    and a beta node (the Newton tier's quantiles).  Their guides shrink."""
+    rng = np.random.default_rng(6)
+    parts = [EmpiricalDistribution(rng.lognormal(size=512)) for _ in range(14 if newton else 22)]
+    if newton:
+        return tg.Add(*parts, Distribution("gamma", 2.5), Distribution("beta", 2.0, 3.0)), parts
+    drivers = [Distribution("norm") for _ in range(16)]
+    sink = tg.Add(*parts, *drivers)
+    sink.correlate(*drivers, corr_mat=np.eye(16) * 0.5 + 0.5)
+    return sink, parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("newton", [False, True])
+def test_tables_at_the_shared_memory_cap_with_shrunk_guides(cuda_card, newton):
+    sink, parts = _tables_at_the_cap(newton)
+    plan = tcompile.get_plan(sink)
+    keep = {sink._id} | {p._id for p in parts[:15]}
+    tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, keep), "cuda")
+    assert tape.guides and tape.shared_bytes <= cuda_exec.MAX_SHARED_BYTES
+    words = cuda_exec.seed_words(15)
+    ab = cuda_exec.recolor_transform(plan, words, N, device="cuda") if tape.n_corr else None
+    got, flag = cuda_exec.run(tape, words, N, ab)
+    ref = cuda_exec.run_reference(tape, words, N, ab)
+    assert int(flag) == 0
+    for k, nid in enumerate(tape.keep_order):
+        if nid == sink._id:
+            assert (got[k] - ref[k]).abs().max() <= REL_TOL * ref[k].abs().max()
+        else:
+            assert torch.equal(got[k], ref[k]), k
+
+
 @pytest.mark.cuda
 def test_correlated_table_drivers_through_both_kernels(cuda_card):
     sink, nodes = benchmarks.table_risk_correlated()

@@ -1,7 +1,7 @@
 """K1 of the family branches, graph by graph and family by family, on one card.
 
     python3 tools/torch_family_timings.py [--root DIR] [--repeats 5] [--singles]
-        [--library] [--caps 2,3]
+        [--library] [--caps 2,3] [--tables] [--guides 0,4:2]
 
 Imports ``probabilit_tpu_torch`` from ``--root`` (default: this
 repository), so one call on the card can time two checkouts in turns
@@ -22,7 +22,13 @@ one nvcc per text, all started together, then times K1 alone at n = 1e8
   K1 of the same family alone, and the largest difference between the two;
 * with ``--caps``, the four closed-form graphs rebuilt with
   ``__launch_bounds__(kThreads, m)`` for each m, timed beside the
-  generator's own text.
+  generator's own text;
+* with ``--tables``, the three table graphs of ``chip_smoke.py`` phase 16
+  (``large_table``, ``table_risk``, ``table_risk_correlated``, sink only)
+  and, with ``--guides 0,4:2``, each also lowered with other guides,
+  where the package has them: ``SPREAD:WINDOW[:MIN]`` sets
+  ``cuda_exec.GUIDE_SPREAD``, ``GUIDE_WINDOW`` and
+  ``GUIDE_MIN_BOUNDARIES``, and 0 means no guide (the full search).
 
 It also builds, untimed, the Newton family graph's, the three table
 graphs' and the statistics kernel (K2), for ``tools/torch_sass_compare.py``.
@@ -81,6 +87,8 @@ def main():
     parser.add_argument("--singles", action="store_true")
     parser.add_argument("--library", action="store_true")
     parser.add_argument("--caps", default="")
+    parser.add_argument("--tables", action="store_true")
+    parser.add_argument("--guides", default="")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -117,10 +125,32 @@ def main():
         for name in names:
             a, k = smoke.LIBRARY_FAMILIES.get(name) or sweep.get(name) or SINGLE_ARGS[name]
             singles[name] = (Distribution(name, *a, **k), a, k)
+    tables = {"large_table": lambda: benchmarks.large_table(),
+              "table_risk": lambda: benchmarks.table_risk()[0],
+              "table_risk_correlated": lambda: benchmarks.table_risk_correlated()[0]}
+    if args.tables:
+        graphs.update({label: build() for label, build in tables.items()})
     tapes = {}
     for label, sink in [*graphs.items(), *((f"single {n}", s[0]) for n, s in singles.items())]:
         plan = _compile.get_plan(sink)
         tapes[label] = (plan, cuda_exec.lowered(plan, [sink._id], "cuda"))
+    variants = [item for item in args.guides.split(",") if item]
+    if args.tables and variants and hasattr(cuda_exec, "GUIDE_SPREAD"):
+        names = ("GUIDE_SPREAD", "GUIDE_WINDOW", "GUIDE_MIN_BOUNDARIES")
+        default = {name: getattr(cuda_exec, name) for name in (*names, "GUIDE_MAX_CELLS")}
+        for item in variants:
+            values = [int(v) for v in item.split(":")]
+            for name, value in zip(names, values + [0] * (len(names) - len(values))):
+                setattr(cuda_exec, name, value or default[name])
+            # Spread 0: no guide (at most one cell).
+            cuda_exec.GUIDE_MAX_CELLS = default["GUIDE_MAX_CELLS"] if values[0] else 1
+            for label, build in tables.items():
+                sink = build()
+                plan = _compile.get_plan(sink)
+                tapes[f"{label}, guides {item}"] = (
+                    plan, cuda_exec.lowered(plan, [sink._id], "cuda"))
+        for name, value in default.items():
+            setattr(cuda_exec, name, value)
     caps = [int(m) for m in args.caps.split(",") if m]
     texts = {label: tape.source for label, (_, tape) in tapes.items()}
     for m in caps:
@@ -173,12 +203,15 @@ def main():
 
     for label, text in texts.items():
         plan, tape = tapes[label.split(", cap ")[0]]
+        record_tape = {"shared_bytes": tape.shared_bytes,
+                       "guides": [guide[2:] for guide in getattr(tape, "guides", ())]}
         ab = (cuda_exec.recolor_transform(plan, words, N, "cuda").float().contiguous()
               if tape.n_corr else None)
         launch, out, flag = launcher(tape, text, ab)
         record = {"graph": label, "library": libraries[label].name, "card": smi, "n": N,
                   "k1_ms": events_ms(launch),
-                  "nonfinite": int(flag.item()), **resources(cuobjdump, libraries[label]),
+                  "nonfinite": int(flag.item()), **record_tape,
+                  **resources(cuobjdump, libraries[label]),
                   **smoke.sass_counts(_build, libraries[label])}
         name = label[len("single "):] if label.startswith("single ") else None
         if name in smoke.LIBRARY_FAMILIES and args.library:

@@ -25,9 +25,13 @@ graphs keep the main paths' distributions and drop the rest:
   the Newton and first closed-form family graphs, sink only;
 * the table branch: one draw (a standard uniform plus 0.0) beside one
   ``TABLE_CDF`` (poisson(2000), 470 boundaries), one ``TABLE_DISCRETE``
-  (512 values), one ``TABLE_INTERP`` of 512 knots (an Empirical) and one
+  on the same 470 boundaries (a Discrete of poisson(2000)'s
+  probabilities: the CDF row's search plus the gather of its value), one
+  of 512 values, one ``TABLE_INTERP`` of 512 knots (an Empirical) and one
   of 5 (the elicited Cumulative), each plus 0.0, and ``table_risk``'s
-  sink: the search's cost apart from Philox's and the store's;
+  sink: the search's cost apart from Philox's and the store's; then each
+  but the draw again, lowered without guides (the full binary search,
+  ``cuda_exec.GUIDE_MAX_CELLS`` = 1): the guide's gain;
 * the int32 rows: two uniforms picked into int32 operands (7 or -3 by
   ``u > 0.5``, 3 or -2) and added, beside the same two divided
   (``FloorDivide``, which the H100 computes without an integer divider),
@@ -157,17 +161,27 @@ def main():
         "closed_form_0_graph": families["closed_form_0"][0],
     }
 
-    rng = np.random.default_rng(8)
-    table_cuts = {
-        "draw_1": Distribution("uniform") + 0.0,
-        "table_cdf_471": benchmarks.large_table(),
-        "table_discrete_512": DiscreteDistribution(
-            np.arange(512.0), rng.dirichlet(np.ones(512))) + 0.0,
-        "table_interp_512": EmpiricalDistribution(rng.lognormal(size=512)) + 0.0,
-        "table_interp_5": CumulativeDistribution(
-            [0.0, 0.1, 0.5, 0.9, 1.0], [10.0, 15.0, 20.0, 25.0, 40.0]) + 0.0,
-        "table_risk": benchmarks.table_risk()[0],
-    }
+    poisson_cdf, poisson_loc = cuda_exec.trimmed_cdf_table(Distribution("poisson", mu=2000))
+
+    def table_graphs():
+        """Fresh table graphs (a plan caches its tape, so each lowering
+        needs its own)."""
+        rng = np.random.default_rng(8)
+        return {
+            "draw_1": Distribution("uniform") + 0.0,
+            "table_cdf_471": benchmarks.large_table(),
+            "table_discrete_471": DiscreteDistribution(
+                np.arange(len(poisson_cdf)) + poisson_loc,
+                np.diff(poisson_cdf.astype(np.float64), prepend=0.0)) + 0.0,
+            "table_discrete_512": DiscreteDistribution(
+                np.arange(512.0), rng.dirichlet(np.ones(512))) + 0.0,
+            "table_interp_512": EmpiricalDistribution(rng.lognormal(size=512)) + 0.0,
+            "table_interp_5": CumulativeDistribution(
+                [0.0, 0.1, 0.5, 0.9, 1.0], [10.0, 15.0, 20.0, 25.0, 40.0]) + 0.0,
+            "table_risk": benchmarks.table_risk()[0],
+        }
+
+    table_cuts = table_graphs()
 
     def picked(u, a, b):
         return (u > 0.5) * a + (u <= 0.5) * b
@@ -189,10 +203,19 @@ def main():
     emit({"build_alone": "newton_graph",
           "seconds": timed_build(tape_of(family_cuts["newton_graph"])[1].source)})
 
+    # The same table graphs lowered without guides.
+    default = cuda_exec.GUIDE_MAX_CELLS
+    cuda_exec.GUIDE_MAX_CELLS = 1
+    full_search = {f"{name}, full search": sink for name, sink in table_graphs().items()
+                   if name != "draw_1"}
+    for sink in full_search.values():
+        tape_of(sink)
+    cuda_exec.GUIDE_MAX_CELLS = default
+
     # Every cut is its own generated kernel: build them all at once.
     texts = [tape_of(sink)[1].source
              for sink in (*dag_cuts.values(), *corr_cuts.values(), *family_cuts.values(),
-                          *table_cuts.values(), *typed_cuts.values())]
+                          *table_cuts.values(), *full_search.values(), *typed_cuts.values())]
 
     start = time.perf_counter()
     with ThreadPoolExecutor(len(texts) + 1) as pool:
@@ -214,8 +237,9 @@ def main():
     rows = {name: kernel_ms(sink) for name, sink in family_cuts.items()}
     emit({"graph": "family_branches", "kernels": rows})
 
-    rows = {name: {**kernel_ms(sink), "shared_bytes": tape_of(sink)[1].shared_bytes}
-            for name, sink in table_cuts.items()}
+    rows = {name: {**kernel_ms(sink), "shared_bytes": tape_of(sink)[1].shared_bytes,
+                   "guides": [guide[2:] for guide in tape_of(sink)[1].guides]}
+            for name, sink in {**table_cuts, **full_search}.items()}
     emit({"graph": "table_branch", "kernels": rows})
 
     rows = {name: kernel_ms(sink) for name, sink in typed_cuts.items()}
