@@ -244,6 +244,36 @@ does):
     marginals' means within 5 standard errors at 1e7, and
     ``executor="cuda"`` refusing each of these graphs.
 
+Joint estimates of several nodes (``estimate_many``: the plain executor
+on the card, as the JAX package runs XLA there: the kernels refuse its
+``NoOp`` sink, so K1 must not be launched by it):
+
+19. ``estimate_many`` of ``mixed_dag_20``'s sink and the seven
+    non-constant nodes nearest it at 1e9 in blocks of 2^24, with
+    quantiles, CVaR, a histogram, moments and covariance: each node's
+    mean within 5 standard errors of its own ``estimate(node, 1e9)``, each
+    histogram counting n, ``cov`` symmetric, ``corr``'s diagonal 1, the
+    carries on the card; ``estimate_many(2^26, method="sobol")`` against
+    float64 statistics of one ``NoOp(*nodes).sample(2^26,
+    method="sobol")`` (n equal, min and max bitwise, mean, var and each
+    ``cov`` entry within 1e-9 relative, the histograms equal to the bin
+    rule on the draws); ``portfolio_model(d=10)``'s assets and total,
+    recoloured per block (at 1e9 if a call's forecast from 2^26 is under
+    20 s, else at 2^28): the total's mean within 1e-6 relative of the
+    assets' means' sum, its variance within 1e-5 of the sum of their
+    covariance block, the assets' correlations within 2e-3 of the repaired
+    target's image under the lognormal map; ``target_rel_sem=1e-4`` on
+    ``mixed_dag_20``'s nodes (every node meets it); a checkpointed
+    ``estimate_many(1e9)`` interrupted after two segments (by wrapping
+    ``streaming._many_carry``), resumed, equal key by key to an
+    uninterrupted run; ``executor="cuda"`` refusing ``estimate_many`` and
+    a scalar transform; ``scalar_transform(x * y + 1)`` at 1e8 within 1
+    float32 ulp of the operators' graph, an untraceable function at 1e4
+    through the host loop, its warning and its result on the card.
+    Timings (host clock, median of 3): ``estimate_many`` at 1e9 beside the
+    sum of the separate ``estimate`` calls, and both scalar transform
+    rates.
+
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
@@ -332,6 +362,19 @@ LHS_TOTAL = QMC_OFFSET + (1 << 22) + 12345  # strata of no power of two: the wal
 N_QMC_STREAM = 1 << 26
 N_QMC_ESTIMATE = 1 << 28
 N_COPULA = 10_000_000
+MANY_QUANTILES = (0.05, 0.5, 0.95)
+MANY_CVAR = (0.95, 0.99)
+MANY_HISTOGRAM = (-2e4, 1.5e5, 100)  # mixed_dag_20's nodes, under- and overflow beside
+N_MANY_EXACT = 1 << 26
+MANY_EXACT_TOL = 1e-9  # relative: float64 folds of float32 draws against float64 statistics
+PORTFOLIO_S = 0.2  # portfolio_model's lognormal shape (benchmarks.py)
+PORTFOLIO_MEAN_TOL = 1e-6  # the total's mean against the assets' means' sum, relative
+PORTFOLIO_VAR_TOL = 1e-5  # the total's variance against the covariance block's sum, relative
+PORTFOLIO_SECONDS_MAX = 20.0  # the portfolio runs at 1e9 if a call's forecast is under this
+N_PORTFOLIO_SMALL = 1 << 28
+MANY_REL_SEM = 1e-4
+N_SCALAR = 100_000_000
+N_HOST_LOOP = 10_000
 N_TAU = 1 << 16
 N_UNIFORM_KS = 1 << 20
 TAU_TOL = 0.02
@@ -680,6 +723,7 @@ def generated_tapes(cuda_exec, _compile):
         large_table,
         mixed_correlated_50,
         mixed_dag_20,
+        portfolio_model,
         portfolio_var,
         table_risk,
         table_risk_correlated,
@@ -710,6 +754,13 @@ def generated_tapes(cuda_exec, _compile):
         typed[f"{name}, typed nodes"] = tape(loss, lambda plan, nodes=nodes: breach_keep(plan, nodes))
         typed[f"{name}, severe"] = tape(nodes["severe"])
     typed["breach_count, overruns"] = tape(breach_count()[1]["overruns"])
+    # Phase 19's separate estimates: each watched node of mixed_dag_20 as
+    # its own sink, a portfolio asset alone and the correlated total.
+    joint = {f"estimate_many node {k}": tape(node)
+             for k, node in enumerate(joint_nodes(_compile.get_plan(mixed_dag_20()))[:-1])}
+    total = portfolio_model(d=10)
+    joint["portfolio_model asset"] = tape(_compile.get_plan(total).corr_vars[0])
+    joint["portfolio_model"] = tape(total)
     return {
         "mixed_dag_20": tape(mixed_dag_20()),
         "mixed_dag_20, 16 rows": tape(mixed_dag_20(), node_keep),
@@ -735,7 +786,16 @@ def generated_tapes(cuda_exec, _compile):
         "table_risk_correlated, drivers": tape(table_risk_correlated()[0], portfolio_keep),
         "table_risk_correlated, drawn": tape(correlated_tables_drawn()[0], dist_keep),
         **typed,
+        **joint,
     }
+
+
+def joint_nodes(plan):
+    """Phase 19's watched nodes: the sink and the seven non-constant nodes
+    nearest it in the plan's topological order."""
+    from probabilit_tpu_torch.models.graph import Constant
+
+    return [node for node in plan.topo if not isinstance(node, Constant)][-8:]
 
 
 def single_family(name):
@@ -943,6 +1003,7 @@ def main():
     tables = table_path(torch, np, scipy, cuda_exec, _compile, smi, registers)
     typed = typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, here)
     quantile_layer_path(torch, np, scipy, smi, here)
+    joint = estimate_many_path(torch, np, cuda_exec, _compile, smi, here)
 
     emit({"kernels": [
         {
@@ -954,7 +1015,7 @@ def main():
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
             "launches": launches + corr["k1_launches"] + stream["k1_launches"]
             + families["k1_launches"] + portfolio["k1_launches"] + tables["k1_launches"]
-            + typed["k1_launches"],
+            + typed["k1_launches"] + joint["k1_launches"],
             "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"],
                                portfolio["k1_err"], typed["k1_abs_err"]),
             "ms": kernel_ms,
@@ -997,7 +1058,7 @@ def main():
             "source": "probabilit_tpu_torch/csrc/corr_stats.cu",
             "replaces": "probabilit_tpu/engine/pallas_exec.py:577",
             "launches": corr["k2_launches"] + stream["k2_launches"] + portfolio["k2_launches"]
-            + tables["k2_launches"] + typed["k2_launches"],
+            + tables["k2_launches"] + typed["k2_launches"] + joint["k2_launches"],
             "max_abs_err": max(corr["k2_err"], stream["k2_err"], odd["k2_err"],
                                portfolio["k2_err"], tables["k2_err"]),
             "ms": corr["k2_ms"],
@@ -3004,6 +3065,265 @@ def quantile_layer_path(torch, np, scipy, smi, here):
     check(config.device().type == "cuda", "the phase left the card")
     emit({"phase": "multivariate", "card": smi, "n": N_COPULA, "graphs": multi,
           "phase_seconds": time.perf_counter() - t_phase})
+
+
+
+def same_result(np, a, b):
+    """Two estimate_many results equal key by key (arrays elementwise)."""
+    for node in a:
+        if a[node].keys() != b[node].keys():
+            return False
+        for key, value in a[node].items():
+            other = b[node][key]
+            if isinstance(value, dict):
+                if not all(np.array_equal(value[k], other[k]) for k in value):
+                    return False
+            elif isinstance(value, np.ndarray):
+                if not np.array_equal(value, other):
+                    return False
+            elif value != other:
+                return False
+    return True
+
+
+def median_wall(torch, fn, repeats=3):
+    """(first result, median host-clock ms) of ``repeats`` calls."""
+    runs = [wall_ms(torch, fn) for _ in range(repeats)]
+    return runs[0][0], statistics.median(ms for _, ms in runs)
+
+
+def estimate_many_path(torch, np, cuda_exec, _compile, smi, here):
+    """Phase 19: estimate_many (joint streamed estimates of several nodes)
+    and scalar_transform on the card."""
+    import warnings
+
+    from probabilit_tpu_torch import config
+    from probabilit_tpu_torch.engine import streaming
+    from probabilit_tpu_torch.models import graph as tg
+    from probabilit_tpu_torch.models.benchmarks import mixed_dag_20, portfolio_model
+
+    t_phase = time.perf_counter()
+    k1 = k2 = 0
+    sink = mixed_dag_20()
+    nodes = joint_nodes(_compile.get_plan(sink))
+    labels = [f"{type(node).__name__}#{k}" for k, node in enumerate(nodes)]
+    opts = dict(block_size=BLOCK, quantiles=MANY_QUANTILES, cvar=MANY_CVAR,
+                histogram=MANY_HISTOGRAM, moments=True)
+
+    # mixed_dag_20 jointly: no kernel launch (the NoOp sink), beside the
+    # separate estimates a user would otherwise run (K1 each).
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    joint, joint_ms = median_wall(torch, lambda: streaming.estimate_many(
+        nodes, N_STREAM, random_state=19, covariance=True, **opts))
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          "estimate_many launched a kernel: the NoOp sink must run the plain executor")
+    carry = streaming._many_carry(nodes, BLOCK, BLOCK, 5, "auto", covariance=True)
+    on_card = all(v.device.type == "cuda" for v in carry)
+    check(on_card, "estimate_many's carries left the card")
+    del carry
+    cuda_exec.LAUNCHES = 0
+    separate, separate_ms = median_wall(torch, lambda: [
+        node.estimate(N_STREAM, random_state=20 + k, **opts) for k, node in enumerate(nodes)])
+    check(cuda_exec.LAUNCHES > 0, "the separate estimates launched no K1")
+    k1 += cuda_exec.LAUNCHES
+    rows = {}
+    for label, node, one in zip(labels, nodes, separate):
+        st = joint[node]
+        h = st["histogram"]
+        counted = int(h["counts"].sum()) + h["underflow"] + h["overflow"]
+        check(counted == N_STREAM, f"{label}: the histogram counts {counted}, not n")
+        rows[label] = {"mean": st["mean"], "sem": st["sem"], "separate_mean": one["mean"],
+                       "z": estimates_agree(np, st, one, f"estimate_many {label}"),
+                       "q0.5": st["q0.5"], "cvar0.99": st["cvar0.99"], "skew": st["skew"]}
+    cov = np.stack([joint[node]["cov"] for node in nodes])
+    corr = np.stack([joint[node]["corr"] for node in nodes])
+    check(np.allclose(cov, cov.T, rtol=1e-12, atol=0), "cov is not symmetric")
+    check(np.array_equal(np.diag(corr), np.ones(len(nodes))), "corr's diagonal is not 1")
+    emit({"phase": "estimate_many_mixed_dag_20", "card": smi, "n": N_STREAM, "block": BLOCK,
+          "nodes": labels, "k1_launches_of_estimate_many": 0, "carries_on_card": on_card,
+          "estimate_many_ms": joint_ms, "separate_estimates_ms": separate_ms,
+          "separate_over_joint": separate_ms / joint_ms, "corr": corr.tolist(), "per_node": rows})
+
+    # Exactness against one shot: the streamed Sobol blocks are the rows of
+    # the one-shot sequence.
+    exact = streaming.estimate_many(nodes, N_MANY_EXACT, block_size=BLOCK, random_state=21,
+                                    method="sobol", histogram=MANY_HISTOGRAM, covariance=True)
+    tg.NoOp(*nodes).sample(N_MANY_EXACT, random_state=21, method="sobol", gc_strategy=nodes)
+    X = torch.stack([node.samples_.to(torch.float32) for node in nodes])
+    for node in nodes:
+        del node.samples_
+    Xd = X.double()
+    mean = Xd.mean(dim=1)
+    D = Xd - mean[:, None]
+    var = (D * D).mean(dim=1)
+    cov_one = (D @ D.T / N_MANY_EXACT).cpu().numpy()
+    del D, Xd
+    counts = streaming._histogram_accumulators_many(MANY_HISTOGRAM)(X).cpu().numpy()
+    worst = 0.0
+    for i, (label, node) in enumerate(zip(labels, nodes)):
+        st = exact[node]
+        h = st["histogram"]
+        check(st["n"] == N_MANY_EXACT, f"{label}: n {st['n']}")
+        check(st["min"] == X[i].min().item() and st["max"] == X[i].max().item(),
+              f"{label}: min/max differ from the one-shot draws'")
+        for got, want in ((st["mean"], mean[i].item()), (st["var"], var[i].item()),
+                          *zip(st["cov"], cov_one[i])):
+            rel = abs(got - want) / max(abs(want), 1e-300)
+            worst = max(worst, rel)
+            check(rel <= MANY_EXACT_TOL, f"{label}: {got} vs one-shot {want} ({rel:.3g} rel)")
+        check(np.array_equal(np.concatenate([[h["underflow"]], h["counts"], [h["overflow"]]]),
+                             counts[i]), f"{label}: histogram counts differ from the bin rule")
+    del X
+    emit({"phase": "estimate_many_equals_one_shot", "n": N_MANY_EXACT, "block": BLOCK,
+          "method": "sobol", "max_rel_err": worst, "rel_tolerance": MANY_EXACT_TOL,
+          "min_max_histograms_equal": True})
+
+    # The portfolio's desks and total: recoloured per block on the plain path.
+    total = portfolio_model(d=10)
+    pplan = _compile.get_plan(total)
+    assets = list(pplan.corr_vars)
+    pnodes = [*assets, total]
+    popts = dict(block_size=BLOCK, quantiles=PORTFOLIO_QUANTILES, cvar=(0.99,))
+    _, probe_ms = wall_ms(torch, lambda: streaming.estimate_many(
+        pnodes, 1 << 26, random_state=22, covariance=True, **popts))
+    forecast_s = probe_ms * 1e-3 * N_STREAM / (1 << 26)
+    n_port = N_STREAM if forecast_s < PORTFOLIO_SECONDS_MAX else N_PORTFOLIO_SMALL
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    port, port_ms = median_wall(torch, lambda: streaming.estimate_many(
+        pnodes, n_port, random_state=23, covariance=True, **popts))
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          "estimate_many launched a kernel on the portfolio")
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    pseparate, pseparate_ms = median_wall(torch, lambda: [
+        node.estimate(n_port, random_state=30 + k, **popts) for k, node in enumerate(pnodes)])
+    check(cuda_exec.LAUNCHES > 0 and cuda_exec.STATS_LAUNCHES > 0,
+          "the portfolio's separate estimates launched no K1 or no K2")
+    k1 += cuda_exec.LAUNCHES
+    k2 += cuda_exec.STATS_LAUNCHES
+    pcov = np.stack([port[node]["cov"] for node in pnodes])
+    pcorr = np.stack([port[node]["corr"] for node in pnodes])
+    a = len(assets)
+    sum_means = sum(port[node]["mean"] for node in assets)
+    mean_rel = abs(port[total]["mean"] - sum_means) / abs(sum_means)
+    block_sum = float(pcov[:a, :a].sum())
+    var_rel = abs(port[total]["var"] - block_sum) / block_sum
+    check(mean_rel <= PORTFOLIO_MEAN_TOL, f"portfolio: total mean off the assets' by {mean_rel}")
+    check(var_rel <= PORTFOLIO_VAR_TOL, f"portfolio: total var off the cov block by {var_rel}")
+    # The drivers' normal scores carry the repaired target rho exactly per
+    # block; lognormal values of shape s correlate at (e^{s^2 rho} - 1) /
+    # (e^{s^2} - 1).
+    target = np.asarray(pplan.corr_matrix)
+    s2 = PORTFOLIO_S**2
+    expected = np.expm1(s2 * target) / np.expm1(s2)
+    corr_err = float(np.abs(pcorr[:a, :a] - expected).max())
+    check(corr_err <= CORR_TOL, f"portfolio: asset correlations off by {corr_err}")
+    for k, (node, one) in enumerate(zip(pnodes, pseparate)):
+        estimates_agree(np, port[node], one, f"portfolio node {k}")
+    emit({"phase": "estimate_many_portfolio", "card": smi, "n": n_port, "block": BLOCK,
+          "forecast_1e9_s": forecast_s, "assets": a, "total_mean_rel_err": mean_rel,
+          "total_var_rel_err": var_rel, "max_corr_err": corr_err, "corr_tolerance": CORR_TOL,
+          "target_rho": float(target[0, 1]), "lognormal_image": float(expected[0, 1]),
+          "mean_asset_corr": float(pcorr[:a, :a][~np.eye(a, dtype=bool)].mean()),
+          "estimate_many_ms": port_ms, "separate_estimates_ms": pseparate_ms,
+          "separate_over_joint": pseparate_ms / port_ms,
+          "one_block_floats_sorted": (a + 1) * BLOCK, "k1_launches": cuda_exec.LAUNCHES,
+          "k2_launches": cuda_exec.STATS_LAUNCHES})
+
+    # Sequential to a relative target, and checkpointed.
+    seq, seq_ms = wall_ms(torch, lambda: streaming.estimate_many(
+        nodes, BLOCK, block_size=BLOCK, random_state=24, target_rel_sem=MANY_REL_SEM))
+    for label, node in zip(labels, nodes):
+        st = seq[node]
+        check(st["converged"] and st["sem"] <= MANY_REL_SEM * abs(st["mean"]),
+              f"sequential: {label} did not meet target_rel_sem")
+    first = seq[nodes[0]]
+    emit({"phase": "estimate_many_sequential", "card": smi, "target_rel_sem": MANY_REL_SEM,
+          "rounds": first["rounds"], "n": first["n"], "wall_ms": seq_ms,
+          "rel_sem": {label: seq[node]["sem"] / abs(seq[node]["mean"])
+                      for label, node in zip(labels, nodes)}})
+
+    path = here / "build" / "chip_smoke_many.ckpt.npz"
+    path.unlink(missing_ok=True)
+    copts = dict(block_size=BLOCK, random_state=25, quantiles=(0.5, 0.99), moments=True,
+                 covariance=True, checkpoint=str(path), checkpoint_every=CHECKPOINT_EVERY)
+    full, full_ms = wall_ms(torch, lambda: streaming.estimate_many(nodes, N_STREAM, **copts))
+
+    class Interrupted(Exception):
+        pass
+
+    real, segments = streaming._many_carry, []
+
+    def dying(*args, **kwargs):
+        if len(segments) == 2:
+            raise Interrupted
+        segments.append(1)
+        return real(*args, **kwargs)
+
+    streaming._many_carry = dying
+    try:
+        streaming.estimate_many(nodes, N_STREAM, **copts)
+        interrupted = False
+    except Interrupted:
+        interrupted = True
+    finally:
+        streaming._many_carry = real
+    check(interrupted and path.exists(), "the interrupted estimate_many left no checkpoint")
+    resumed, resume_ms = wall_ms(torch, lambda: streaming.estimate_many(nodes, N_STREAM, **copts))
+    equal = same_result(np, resumed, full)
+    check(equal and not path.exists(), "the resumed estimate_many differs from the uninterrupted one")
+    emit({"phase": "estimate_many_checkpointed", "card": smi, "n": N_STREAM,
+          "every": CHECKPOINT_EVERY, "segments_before_cut": 2, "uninterrupted_ms": full_ms,
+          "resumed_ms": resume_ms, "equal_key_by_key": equal})
+
+    # Refusals, and scalar_transform on the card.
+    x, y = nodes[-2], nodes[-4]
+    f = tg.scalar_transform(lambda u, v: u * v + 1)
+    refused = []
+    for label, call in (
+        ("estimate_many", lambda: streaming.estimate_many(nodes, 1 << 20, block_size=1 << 20,
+                                                          executor="cuda")),
+        ("scalar_transform", lambda: f(x, y).sample(1 << 20, random_state=0, gc_strategy=[],
+                                                    executor="cuda")),
+    ):
+        try:
+            call()
+        except ValueError:
+            refused.append(label)
+    check(len(refused) == 2, f"executor='cuda' accepted {set(('estimate_many', 'scalar_transform')) - set(refused)}")
+    vmapped, vmapped_ms = median_wall(torch, lambda: f(x, y).sample(
+        N_SCALAR, random_state=26, gc_strategy=[]))
+    ops = (x * y + 1).sample(N_SCALAR, random_state=26, gc_strategy=[])
+    ulp_err = ((vmapped - ops).abs() / torch.finfo(torch.float32).eps
+               / ops.abs().clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+    check(vmapped.device.type == "cuda" and ulp_err <= 1.0,
+          f"scalar_transform: {ulp_err} ulps from the operators' graph")
+    del vmapped, ops
+
+    @tg.scalar_transform
+    def positive_part(u):
+        if u > 0:
+            return u
+        return 0.0
+
+    shifted = x - 1.0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        host, host_ms = median_wall(torch, lambda: positive_part(shifted).sample(
+            N_HOST_LOOP, random_state=27, gc_strategy=[]))
+    warned = any("per-sample host loop" in str(w.message) for w in caught)
+    check(warned and host.device.type == "cuda" and bool((host >= 0).all()),
+          "the untraceable scalar_transform did not warn or left its result off the card")
+    check(config.device().type == "cuda", f"the device moved to {config.device()}")
+    emit({"phase": "scalar_transform", "card": smi, "refused_by_cuda": refused,
+          "n_vmapped": N_SCALAR, "vmapped_ms": vmapped_ms,
+          "vmapped_samples_per_s": N_SCALAR / (vmapped_ms * 1e-3), "max_ulp_err": ulp_err,
+          "n_host_loop": N_HOST_LOOP, "host_loop_ms": host_ms,
+          "host_loop_samples_per_s": N_HOST_LOOP / (host_ms * 1e-3), "host_loop_warned": warned,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"k1_launches": k1, "k2_launches": k2}
 
 
 if __name__ == "__main__":

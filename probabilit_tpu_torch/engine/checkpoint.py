@@ -29,13 +29,18 @@ _FINGERPRINT_KEY = "__fingerprint__"
 def graph_fingerprint(sink):
     """Cross-process-stable structural hash of ``sink``'s graph: each
     node's static signature and its parents' topological positions (raw
-    ``_id`` values are process-local and left out)."""
+    ``_id`` values are process-local and left out).  A scalar function
+    transform signs by its function's ``__qualname__``: ``id(func)`` does
+    not survive a process boundary."""
     topo = topological_sort(sink)
     position = {node._id: pos for pos, node in enumerate(topo)}
-    lines = [
-        repr((node._static_signature(), tuple(position[p._id] for p in node.get_parents())))
-        for node in topo
-    ]
+    lines = []
+    for node in topo:
+        sig = node._static_signature()
+        if sig and sig[0] == "ScalarFunctionTransform":
+            fn = getattr(node, "func", None)
+            sig = (sig[0], getattr(fn, "__qualname__", "<callable>")) + tuple(sig[2:])
+        lines.append(repr((sig, tuple(position[p._id] for p in node.get_parents()))))
     return hashlib.sha256("\n".join(lines).encode()).hexdigest()
 
 

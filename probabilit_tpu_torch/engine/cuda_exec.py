@@ -496,6 +496,8 @@ def _structure_ok(plan, keep_ids):
         if isinstance(node, _graph.Constant):
             if not isinstance(node.value, numbers.Real):
                 return False
+        elif isinstance(node, _graph.ScalarFunctionTransform):
+            return False  # a Python function: no kernel op, as on the TPU
         elif isinstance(node, Distribution) and node.distr in _FAMILY_OPS:
             if node.distr in INCOMPLETE_FAMILY_CAPS and not _incomplete_family_ok(node):
                 return False  # and no table: the family has its own ppf
@@ -520,7 +522,7 @@ def supports(plan, keep_ids):
     of at most ``TABLE_MAX`` entries (``_table_node_ok``), and the
     arithmetic transforms on float32, int32 and bool values, with at most
     16 correlated variables and at most 16 kept nodes including the sink,
-    and no ``NoOp`` sink; and a tape within the caps that remain: at most
+    no ``NoOp`` sink and no ``ScalarFunctionTransform``; and a tape within the caps that remain: at most
     ``MAX_INSTR`` rows (the generated text and its build time grow with
     them), ``MAX_CONSTS`` constants (they travel in the kernel's
     parameters), tables and recolour arrays within one block's

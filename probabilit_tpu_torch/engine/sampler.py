@@ -103,8 +103,10 @@ def cuda_limits():
         "Newton families within their caps); CDF tables and numeric "
         "Discrete, Cumulative and linear Empirical tables of at most "
         f"{cuda_exec.TABLE_MAX} entries; and the arithmetic transforms on "
-        "float32, int32 and bool values.  Multivariate, marginal, copula and "
-        "QuantileTransform nodes run on executor=None."
+        "float32, int32 and bool values, under a sink that is not a NoOp (so "
+        "estimate_many runs on executor=None).  Multivariate, marginal, copula and "
+        "QuantileTransform nodes, and scalar_transform nodes (a Python function), "
+        "run on executor=None."
     )
 
 

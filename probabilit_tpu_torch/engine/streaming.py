@@ -55,8 +55,14 @@ method (the kernel draws its own stream).  Replicated runs re-randomise
 each replicate from ``_derive_seed(seed, 1, r)``; under a QMC method the
 sequential stopping rule needs ``replicates``.
 
-Not ported yet: ``estimate_many`` (ROADMAP A7b) raises
-``NotImplementedError``.
+``estimate_many`` folds several nodes from the same joint draws: the
+nodes (with a control or condition) are rooted under one cached ``NoOp``,
+whose plan fixes the column layout, and each block is folded into
+(M,)-vector carries, with one batched row sort a block for every node's
+quantiles and CVaR and, with ``covariance=True``, the (M, M) co-moment
+sums.  The kernels refuse a ``NoOp`` sink, as the TPU kernel does, so its
+blocks run on the plain executor on ``config.device()``.  Every option of
+``estimate`` composes, with the JAX package's rules and messages.
 """
 
 from __future__ import annotations
@@ -88,10 +94,6 @@ _SEGMENT_BLOCKS = 64  # blocks a checkpointed segment holds by default
 _STREAMED_METHODS = ("sobol", "halton", "lhs", "antithetic")
 
 
-def _not_ported(option, item):
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP {item}).")
-
-
 def _derive_seed(seed, *path):
     """A 64-bit seed for the stream ``path`` under ``seed`` (numpy's
     SeedSequence spawn keys: independent for distinct paths)."""
@@ -120,19 +122,23 @@ def _rank32(q, m):
     return np.float32(q) * (np.float32(m) - np.float32(1.0))
 
 
-def _quantile_accumulators(quantiles, block_size, cvar=()):
-    """(qsum_full, qsum_partial): per-block quantile and CVaR numerators.
+def _quantile_accumulators_many(quantiles, block_size, cvar=()):
+    """(qsum_full, qsum_partial): per-block quantile and CVaR numerators of
+    M nodes at once.
 
-    The port of ``streaming._quantile_accumulators``.  ``qsum_full(x)`` is
-    a full block's contribution to the count-weighted float64 vector of
-    ``len(quantiles)`` quantiles then ``len(cvar)`` expected shortfalls;
-    ``qsum_partial(x, cnt)`` that of a final block whose first ``cnt``
-    entries are valid.  A block that is a multiple of 2^17 (and larger)
-    is sorted as rows of 2^17 and the rows' order statistics are averaged;
-    levels within 1/2^17 of 0 or 1 fall back to one sort of the block.
-    CVaR uses Rockafellar-Uryasev, ``ES_q = v + E[max(X - v, 0)] / (1 - q)``,
-    on the same sorts.  Order statistics and interpolation are float32,
-    as in the JAX package; sums are float64.
+    The port of ``streaming._quantile_accumulators_many``.
+    ``qsum_full(y)``, ``y`` an (M, block) tensor, is a full block's
+    contribution to each node's count-weighted float64 vector of
+    ``len(quantiles)`` quantiles then ``len(cvar)`` expected shortfalls,
+    an (M, L) tensor; ``qsum_partial(y, cnt)`` that of a final block whose
+    first ``cnt`` columns are valid.  A block that is a multiple of 2^17
+    (and larger) is sorted as rows of 2^17, one ``torch.sort`` of M times
+    block / 2^17 rows for every node and level, and the rows' order
+    statistics are averaged; levels within 1/2^17 of 0 or 1 fall back to
+    one sort of each node's block.  CVaR uses Rockafellar-Uryasev,
+    ``ES_q = v + E[max(X - v, 0)] / (1 - q)``, on the same sorts.  Order
+    statistics and interpolation are float32, as in the JAX package; sums
+    are float64.
     """
     levels = tuple(quantiles) + tuple(cvar)
     nq = len(quantiles)
@@ -144,57 +150,70 @@ def _quantile_accumulators(quantiles, block_size, cvar=()):
     )
     f64 = torch.float64
 
-    def empty(x):
-        return torch.zeros((0,), dtype=f64, device=x.device)
+    def empty(y):
+        return torch.zeros((y.shape[0], 0), dtype=f64, device=y.device)
+
+    def rows(y):
+        # One sort of every node's rows of 2^17: (M, rows, 2^17).
+        return torch.sort(y.reshape(-1, _ROW), dim=1).values.reshape(y.shape[0], -1, _ROW)
 
     def from_sorted(xs, m, upper, rank=lambda q, m: q * (m - 1)):
-        # xs: (rows, m) sorted; each row's estimate times its count m.
+        # xs: (M, rows, m) sorted; each node's row estimates times m.
         out = []
         for i, q in enumerate(levels):
             v = _interp(xs, rank(q, m), m, upper)
             if i < nq:
-                out.append(v.sum(dtype=f64) * m)
+                out.append(v.sum(dim=-1, dtype=f64) * m)
             else:
                 tail = (xs - v[..., None]).clamp_min(0.0).sum(dim=-1, dtype=f64)
                 es = v.double() + tail / float(np.float32(m * (1.0 - q)))
-                out.append(es.sum() * m)
-        return torch.stack(out)
+                out.append(es.sum(dim=-1) * m)
+        return torch.stack(out, dim=-1)
 
-    def qsum_full(x):
+    def qsum_full(y):
         if not levels:
-            return empty(x)
+            return empty(y)
         if rows_ok:
-            xs = torch.sort(x.reshape(-1, _ROW), dim=1).values
-            return from_sorted(xs, _ROW, _ROW - 2)
-        xs = torch.sort(x).values[None]
+            return from_sorted(rows(y), _ROW, _ROW - 2)
+        xs = torch.sort(y, dim=-1).values[:, None]
         return from_sorted(xs, block_size, block_size - 2)
 
-    def qsum_partial(x, cnt):
+    def qsum_partial(y, cnt):
         if not levels:
-            return empty(x)
+            return empty(y)
         if rows_ok and not cvar:
             # Full rows at the static positions; the boundary row of
             # ``rem`` valid entries at its own positions.
             n_full, rem = divmod(cnt, _ROW)
-            out = torch.zeros((nq,), dtype=f64, device=x.device)
+            out = torch.zeros((y.shape[0], nq), dtype=f64, device=y.device)
             if n_full:
-                xs = torch.sort(x[: n_full * _ROW].reshape(n_full, _ROW), dim=1).values
-                out = out + from_sorted(xs, _ROW, _ROW - 2)
+                out = out + from_sorted(rows(y[:, : n_full * _ROW]), _ROW, _ROW - 2)
             if rem:
-                row = torch.sort(x[n_full * _ROW : cnt]).values
+                row = torch.sort(y[:, n_full * _ROW : cnt], dim=-1).values
                 out = out + torch.stack(
                     [
                         _interp(row, _rank32(q, rem), rem, _ROW - 2).double() * rem
                         for q in quantiles
-                    ]
+                    ],
+                    dim=-1,
                 )
             return out
         # With CVaR levels, or blocks too small for rows: one sort of the
         # valid entries (the JAX package sorts the +inf-padded block).
-        xs = torch.sort(x[:cnt]).values[None]
+        xs = torch.sort(y[:, :cnt], dim=-1).values[:, None]
         return from_sorted(xs, cnt, block_size - 2, _rank32)
 
     return qsum_full, qsum_partial
+
+
+def _quantile_accumulators(quantiles, block_size, cvar=()):
+    """(qsum_full, qsum_partial) of one node: ``_quantile_accumulators_many``
+    on a (1, block) view.  ``qsum_full(x)`` is the float64 vector of
+    ``len(quantiles)`` quantile then ``len(cvar)`` CVaR numerators of a
+    full block, ``qsum_partial(x, cnt)`` that of a final block whose first
+    ``cnt`` entries are valid."""
+    full, partial = _quantile_accumulators_many(quantiles, block_size, cvar)
+    return (lambda x: full(x[None])[0]), (lambda x, cnt: partial(x[None], cnt)[0])
 
 
 def _histogram_accumulators(histogram):
@@ -225,6 +244,14 @@ def _histogram_accumulators(histogram):
         return torch.histc(idx, bins=bins + 2, min=-1.0, max=float(bins + 1)).to(torch.int64)
 
     return counts
+
+
+def _histogram_accumulators_many(histogram):
+    """``counts(y, mask=None)``: int64 ``(M, bins + 2)`` counts of the M
+    rows of ``y`` (``_histogram_accumulators`` per node; ``mask`` is the
+    block's shared condition)."""
+    counts = _histogram_accumulators(histogram)
+    return lambda y, mask=None: torch.stack([counts(row, mask) for row in y])
 
 
 # ---------------------------------------------------------------------
@@ -465,11 +492,6 @@ def sample_streaming(
     return out if finalize is None else finalize(out)
 
 
-def estimate_many(*args, **kwargs):
-    """Joint streamed estimates of several nodes: not ported yet."""
-    raise _not_ported("estimate_many", "A7b")
-
-
 def estimate(
     sink,
     size,
@@ -519,74 +541,16 @@ def estimate(
     blocks) as they complete and resumes from the file; the file is
     removed once the result is final.
     """
-    quantiles = tuple(float(q) for q in quantiles) if quantiles else ()
-    for q in quantiles:
-        if not 0.0 < q < 1.0:
-            raise ValueError(f"Quantile levels must be in (0, 1), got {q}.")
-    cvar = tuple(float(q) for q in cvar) if cvar else ()
-    for q in cvar:
-        if not 0.0 < q < 1.0:
-            raise ValueError(f"CVaR levels must be in (0, 1), got {q}.")
-    if histogram is not None:
-        histogram = _check_histogram(histogram)
     size = int(size)
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}.")
-    from probabilit_tpu_torch.models.graph import Node
-
-    if where is not None:
-        if not isinstance(where, Node):
-            raise ValueError(f"where must be a graph node, got {where!r}.")
-        if getattr(where, "_vector_valued", False):
-            raise ValueError(
-                f"where condition {where!r} is vector-valued; condition on a "
-                "scalar functional of it instead."
-            )
-        if quantiles or cvar:
-            raise ValueError(
-                "where= does not compose with quantiles=/cvar= (the row-sort "
-                "estimators assume unmasked blocks); estimate the conditional "
-                "quantiles from sample_streaming output."
-            )
-        if control is not None:
-            raise ValueError(
-                "where= does not compose with control= (the control "
-                "regression assumes unmasked blocks)."
-            )
-    control_node, control_mu = None, None
-    if control is not None:
-        try:
-            control_node, control_mu = control
-        except (TypeError, ValueError):
-            raise ValueError(
-                "control must be a (node, known_mean) pair, e.g. "
-                "control=(cheap_part, analytic_mean)."
-            ) from None
-        if not isinstance(control_node, Node):
-            raise ValueError(f"control[0] must be a graph node, got {control_node!r}.")
-        control_mu = float(control_mu)
-    sequential = target_sem is not None or target_rel_sem is not None
-    if checkpoint is not None and (replicates is not None or sequential):
-        raise ValueError(
-            "checkpoint= composes with fixed-size single-stream runs "
-            "only; checkpoint the fixed-size runs a replicated or "
-            "sequential scheme decomposes into instead."
-        )
-    if checkpoint is None and checkpoint_every is not None:
-        raise ValueError("checkpoint_every= needs checkpoint=path.")
-    if checkpoint is not None and random_state is None:
-        raise ValueError(
-            "checkpoint= needs an explicit random_state: a run seeded from "
-            "fresh entropy could never resume from its checkpoint."
-        )
-    if sequential and replicates is None:
-        if (method or "").lower().strip() in ("sobol", "halton", "lhs"):
-            raise ValueError(
-                f"target_sem with method={method!r} needs replicates=R (e.g. "
-                "replicates=8): the iid sem is not a valid QMC error bar; the "
-                "between-replicate sem of R independently randomised streams "
-                "is the valid stopping statistic."
-            )
+    quantiles, cvar, histogram, control_node, control_mu = _check_options(
+        quantiles, cvar, histogram, where, control
+    )
+    reps, targets = _check_run(
+        size, random_state, method, replicates, target_sem, target_rel_sem, max_size, checkpoint,
+        checkpoint_every,
+    )
     seed = resolve_seed(random_state)
     opts = dict(
         quantiles=quantiles, cvar=cvar, histogram=histogram, moments=moments,
@@ -597,26 +561,7 @@ def estimate(
         quantiles=quantiles, control_mu=control_mu, where=where, cvar=cvar,
         histogram=histogram, moments=moments,
     )
-    reps = None
-    if replicates is not None:
-        reps = int(replicates)
-        if reps < 2:
-            raise ValueError(
-                f"replicates must be >= 2 (got {reps}): a single stream has no "
-                "between-replicate variance to estimate sem from."
-            )
-    if sequential:
-        for name, t in (("target_sem", target_sem), ("target_rel_sem", target_rel_sem)):
-            if t is not None and not (float(t) > 0.0):
-                raise ValueError(f"{name} must be > 0, got {t}.")
-        max_size = 64 * size if max_size is None else int(max_size)
-        if max_size < size:
-            raise ValueError(f"max_size ({max_size}) must be >= the pilot size ({size}).")
-        targets = (
-            None if target_sem is None else float(target_sem),
-            None if target_rel_sem is None else float(target_rel_sem),
-            max_size,
-        )
+    if targets is not None:
         if reps is not None:
             return _estimate_sequential_replicated(
                 sink, size, block_size, seed, executor, opts, final, *targets, reps
@@ -655,6 +600,107 @@ def estimate(
     return stats
 
 
+def _check_options(quantiles, cvar, histogram, where, control):
+    """The JAX package's checks of ``estimate``'s and ``estimate_many``'s
+    statistics: (quantiles, cvar, histogram, control node, control mean)."""
+    from probabilit_tpu_torch.models.graph import Node
+
+    quantiles = tuple(float(q) for q in quantiles) if quantiles else ()
+    for q in quantiles:
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"Quantile levels must be in (0, 1), got {q}.")
+    cvar = tuple(float(q) for q in cvar) if cvar else ()
+    for q in cvar:
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"CVaR levels must be in (0, 1), got {q}.")
+    if histogram is not None:
+        histogram = _check_histogram(histogram)
+    if where is not None:
+        if not isinstance(where, Node):
+            raise ValueError(f"where must be a graph node, got {where!r}.")
+        if getattr(where, "_vector_valued", False):
+            raise ValueError(
+                f"where condition {where!r} is vector-valued; condition on a "
+                "scalar functional of it instead."
+            )
+        if quantiles or cvar:
+            raise ValueError(
+                "where= does not compose with quantiles=/cvar= (the row-sort "
+                "estimators assume unmasked blocks); estimate the conditional "
+                "quantiles from sample_streaming output."
+            )
+        if control is not None:
+            raise ValueError(
+                "where= does not compose with control= (the control "
+                "regression assumes unmasked blocks)."
+            )
+    control_node, control_mu = None, None
+    if control is not None:
+        try:
+            control_node, control_mu = control
+        except (TypeError, ValueError):
+            raise ValueError(
+                "control must be a (node, known_mean) pair, e.g. "
+                "control=(cheap_part, analytic_mean)."
+            ) from None
+        if not isinstance(control_node, Node):
+            raise ValueError(f"control[0] must be a graph node, got {control_node!r}.")
+        control_mu = float(control_mu)
+    return quantiles, cvar, histogram, control_node, control_mu
+
+
+def _check_run(
+    size, random_state, method, replicates, target_sem, target_rel_sem, max_size, checkpoint,
+    checkpoint_every,
+):
+    """The checks of a run's shape, with the JAX package's messages and
+    R3's refusal: (replicates or None, (target_sem, target_rel_sem,
+    max_size) of a sequential run or None)."""
+    sequential = target_sem is not None or target_rel_sem is not None
+    if checkpoint is not None and (replicates is not None or sequential):
+        raise ValueError(
+            "checkpoint= composes with fixed-size single-stream runs "
+            "only; checkpoint the fixed-size runs a replicated or "
+            "sequential scheme decomposes into instead."
+        )
+    if checkpoint is None and checkpoint_every is not None:
+        raise ValueError("checkpoint_every= needs checkpoint=path.")
+    if checkpoint is not None and random_state is None:
+        raise ValueError(
+            "checkpoint= needs an explicit random_state: a run seeded from "
+            "fresh entropy could never resume from its checkpoint."
+        )
+    if sequential and replicates is None:
+        if (method or "").lower().strip() in ("sobol", "halton", "lhs"):
+            raise ValueError(
+                f"target_sem with method={method!r} needs replicates=R (e.g. "
+                "replicates=8): the iid sem is not a valid QMC error bar; the "
+                "between-replicate sem of R independently randomised streams "
+                "is the valid stopping statistic."
+            )
+    reps = None
+    if replicates is not None:
+        reps = int(replicates)
+        if reps < 2:
+            raise ValueError(
+                f"replicates must be >= 2 (got {reps}): a single stream has no "
+                "between-replicate variance to estimate sem from."
+            )
+    if not sequential:
+        return reps, None
+    for name, t in (("target_sem", target_sem), ("target_rel_sem", target_rel_sem)):
+        if t is not None and not (float(t) > 0.0):
+            raise ValueError(f"{name} must be > 0, got {t}.")
+    max_size = 64 * size if max_size is None else int(max_size)
+    if max_size < size:
+        raise ValueError(f"max_size ({max_size}) must be >= the pilot size ({size}).")
+    return reps, (
+        None if target_sem is None else float(target_sem),
+        None if target_rel_sem is None else float(target_rel_sem),
+        max_size,
+    )
+
+
 def _check_histogram(histogram):
     try:
         h_lo, h_hi, h_bins = histogram
@@ -675,27 +721,30 @@ def _check_histogram(histogram):
 # ---------------------------------------------------------------------
 
 
-def _block_moments(x, y, cnt, where_mode, moments):
+def _block_moments(x, y, cnt, where_mode, moments, covariance=False):
     """One block's (n, mean, M2, min, max, finite, (my, M2y, Cxy), M3, M4)
-    over its first ``cnt`` samples, as float64 device scalars.  Under
+    over its first ``cnt`` samples, as float64 device tensors: scalars for
+    one node's ``x``, (M,) vectors for the rows of an (M, block) ``x``
+    (the count, control moments and finite flag stay scalars).  Under
     ``where=`` (``y`` the condition) off-condition samples are never
-    inspected; otherwise ``y`` is the control (or None)."""
+    inspected; otherwise ``y`` is the control (or None).  ``covariance``
+    appends the rows' (M, M) central cross-product sums."""
     f64 = torch.float64
-    xv = x[:cnt].to(f64)
+    xv = x[..., :cnt].to(f64)
     zero = torch.zeros((), dtype=f64, device=x.device)
     if where_mode:
         cond = y[:cnt] != 0
         n = cond.sum(dtype=f64)
-        mean = torch.where(cond, xv, 0.0).sum() / n.clamp(min=1.0)
-        d = torch.where(cond, xv - mean, 0.0)
-        vmin = torch.where(cond, xv, torch.inf).min()
-        vmax = torch.where(cond, xv, -torch.inf).max()
+        mean = torch.where(cond, xv, 0.0).sum(dim=-1) / n.clamp(min=1.0)
+        d = torch.where(cond, xv - mean[..., None], 0.0)
+        vmin = torch.where(cond, xv, torch.inf).amin(dim=-1)
+        vmax = torch.where(cond, xv, -torch.inf).amax(dim=-1)
         finite = torch.where(cond, torch.isfinite(xv), True).all()
     else:
         n = torch.full((), float(cnt), dtype=f64, device=x.device)
-        mean = xv.mean()
-        d = xv - mean
-        vmin, vmax = xv.min(), xv.max()
+        mean = xv.mean(dim=-1)
+        d = xv - mean[..., None]
+        vmin, vmax = xv.amin(dim=-1), xv.amax(dim=-1)
         finite = torch.isfinite(xv).all()
     d2 = d * d
     ctl = (zero, zero, zero)
@@ -703,15 +752,17 @@ def _block_moments(x, y, cnt, where_mode, moments):
         yv = y[:cnt].to(f64)
         my = yv.mean()
         dy = yv - my
-        ctl = (my, (dy * dy).sum(), (d * dy).sum())
-    m3, m4 = ((d2 * d).sum(), (d2 * d2).sum()) if moments else (zero, zero)
-    return n, mean, d2.sum(), vmin, vmax, finite, ctl, m3, m4
+        ctl = (my, (dy * dy).sum(), (d * dy).sum(dim=-1))
+    m3, m4 = ((d2 * d).sum(dim=-1), (d2 * d2).sum(dim=-1)) if moments else (zero, zero)
+    out = (n, mean, d2.sum(dim=-1), vmin, vmax, finite, ctl, m3, m4)
+    return out + (d @ d.T,) if covariance else out
 
 
 def _merge(carry, block, where_mode, moments):
     """Chan's pairwise merge of a block (or of a replicate's carry) into
-    the carry (Pébay 2008 for M3 and M4), in float64 on device scalars;
-    reads the OLD m2/m3."""
+    the carry (Pébay 2008 for M3 and M4), in float64 on device tensors
+    (a node's scalars, or M nodes' vectors beside the shared count and
+    control moments); reads the OLD m2/m3."""
     n_prev, mean, m2, vmin, vmax, finite, qsum, my, m2y, cxy, hsum, m3, m4 = carry
     bn, bm, bm2, bmin, bmax, bfinite, (bmy, bm2y, bcxy), bm3, bm4, bqsum, bhsum = block
     delta = bm - mean
@@ -748,19 +799,31 @@ def _merge(carry, block, where_mode, moments):
     )
 
 
-def _initial_carry(levels, hist_len, device):
-    """The empty 13-field carry (see ``_estimate_carry``)."""
+def _merge_cov(csum, n_prev, mean, bn, bm, bcov, where_mode):
+    """Chan's merge of the (M, M) co-moment sums: the outer product of
+    the means' difference corrects them (reads the OLD mean)."""
+    nn = n_prev + bn
+    nn_div = nn.clamp(min=1.0) if where_mode else nn
+    delta = bm - mean
+    return csum + bcov + torch.outer(delta, delta) * (n_prev * bn / nn_div)
 
-    def scalar(value):
-        return torch.full((), value, dtype=torch.float64, device=device)
+
+def _initial_carry(levels, hist_len, device, m=None):
+    """The empty 13-field carry (see ``_estimate_carry``); with ``m``, the
+    per-node fields are (m,) vectors (see ``_many_carry``)."""
+    node = () if m is None else (m,)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float64, device=device)
 
     return (
-        scalar(0.0), scalar(0.0), scalar(0.0), scalar(np.inf), scalar(-np.inf),
+        full((), 0.0), full(node, 0.0), full(node, 0.0), full(node, np.inf),
+        full(node, -np.inf),
         torch.ones((), dtype=torch.bool, device=device),
-        torch.zeros((levels,), dtype=torch.float64, device=device),
-        scalar(0.0), scalar(0.0), scalar(0.0),
-        torch.zeros((hist_len,), dtype=torch.int64, device=device),
-        scalar(0.0), scalar(0.0),
+        full((*node, levels), 0.0),
+        full((), 0.0), full((), 0.0), full(node, 0.0),
+        torch.zeros((*node, hist_len), dtype=torch.int64, device=device),
+        full(node, 0.0), full(node, 0.0),
     )
 
 
@@ -827,6 +890,11 @@ def _estimate_carry(
     return carry
 
 
+# The fields of a carry that hold one value per node: mean, M2, min, max,
+# the quantile and CVaR sums, Cxy, the histogram counts, M3, M4.
+_NODE_FIELDS = (1, 2, 3, 4, 6, 9, 10, 11, 12)
+
+
 def _host(value):
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
@@ -877,59 +945,13 @@ def _finalize_estimate(
     moments=False,
 ):
     """The statistics dict from a 13-field carry (device tensors or host
-    values); the field at index 10 holds the histogram counts."""
-    (total_, mean_, m2_, vmin_, vmax_, finite_, qsum_, my_, m2y_, cxy_, hsum_, m3_, m4_) = (
-        _host(v) for v in carry
-    )
-    total, mean, m2, vmin, vmax = (float(v) for v in (total_, mean_, m2_, vmin_, vmax_))
-    if not bool(finite_):
-        raise ValueError("Sampling produced non-finite values.")
-    if where is not None and total <= 0:
-        raise ValueError(
-            f"where= condition never held across {size} draws; no conditional "
-            "statistics exist. Loosen the condition or raise size."
-        )
-    var = m2 / total if total else float("nan")
-    stats = {
-        "n": int(round(total)) if where is not None else size,
-        "mean": mean,
-        "var": var,
-        "std": var**0.5,
-        "sem": (var / total) ** 0.5 if total else float("nan"),
-        "min": vmin,
-        "max": vmax,
-    }
-    if moments:
-        sd3 = var**1.5
-        stats["skew"] = float(m3_) / total / sd3 if total and sd3 else float("nan")
-        stats["kurt"] = float(m4_) / total / var**2 - 3.0 if total and var else float("nan")
-    if where is not None:
-        stats["n_total"] = size
-        stats["acceptance"] = total / size
-    if control_mu is not None:
-        adj, factor, beta, rho = _control_adjust(
-            mean, m2, float(my_), float(m2y_), float(cxy_), control_mu
-        )
-        stats["mean"] = adj
-        stats["sem"] = stats["sem"] * factor**0.5
-        stats["control_beta"] = beta
-        stats["control_rho"] = rho
-        stats["control_mean"] = float(my_)
-    tails = np.asarray(qsum_, np.float64)
-    for level, qs in zip(quantiles, tails[: len(quantiles)]):
-        stats[f"q{level:g}"] = float(qs / total)
-    for level, es in zip(cvar, tails[len(quantiles) :]):
-        stats[f"cvar{level:g}"] = float(es / total)
-    if histogram is not None:
-        h_lo, h_hi, h_bins = histogram
-        counts = np.asarray(hsum_, np.int64)
-        stats["histogram"] = {
-            "edges": np.linspace(h_lo, h_hi, h_bins + 1),
-            "counts": counts[1:-1],
-            "underflow": int(counts[0]),
-            "overflow": int(counts[-1]),
-        }
-    return stats
+    values): ``_finalize_many`` of the carry lifted to one node's."""
+    fields = [_host(v) for v in carry]
+    lifted = [np.asarray(v)[None] if i in _NODE_FIELDS else v for i, v in enumerate(fields)]
+    return _finalize_many(
+        [0], (*lifted, np.zeros((1, 1))), size, quantiles, cvar, histogram, control_mu, where,
+        moments,
+    )[0]
 
 
 # ---------------------------------------------------------------------
@@ -1153,3 +1175,543 @@ def _estimate_checkpointed(sink, size, block_size, seed, executor, opts, final, 
     except OSError:
         pass
     return stats
+
+
+# ---------------------------------------------------------------------
+# Joint estimates of several nodes
+# ---------------------------------------------------------------------
+
+_MANY_CACHE = {}
+_MANY_BUILDS = 0  # block programs built by _many_program (the cache's tests read it)
+
+
+def estimate_many(
+    nodes,
+    size,
+    block_size=16_777_216,
+    random_state=None,
+    executor="auto",
+    method=None,
+    correlator="imanconover",
+    quantiles=None,
+    cvar=None,
+    histogram=None,
+    replicates=None,
+    control=None,
+    where=None,
+    target_sem=None,
+    target_rel_sem=None,
+    max_size=None,
+    moments=False,
+    covariance=False,
+    checkpoint=None,
+    checkpoint_every=None,
+):
+    """One-pass streamed statistics of several nodes of one model.
+
+    Returns ``{node: {n, mean, var, std, sem, min, max, ...}}`` where every
+    node's statistics come from the same joint draws (a portfolio's desks
+    and its total, all consistent with each other), which separate
+    ``estimate`` calls cannot give: each sink gets its own column layout
+    and so its own randomness.  The nodes are rooted under one cached
+    ``NoOp``; each block is folded into (M,)-vector float64 carries on the
+    device, so one pass serves every node.  The kernels refuse a ``NoOp``
+    sink, as the TPU kernel does, so the blocks run on the plain executor
+    (``executor="cuda"`` raises).
+
+    Every option of ``estimate`` composes, per node, from the one joint
+    stream and under the same rules: ``quantiles=`` and ``cvar=`` (one
+    batched row sort a block for every node and level), ``histogram=``
+    (one exact histogram a node), ``where=node`` (a shared condition),
+    ``control=(node, known_mean)`` (one control, a ``control_beta`` and
+    ``control_rho`` per node), ``replicates=R`` (each node's ``sem`` from
+    the spread of R randomised streams), ``method=``, ``moments=True``
+    (``skew``/``kurt``), ``target_sem``/``target_rel_sem`` (rounds until
+    every node meets the target; the worst node sizes the next round) and
+    ``checkpoint=``/``checkpoint_every=`` (the node list, in order, is part
+    of the run's identity; an explicit ``random_state`` is required).
+    ``covariance=True`` adds each node's row of the joint M x M ``cov``
+    and ``corr`` in ``nodes`` order (``np.stack([out[n]["corr"] for n in
+    nodes])`` rebuilds the matrix).
+    """
+    from probabilit_tpu_torch.models.graph import Node
+
+    nodes = list(nodes)
+    if not nodes:
+        raise ValueError("estimate_many needs at least one node.")
+    seen = set()
+    for node in nodes:
+        if not isinstance(node, Node):
+            raise ValueError(f"estimate_many takes graph nodes, got {node!r}.")
+        if getattr(node, "_vector_valued", False):
+            raise ValueError(
+                f"Cannot estimate vector-valued node {node!r}; request scalar "
+                "marginals or functionals of it instead."
+            )
+        if node._id in seen:
+            raise ValueError(f"{node!r} appears twice.")
+        seen.add(node._id)
+    size = int(size)
+    if size < 1:
+        raise ValueError(f"size must be >= 1, got {size}.")
+    quantiles, cvar, histogram, control_node, control_mu = _check_options(
+        quantiles, cvar, histogram, where, control
+    )
+    reps, targets = _check_run(
+        size, random_state, method, replicates, target_sem, target_rel_sem, max_size, checkpoint,
+        checkpoint_every,
+    )
+    seed = resolve_seed(random_state)
+    opts = dict(
+        method=method, quantiles=quantiles, cvar=cvar, histogram=histogram,
+        correlator=correlator, control_node=control_node, where_node=where,
+        moments=bool(moments), covariance=bool(covariance),
+    )
+    final = dict(
+        quantiles=quantiles, cvar=cvar, histogram=histogram, control_mu=control_mu,
+        where=where, moments=bool(moments), covariance=bool(covariance),
+    )
+    if targets is not None:
+        if reps is not None:
+            return _estimate_sequential_many_replicated(
+                nodes, size, block_size, seed, executor, opts, final, *targets, reps
+            )
+        return _estimate_sequential_many(
+            nodes, size, block_size, seed, executor, opts, final, *targets
+        )
+    if reps is not None:
+        if size % reps:
+            raise ValueError(
+                f"size ({size}) must be divisible by replicates ({reps}) so every "
+                "randomisation carries equal weight."
+            )
+        carries = [
+            _host_carry(_many_carry(
+                nodes, size // reps, block_size, _derive_seed(seed, 1, r), executor, **opts
+            ))
+            for r in range(reps)
+        ]
+        merged, rep_means = _merge_many_carries(carries, control_mu)
+        out = _finalize_many(nodes, merged, size, **final)
+        if len(rep_means) < 2:
+            raise ValueError(
+                f"Only {len(rep_means)} of {reps} replicates accepted any samples; "
+                "the between-replicate sem needs >= 2. Loosen the where "
+                "condition, raise size, or drop replicates=."
+            )
+        _replicate_sems(out, nodes, rep_means, control_mu)
+        for node in nodes:
+            out[node]["replicates"] = reps
+        return out
+    if checkpoint is not None:
+        return _estimate_many_checkpointed(
+            nodes, size, block_size, seed, executor, opts, final, str(checkpoint),
+            checkpoint_every,
+        )
+    carry = _many_carry(nodes, size, block_size, seed, executor, **opts)
+    return _finalize_many(nodes, carry, size, **final)
+
+
+def _many_program(
+    nodes, block_size, executor, method, lhs_total, quantiles, cvar, histogram, correlator,
+    control_node, where_node, moments, covariance,
+):
+    """``fold(seed, block_lo, n_blocks, last_count) -> carry``: the block
+    program of ``nodes`` (with the control or condition) under one
+    ``NoOp``, its accumulators and the fold, cached per node list, graph
+    epoch, block size and option (a later ``correlate()`` moves the epoch,
+    so it never meets a stale program)."""
+    global _MANY_BUILDS
+    from probabilit_tpu_torch.models import graph as _graph
+
+    key = (
+        tuple(node._id for node in nodes), _graph.Node._mutation_epoch, block_size, executor,
+        method, quantiles, cvar, histogram, lhs_total,
+        _compile.correlator_token(_compile.resolve_correlator(correlator)),
+        None if control_node is None else control_node._id,
+        None if where_node is None else ("where", where_node._id),
+        str(config.float_dtype()), str(config.device()), moments, covariance,
+    )
+    fold = _MANY_CACHE.get(key)
+    if fold is not None:
+        return fold
+    m = len(nodes)
+    aux_node = control_node if control_node is not None else where_node
+    where_mode = where_node is not None
+    extras = tuple(nodes) + (() if aux_node is None else (aux_node,))
+    plan, run = _block_program(
+        _graph.NoOp(*extras), block_size, executor, correlator, extra=extras, method=method,
+        total_size=lhs_total,
+    )
+    for node in nodes:
+        if plan.finalizers.get(node._id) is not None:
+            raise ValueError(
+                f"{node!r} produces non-numeric values (host finalizer); "
+                "estimate_many needs numeric nodes. Use sample_streaming()."
+            )
+    qsum_full, qsum_partial = _quantile_accumulators_many(quantiles, block_size, cvar)
+    hist = _histogram_accumulators_many(histogram)
+    hist_len = 0 if histogram is None else histogram[2] + 2
+    levels = len(quantiles) + len(cvar)
+
+    def fold(seed, block_lo, n_blocks, last_count):
+        device = config.device()
+        carry = (
+            *_initial_carry(levels, hist_len, device, m=m),
+            torch.zeros((m, m), dtype=torch.float64, device=device),
+        )
+        for b in range(block_lo, block_lo + n_blocks):
+            _, ys = run(b, seed)
+            y = torch.stack([v.to(torch.float32) for v in ys[:m]])
+            aux = ys[m] if aux_node is not None else None
+            cnt = block_size if b < block_lo + n_blocks - 1 else last_count
+            stats = _block_moments(y, aux, cnt, where_mode, moments, covariance)
+            qsum = qsum_full(y) if cnt == block_size else qsum_partial(y, cnt)
+            counts = hist(y[:, :cnt], aux[:cnt] != 0 if where_mode else None)
+            csum = carry[13]
+            if covariance:
+                csum = _merge_cov(csum, carry[0], carry[1], stats[0], stats[1], stats[9],
+                                  where_mode)
+            merged = _merge(carry[:13], (*stats[:9], qsum, counts), where_mode, moments)
+            carry = (*merged, csum)
+        return carry
+
+    _MANY_BUILDS += 1
+    if len(_MANY_CACHE) > 32:
+        _MANY_CACHE.pop(next(iter(_MANY_CACHE)))
+    _MANY_CACHE[key] = fold
+    return fold
+
+
+def _many_carry(
+    nodes,
+    size,
+    block_size,
+    seed,
+    executor,
+    method=None,
+    quantiles=(),
+    cvar=(),
+    histogram=None,
+    correlator="imanconover",
+    control_node=None,
+    where_node=None,
+    moments=False,
+    covariance=False,
+    block_lo=0,
+    n_blocks=None,
+    last_count=None,
+):
+    """One stream's 14-field carry of M nodes, as device tensors: the
+    13 fields of ``_estimate_carry`` with (M,) vectors for the mean, M2,
+    min, max, Cxy, M3 and M4, an (M, L) quantile and CVaR sum and (M,
+    bins + 2) int64 histogram counts (the count, control moments and
+    finite flag are shared), then the (M, M) co-moment sums.
+
+    ``block_lo``/``n_blocks``/``last_count`` fold a window of the run's
+    blocks, as in ``_estimate_carry`` (a checkpointed segment)."""
+    if method is not None:
+        _method_name(method, size)  # the index cap, for every size
+    lhs_total = size if method is not None and method.lower().strip() == "lhs" else None
+    fold = _many_program(
+        nodes, block_size, executor, method, lhs_total, quantiles, cvar, histogram, correlator,
+        control_node, where_node, moments, covariance,
+    )
+    if n_blocks is None:
+        n_blocks = -(-size // block_size)
+        last_count = size - (n_blocks - 1) * block_size
+    return fold(seed, block_lo, n_blocks, last_count)
+
+
+def _merge_many_carries(carries, control_mu=None):
+    """Chan-merge M-node carries on the host in float64; returns the
+    pooled carry and the per-carry (M,) mean vectors (control-adjusted
+    under ``control``, so a between-replicate sem prices the adjusted
+    estimator of each node)."""
+    merged, rep_means = None, []
+    for carry in carries:
+        fields = tuple(torch.as_tensor(_host(v)) for v in carry)
+        t, m, m2, lo, hi, f, q, my, m2y, cxy, h, m3, m4, c = fields
+        if merged is None:
+            cpu = torch.device("cpu")
+            merged = (*_initial_carry(q.shape[-1], h.shape[-1], cpu, m=m.numel()),
+                      torch.zeros_like(c, dtype=torch.float64))
+        if float(t) <= 0.0:
+            # A zero-accept replicate (where=) has no means; it stays out
+            # of the between-replicate sem, and its merge is a no-op.
+            continue
+        if control_mu is None:
+            rep_means.append(m.numpy().copy())
+        else:
+            rep_means.append(np.array([
+                _control_adjust(float(m[i]), float(m2[i]), float(my), float(m2y),
+                                float(cxy[i]), control_mu)[0]
+                for i in range(m.numel())
+            ]))
+        csum = _merge_cov(merged[13], merged[0], merged[1], t, m, c, where_mode=True)
+        block = (t, m, m2, lo, hi, f, (my, m2y, cxy), m3, m4, q, h)
+        merged = (*_merge(merged[:13], block, where_mode=True, moments=True), csum)
+    return merged, rep_means
+
+
+def _replicate_sems(out, nodes, rep_means, control_mu):
+    """Each node's between-replicate sem (and, under a control, the mean
+    of its adjusted replicate means) from the (R, M) replicate means;
+    returns the sems."""
+    rep = np.stack(rep_means)
+    sems = rep.std(axis=0, ddof=1) / np.sqrt(rep.shape[0])
+    for i, node in enumerate(nodes):
+        out[node]["sem"] = float(sems[i])
+        if control_mu is not None:
+            out[node]["mean"] = float(rep[:, i].mean())
+    return sems
+
+
+def _finalize_many(
+    nodes, carry, size, quantiles=(), cvar=(), histogram=None, control_mu=None, where=None,
+    moments=False, covariance=False,
+):
+    """``{node: statistics}`` from a 14-field M-node carry (device tensors
+    or host values); the field at index 10 holds the (M, bins + 2)
+    histogram counts."""
+    (total_, mean_, m2_, vmin_, vmax_, finite_, qsum_, my_, m2y_, cxy_, hsum_, m3_, m4_,
+     csum_) = (_host(v) for v in carry)
+    if not bool(finite_):
+        raise ValueError("Sampling produced non-finite values.")
+    total = float(total_)
+    if where is not None and total <= 0:
+        raise ValueError(
+            f"where= condition never held across {size} draws; no conditional "
+            "statistics exist. Loosen the condition or raise size."
+        )
+    qsum = np.asarray(qsum_, np.float64)
+    mean_, m2_, m3_, m4_, cxy_ = (np.asarray(v, np.float64) for v in (mean_, m2_, m3_, m4_, cxy_))
+    if covariance:
+        cov = np.asarray(csum_, np.float64) / total if total else None
+        if cov is not None:
+            sd = np.sqrt(np.maximum(np.diag(cov), 0.0))
+            denom = np.outer(sd, sd)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                corr = np.where(denom > 0.0, cov / denom, np.nan)
+            np.fill_diagonal(corr, 1.0)  # 1 by construction, up to rounding
+    out = {}
+    for i, node in enumerate(nodes):
+        var = float(m2_[i]) / total if total else float("nan")
+        stats = {
+            "n": int(round(total)) if where is not None else size,
+            "mean": float(mean_[i]),
+            "var": var,
+            "std": var**0.5,
+            "sem": (var / total) ** 0.5 if total else float("nan"),
+            "min": float(np.asarray(vmin_)[i]),
+            "max": float(np.asarray(vmax_)[i]),
+        }
+        if moments:
+            sd3 = var**1.5
+            stats["skew"] = float(m3_[i]) / total / sd3 if total and sd3 else float("nan")
+            stats["kurt"] = float(m4_[i]) / total / var**2 - 3.0 if total and var else float("nan")
+        if covariance:
+            stats["cov"] = cov[i].copy() if cov is not None else np.full(len(nodes), np.nan)
+            stats["corr"] = corr[i].copy() if cov is not None else np.full(len(nodes), np.nan)
+        if where is not None:
+            stats["n_total"] = size
+            stats["acceptance"] = total / size
+        if control_mu is not None:
+            adj, factor, beta, rho = _control_adjust(
+                stats["mean"], float(m2_[i]), float(my_), float(m2y_), float(cxy_[i]), control_mu
+            )
+            stats["mean"] = adj
+            stats["sem"] = stats["sem"] * factor**0.5
+            stats["control_beta"] = beta
+            stats["control_rho"] = rho
+            stats["control_mean"] = float(my_)
+        for j, level in enumerate(quantiles):
+            stats[f"q{level:g}"] = float(qsum[i, j] / total)
+        for j, level in enumerate(cvar):
+            stats[f"cvar{level:g}"] = float(qsum[i, len(quantiles) + j] / total)
+        if histogram is not None:
+            h_lo, h_hi, h_bins = histogram
+            counts = np.asarray(hsum_, np.int64)[i]
+            stats["histogram"] = {
+                "edges": np.linspace(h_lo, h_hi, h_bins + 1),
+                "counts": counts[1:-1],
+                "underflow": int(counts[0]),
+                "overflow": int(counts[-1]),
+            }
+        out[node] = stats
+    return out
+
+
+def _worst_ratio(out, nodes, sems, target_sem, target_rel_sem):
+    """The binding node's sem / target: it decides both convergence and the
+    next round's size (inf where a sem is not finite, or a relative target
+    meets a zero mean)."""
+    worst = 0.0
+    for node, sem in zip(nodes, sems):
+        tgt = _target(out[node], target_sem, target_rel_sem)
+        if not np.isfinite(sem) or not tgt > 0.0:
+            return np.inf
+        worst = max(worst, sem / tgt)
+    return worst
+
+
+def _estimate_sequential_many(
+    nodes, pilot, block_size, seed, executor, opts, final, target_sem, target_rel_sem, max_size
+):
+    """Sequential stopping for ``estimate_many``: rounds (round r from
+    ``_derive_seed(seed, 2, r)``) until every node meets its target, the
+    worst node sizing the next round (``_next_round``), ``max_size`` is
+    drawn or ``_MAX_ROUNDS`` have run."""
+    where = final["where"]
+    carries, drawn, rounds, chunk = [], 0, 0, pilot
+    while True:
+        carry = _many_carry(
+            nodes, chunk, block_size, _derive_seed(seed, 2, rounds), executor, **opts
+        )
+        carries.append(_host_carry(carry))
+        drawn += chunk
+        rounds += 1
+        merged, _ = _merge_many_carries(carries)
+        if where is not None and float(merged[0]) <= 0.0:
+            if drawn >= max_size:
+                _finalize_many(nodes, merged, drawn, **final)  # the never-held error
+            chunk = min(drawn, max_size - drawn)
+            continue
+        out = _finalize_many(nodes, merged, drawn, **final)
+        sems = [out[node]["sem"] for node in nodes]
+        worst = _worst_ratio(out, nodes, sems, target_sem, target_rel_sem)
+        converged = bool(np.isfinite(worst) and worst <= 1.0)
+        if converged or drawn >= max_size or rounds >= _MAX_ROUNDS:
+            for node in nodes:
+                out[node]["rounds"] = rounds
+                out[node]["converged"] = converged
+            return out
+        chunk = _round_chunk(
+            _next_round(drawn, worst, 1.0, max_size), max_size - drawn, opts["method"]
+        )
+
+
+def _estimate_sequential_many_replicated(
+    nodes, pilot, block_size, seed, executor, opts, final, target_sem, target_rel_sem, max_size,
+    reps,
+):
+    """Replicated sequential stopping for ``estimate_many``: ``reps``
+    streams grow round by round (replicate r's round k from
+    ``_derive_seed(seed, 3, r, k)``); each node's stopping statistic is the
+    between-replicate sem of its pooled replicate means, and the run goes
+    on until every node meets its target."""
+    where, control_mu, method = final["where"], final["control_mu"], opts["method"]
+    carries = [[] for _ in range(reps)]
+    drawn, rounds = 0, 0
+    chunk = _round_chunk(pilot // reps, max(1, max_size // reps), method)
+    while True:
+        for r in range(reps):
+            carry = _many_carry(
+                nodes, chunk, block_size, _derive_seed(seed, 3, r, rounds), executor, **opts
+            )
+            carries[r].append(_host_carry(carry))
+        drawn += chunk * reps
+        rounds += 1
+        pooled = [_merge_many_carries(rep)[0] for rep in carries]
+        merged, rep_means = _merge_many_carries(pooled, control_mu)
+        if where is not None and (float(merged[0]) <= 0.0 or len(rep_means) < 2):
+            if drawn >= max_size:
+                if float(merged[0]) <= 0.0:
+                    _finalize_many(nodes, merged, drawn, **final)  # the never-held error
+                raise ValueError(
+                    f"Only {len(rep_means)} of {reps} replicates accepted any "
+                    "samples within max_size; the between-replicate sem needs "
+                    ">= 2. Loosen the where condition or raise max_size."
+                )
+            budget = max(1, (max_size - drawn) // reps)
+            chunk = _round_chunk(min(drawn // reps, (max_size - drawn) // reps), budget, method)
+            continue
+        out = _finalize_many(nodes, merged, drawn, **final)
+        sems = _replicate_sems(out, nodes, rep_means, control_mu)
+        worst = _worst_ratio(out, nodes, sems, target_sem, target_rel_sem)
+        converged = bool(np.isfinite(worst) and worst <= 1.0)
+        if converged or drawn >= max_size or rounds >= _MAX_ROUNDS:
+            for node in nodes:
+                out[node]["rounds"] = rounds
+                out[node]["converged"] = converged
+                out[node]["replicates"] = reps
+            return out
+        need = _next_round(drawn, worst, 1.0, max_size)
+        chunk = _round_chunk(int(need) // reps, max(1, (max_size - drawn) // reps), method)
+
+
+def _save_many_checkpoint(path, fingerprint, carries):
+    """Persist the segments' M-node host carries atomically (a temporary
+    file, then a rename): float64 fields, the finite flags and the int64
+    histogram counts, as they are."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        np.savez(
+            fh,
+            fingerprint=np.asarray(fingerprint),
+            scalars=np.array([[c[0], c[7], c[8]] for c in carries], np.float64),  # t, my, m2y
+            finite=np.array([bool(c[5]) for c in carries]),
+            vecs=np.stack([  # (S, 7, M): mean, m2, min, max, cxy, m3, m4
+                np.stack([np.asarray(c[i], np.float64) for i in (1, 2, 3, 4, 9, 11, 12)])
+                for c in carries
+            ]),
+            qsum=np.stack([np.asarray(c[6], np.float64) for c in carries]),
+            hsum=np.stack([np.asarray(c[10], np.int64) for c in carries]),
+            csum=np.stack([np.asarray(c[13], np.float64) for c in carries]),
+        )
+    os.replace(tmp, path)
+
+
+def _load_many_checkpoint(path, fingerprint):
+    """The saved segments' M-node carries; refuses a file of another run."""
+    with np.load(path, allow_pickle=False) as data:
+        if str(data["fingerprint"]) != fingerprint:
+            raise ValueError(
+                f"Checkpoint {path!r} belongs to a different run (graph, "
+                "size, block/segment layout, method, features, or key "
+                "differ); delete it to start fresh."
+            )
+        scalars, finite, vecs = data["scalars"], data["finite"], data["vecs"]
+        qsum, hsum, csum = data["qsum"], data["hsum"], data["csum"]
+    carries = []
+    for i in range(scalars.shape[0]):
+        t, my, m2y = scalars[i]
+        m, m2, lo, hi, cxy, m3, m4 = vecs[i]
+        carries.append(
+            (t, m, m2, lo, hi, bool(finite[i]), qsum[i], my, m2y, cxy, hsum[i], m3, m4, csum[i])
+        )
+    return carries
+
+
+def _estimate_many_checkpointed(
+    nodes, size, block_size, seed, executor, opts, final, path, every
+):
+    """Resumable ``estimate_many``: the segments of ``_estimate_checkpointed``
+    folded by ``_many_carry``.  The run's identity adds every node's graph,
+    in order (resuming with the nodes reordered would splice statistics
+    across nodes), and ``covariance``; the file goes only once the result
+    is final."""
+    n_blocks = -(-size // block_size)
+    last = size - (n_blocks - 1) * block_size
+    seg_blocks = _SEGMENT_BLOCKS if every is None else max(1, int(every) // block_size)
+    n_segs = -(-n_blocks // seg_blocks)
+    base = _stream_fingerprint(nodes[0], size, block_size, seg_blocks, seed, executor, opts)
+    node_fps = "|".join(_checkpoint.graph_fingerprint(node) for node in nodes)
+    fp = hashlib.sha256((base + node_fps + repr(opts["covariance"])).encode()).hexdigest()
+    carries = _load_many_checkpoint(path, fp) if os.path.exists(path) else []
+    for seg in range(len(carries), n_segs):
+        lo = seg * seg_blocks
+        nb = min(seg_blocks, n_blocks - lo)
+        carry = _many_carry(
+            nodes, size, block_size, seed, executor, **opts, block_lo=lo, n_blocks=nb,
+            last_count=last if lo + nb == n_blocks else block_size,
+        )
+        carries.append(_host_carry(carry))
+        _save_many_checkpoint(path, fp, carries)
+    merged, _ = _merge_many_carries(carries)
+    out = _finalize_many(nodes, merged, size, **final)
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+    return out

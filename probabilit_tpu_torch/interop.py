@@ -43,8 +43,10 @@ def from_reference(sink):
     ``Lognormal`` factory) becomes a ``Distribution`` of its family; the
     table nodes carry their arrays over as numpy; the copula nodes their
     family and parameters (an empirical copula its pseudo-observations,
-    whose own ranks reproduce them); a ``MarginalDistribution`` its slice
-    and a ``QuantileTransform`` its family and parameters.
+    whose own ranks reproduce them); a ``MarginalDistribution`` its slice,
+    a ``QuantileTransform`` its family and parameters, and a
+    ``ScalarFunctionTransform`` the same Python function and static
+    arguments, its node arguments mapped.
     """
     seen = {sink._id: sink}
     stack = [sink]
@@ -90,6 +92,13 @@ def from_reference(sink):
                 ref.distr,
                 *(convert(a) for a in ref.args),
                 **{k: convert(v) for k, v in ref.kwargs.items()},
+            )
+        elif name == "ScalarFunctionTransform":
+            node = _graph.ScalarFunctionTransform(
+                ref.func,
+                tuple(convert(a) for a in ref.args),
+                {k: convert(v) for k, v in ref.kwargs.items()},
+                dtype=ref.dtype,
             )
         elif isinstance(cls, type) and issubclass(cls, _graph.Transform):
             node = cls(*(mapping[p._id] for p in ref.get_parents()))

@@ -8,7 +8,10 @@ from its parents' tensors with the same numeric semantics as the JAX
 package (``jnp`` type promotion: integer constants stay integers,
 comparisons give booleans).
 
-Not ported yet: ``ScalarFunctionTransform`` / ``scalar_transform``.
+``ScalarFunctionTransform`` (``scalar_transform``) runs an arbitrary scalar
+Python function: ``torch.vmap`` where the function traces, else the
+per-sample host loop the JAX package falls back to (``pure_callback``),
+with its warning.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import heapq
 import itertools
 import numbers
 import operator
+import warnings
 
 import numpy as np
 import torch
@@ -35,6 +39,8 @@ __all__ = [
     "VariadicTransform",
     "BinaryTransform",
     "UnaryTransform",
+    "ScalarFunctionTransform",
+    "scalar_transform",
     "python_to_prob",
     "topological_sort",
     # variadic
@@ -150,6 +156,32 @@ class Node(abc.ABC):
                     stack.append(parent)
         return list(seen.values())
 
+    def num_distribution_nodes(self):
+        """Number of unique ancestor nodes that are distribution nodes."""
+        return sum(1 for node in self.unique_nodes() if node._is_distribution)
+
+    def to_graph(self):
+        """The computational graph as a networkx ``MultiDiGraph``.
+
+        Each node contributes its parent edges once; repeated parents of
+        one node (``a + a``) give parallel edges.  networkx is imported
+        here, at the call: nothing else in the package needs it.
+        """
+        import networkx as nx
+
+        nodes = self.unique_nodes()
+        if len(nodes) == 1:
+            G = nx.MultiDiGraph()
+            G.add_node(self)
+            return G
+        edge_list = [
+            (ancestor, node)
+            for node in nodes
+            for ancestor in node.get_parents()
+            if not node.is_leaf
+        ]
+        return nx.MultiDiGraph(edge_list)
+
     def copy(self):
         """Copy the node and its entire upstream graph, preserving ``_id`` s
         and ``samples_``."""
@@ -231,6 +263,13 @@ class Node(abc.ABC):
         return streaming.estimate(
             self, size, block_size=block_size, random_state=random_state, **kwargs
         )
+
+    def _is_initial_sampling_node(self):
+        """A distribution with no distribution ancestors."""
+        if not self._is_distribution:
+            return False
+        ancestors = set(self.unique_nodes()) - {self}
+        return not any(node._is_distribution for node in ancestors)
 
     def correlate(self, *variables, corr_mat):
         """Declare a target correlation among ancestor variables.
@@ -758,3 +797,151 @@ class Expm1(UnaryTransform):
     """exp(x) - 1, exact for |x| near 0."""
 
     op = staticmethod(_float_op(torch.expm1))
+
+
+def _numpy_dtype(dtype):
+    """``dtype`` (a torch or numpy dtype, or a name) as a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def _torch_dtype(dtype):
+    """``dtype`` (a torch or numpy dtype, or a name) as a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty((0,), _numpy_dtype(dtype))).dtype
+
+
+def _untraceable(exc):
+    """Is ``exc`` torch.vmap refusing the function (data-dependent control
+    flow, ``.item()`` and ``float()``, numpy on a batched tensor), rather
+    than the function failing?"""
+    message = str(exc)
+    return isinstance(exc, RuntimeError) and (
+        message.startswith("vmap: It looks like you're")
+        or message.startswith("Cannot access data pointer of Tensor that doesn't have storage")
+    )
+
+
+class ScalarFunctionTransform(Transform):
+    """Monte Carlo through an arbitrary scalar Python function.
+
+    The function is first mapped with ``torch.vmap``: where it traces, it
+    runs as tensor operations on the samples' device.  A function that
+    ``torch.vmap`` cannot map (data-dependent Python control flow,
+    ``float()`` of a value, numpy calls) runs the per-sample host loop,
+    with a warning, as the JAX package's ``pure_callback`` does; its
+    result, in ``dtype`` (default ``config.np_float_dtype()``), goes back
+    to the samples' device.
+    """
+
+    def __init__(self, func, args, kwargs, dtype=None):
+        self.func = func
+        self.args = args
+        self.kwargs = kwargs
+        self.dtype = dtype
+        super().__init__()
+
+    def get_parents(self):
+        for arg in self.args + tuple(self.kwargs.values()):
+            if isinstance(arg, Node):
+                yield arg
+
+    def _rewire(self, update):
+        # update() on every item, Node or not: non-Node arguments are
+        # deep-copied, so a mutable argument is not shared by a graph and
+        # its copy.
+        self.args = tuple(update(a) for a in self.args)
+        self.kwargs = {k: update(v) for k, v in self.kwargs.items()}
+
+    @staticmethod
+    def _static_arg_token(v):
+        """Stable token for a non-Node argument: numpy truncates long array
+        reprs (two tables would collide) and default object reprs hold
+        memory addresses (a fingerprint would differ across processes)."""
+        if isinstance(v, Node):
+            return "<node>"
+        if isinstance(v, np.ndarray):
+            return ("ndarray", v.shape, str(v.dtype), v.tobytes())
+        r = repr(v)
+        if " at 0x" in r:
+            return ("object", type(v).__qualname__)
+        return r
+
+    def _static_signature(self):
+        # The static arguments and the Node/static layout are structure:
+        # st(x, 2) and st(x, 3), or f(x, node) and f(node, x), differ.
+        arg_layout = tuple(self._static_arg_token(a) for a in self.args)
+        kwarg_layout = tuple(
+            (k, self._static_arg_token(v)) for k, v in sorted(self.kwargs.items())
+        )
+        return ("ScalarFunctionTransform", id(self.func), str(self.dtype), arg_layout,
+                kwarg_layout)
+
+    def _emit(self, ctx):
+        node_args = [a for a in self.args if isinstance(a, Node)]
+        node_kwargs = [v for v in self.kwargs.values() if isinstance(v, Node)]
+        arrays = [ctx.value(a) for a in node_args + node_kwargs]
+
+        def call_scalar(*scalars):
+            it = iter(scalars)
+            args = [next(it) if isinstance(a, Node) else a for a in self.args]
+            kwargs = {k: (next(it) if isinstance(v, Node) else v) for k, v in self.kwargs.items()}
+            return self.func(*args, **kwargs)
+
+        if not arrays:
+            # Constant-only arguments: one value, broadcast.
+            dtype = config.float_dtype() if self.dtype is None else _torch_dtype(self.dtype)
+            return torch.as_tensor(call_scalar(), dtype=dtype, device=ctx.device).expand(ctx.n)
+
+        # Only torch.vmap's refusals and trace-time TypeError or
+        # NotImplementedError select the host loop; any other exception
+        # (a ValueError, a shape error) is a bug in the function and
+        # surfaces here.
+        try:
+            # An output that does not depend on the samples is broadcast,
+            # as jax.vmap broadcasts it.
+            return torch.vmap(lambda *s: torch.as_tensor(call_scalar(*s)))(*arrays)
+        except (RuntimeError, TypeError, NotImplementedError) as exc:
+            if isinstance(exc, RuntimeError) and not _untraceable(exc):
+                raise
+            fname = getattr(self.func, "__name__", self.func)
+            if isinstance(exc, RuntimeError):
+                detail = "is not traceable by torch.vmap"
+            else:
+                # A TypeError can mean an untraceable function or a bug:
+                # show it, so that a bug is visible here.
+                detail = (
+                    "raised at trace time "
+                    f"({type(exc).__name__}: {str(exc)[:200]}) — if this "
+                    "points at a bug in the function, the host loop will "
+                    "raise it again at sampling time"
+                )
+            warnings.warn(
+                f"scalar_transform function {fname!r} {detail}; falling back "
+                "to the per-sample host loop (orders of magnitude slower).",
+                stacklevel=2,
+            )
+
+        out_dtype = config.np_float_dtype() if self.dtype is None else _numpy_dtype(self.dtype)
+        host = [a.detach().cpu().numpy() for a in arrays]
+        values = np.array([call_scalar(*row) for row in zip(*host)], dtype=out_dtype)
+        return torch.from_numpy(values).to(ctx.device)
+
+
+def scalar_transform(func=None, *, dtype=None):
+    """Decorator turning ``f(scalars) -> scalar`` into a graph node factory;
+    ``dtype`` is the output dtype of the host loop (and of a function of
+    constants alone)."""
+
+    def decorate(f):
+        @functools.wraps(f)
+        def transformed_function(*args, **kwargs):
+            return ScalarFunctionTransform(f, args, kwargs, dtype=dtype)
+
+        return transformed_function
+
+    if func is None:
+        return decorate
+    return decorate(func)

@@ -694,3 +694,52 @@ def test_severe_estimate_through_the_kernel(cuda_card):
     cuda = streaming.estimate(severe, 1 << 22, block_size=1 << 20, random_state=1, executor="cuda")
     plain = streaming.estimate(severe, 1 << 22, block_size=1 << 20, random_state=1, executor=None)
     assert abs(cuda["mean"] - plain["mean"]) < 5 * np.hypot(cuda["sem"], plain["sem"])
+
+
+@pytest.mark.cuda
+def test_estimate_many_runs_on_the_card(cuda_card):
+    """The NoOp sink runs the plain executor on the card: the carries lie on
+    the card, each node's mean agrees with its own estimate within 5
+    standard errors, and executor="cuda" refuses the NoOp sink."""
+    sink = benchmarks.mixed_dag_20()
+    plan = tcompile.get_plan(sink)
+    nodes = [node for node in plan.topo if not isinstance(node, tg.Constant)][-4:]
+    carry = streaming._many_carry(nodes, 1 << 21, 1 << 19, 3, "auto", quantiles=(0.5,),
+                                  covariance=True)
+    assert all(v.device.type == "cuda" for v in carry)
+    out = streaming.estimate_many(nodes, 1 << 21, block_size=1 << 19, random_state=3,
+                                  quantiles=(0.5,), covariance=True)
+    for node in nodes:
+        one = streaming.estimate(node, 1 << 21, block_size=1 << 19, random_state=4)
+        st = out[node]
+        assert abs(st["mean"] - one["mean"]) <= 5 * np.hypot(st["sem"], one["sem"])
+        assert st["cov"].shape == (len(nodes),)
+    with pytest.raises(ValueError, match="not eligible for executor='cuda'"):
+        streaming.estimate_many(nodes, 1 << 20, block_size=1 << 19, executor="cuda")
+    assert config.device().type == "cuda"
+
+
+@pytest.mark.cuda
+def test_scalar_transform_on_the_card(cuda_card):
+    """torch.vmap of f(x, y) = x * y + 1 on the card within 1 float32 ulp of
+    the operators; an untraceable function runs the host loop and its
+    result comes back to the card."""
+    sink = benchmarks.mixed_dag_20()
+    x, y = [node for node in tcompile.get_plan(sink).topo if node._is_distribution][:2]
+    f = tg.scalar_transform(lambda a, b: a * b + 1)
+    out = f(x, y).sample(1 << 20, random_state=0)
+    want = x.samples_ * y.samples_ + 1
+    assert out.device.type == "cuda"
+    assert ((out - want).abs() <= torch.finfo(torch.float32).eps * want.abs()).all()
+
+    @tg.scalar_transform
+    def positive_part(a):
+        if a > 0:
+            return a
+        return 0.0
+
+    with pytest.warns(UserWarning, match="host loop"):
+        host = positive_part(x - 50.0).sample(1000, random_state=0)
+    assert host.device.type == "cuda" and bool((host >= 0).all())
+    with pytest.raises(ValueError, match="scalar_transform"):
+        f(x, y).sample(1000, random_state=0, gc_strategy=[], executor="cuda")

@@ -388,16 +388,16 @@ def test_sibling_and_disjoint_controls():
      "streamed_method"],
 )
 def test_options_out_of_scope_raise(option, tmp_path):
-    """``estimate_many`` (A7b) still raises.  The sequential options,
-    ``checkpoint=`` and ``method=`` raised until they were ported; now they
-    run (``tests/test_torch_sequential.py`` and
-    ``tests/test_torch_qmc_streaming.py`` hold them to the analytic
-    values and to ``sample``) and a checkpoint without a ``random_state``
-    is refused (R3)."""
+    """Every option here raised until it was ported; now each runs
+    (``tests/test_torch_sequential.py``, ``tests/test_torch_qmc_streaming.py``,
+    ``tests/test_torch_estimate_many.py`` and
+    ``tests/test_torch_sequential_many.py`` hold them to the analytic values
+    and to ``sample``) and a checkpoint without a ``random_state`` is
+    refused (R3)."""
     s = Distribution("norm", loc=3.0)
     if option == "estimate_many":
-        with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-            streaming.estimate_many([s], 100)
+        st = streaming.estimate_many([s], 4096, block_size=1024, method="sobol", random_state=0)[s]
+        assert st["n"] == 4096 and abs(st["mean"] - 3.0) < 1e-2
     elif option == "method":
         st = streaming.estimate(s, 4096, block_size=1024, method="sobol", random_state=0)
         assert st["n"] == 4096 and abs(st["mean"] - 3.0) < 1e-2
