@@ -274,6 +274,36 @@ on the card, as the JAX package runs XLA there: the kernels refuse its
     sum of the separate ``estimate`` calls, and both scalar transform
     rates.
 
+The path processes (plain PyTorch on the card: neither package's kernel
+takes a path node, so neither K1 nor K2 may be launched here):
+
+20. ``bench.py::bench_paths`` in the port: the up-and-out barrier call at
+    130 on ``GeometricBrownianMotion(s0=100, mu=0.03, sigma=0.2,
+    steps=252)``, 2^21 paths streamed in blocks of 2^16 through
+    ``estimate(executor="auto")`` (host clock, median of 3 after one warm
+    call; G path-elements/s): the terminal's mean within 5 SE of
+    100 e^0.03, the discounted vanilla call within 5 SE of Black-Scholes,
+    ``examples/06``'s Asian call with the vanilla as control tighter than
+    without; ``examples/09``'s three-desk ``CorrelatedMerton`` book (64
+    steps, the common jump stream, 704 slab columns) through
+    ``estimate_many`` of the three losses and the total at 2^22 in blocks
+    of 2^19, ``method="sobol"``, ``replicates=8`` (timed after one warm
+    call): each desk's mean loss
+    within 5 SE of its closed form, the total's mean the desks' sum to
+    1e-9 relative; each of the 15 factories (``benchmarks.path_families``,
+    252 steps) sampled one-shot at 2^20 paths (2^18 for the joint and
+    stochastic-volatility ones): the terminal's mean, and its variance
+    where a closed form exists, within 5 SE; one slab of 2^10 rows on the
+    card and on the CPU, every path within 1e-4 of its largest magnitude;
+    the time-axis scan (``processes.time_cumsum``) and the bridge's
+    product giving a row the same bits in 2^18-row calls as in 2^16-row
+    blocks (``torch.cumsum`` along the last axis beside them, reported,
+    with each op's ms a block); streamed Sobol runs of a GBM and a
+    Merton functional bitwise against one shot; ``executor="cuda"`` refusing a path graph; and
+    ``torch.profiler`` over one 2^16-path block of GBM, OU, CIR, Heston,
+    the Milstein SDE and the Markov chain, and one 2^19-path block of the
+    book: device ms, kernel launches, the idle share and the top kernels.
+
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the card's rates (integer
@@ -378,6 +408,19 @@ N_HOST_LOOP = 10_000
 N_TAU = 1 << 16
 N_UNIFORM_KS = 1 << 20
 TAU_TOL = 0.02
+N_PATHS = 1 << 21  # bench.py::bench_paths
+PATHS_BLOCK = 1 << 16  # 2^16 paths x 252 steps x 4 bytes: 66 MB of path matrix a block
+N_BOOK = 1 << 22  # examples/09's desk book
+BOOK_BLOCK = 1 << 19
+N_FAMILY_PATHS = 1 << 20
+N_FAMILY_PATHS_SMALL = 1 << 18  # the joint and stochastic-volatility families
+SMALL_PATH_FAMILIES = ("correlated_gbm", "correlated_merton", "correlated_heston", "heston",
+                       "cox_ingersoll_ross")
+N_PATH_SLAB = 1 << 10  # rows of the slab held on the card against the CPU
+PATH_TOL = 1e-4  # of each path's largest magnitude (the CPU parity tolerance)
+N_PATH_STREAM = 1 << 18
+BOOK_TOTAL_TOL = 1e-9  # the total's mean against the desks' means' sum, relative
+PROFILED_PATHS = ("gbm", "ou", "cox_ingersoll_ross", "heston", "sde_milstein", "markov_chain")
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1004,6 +1047,7 @@ def main():
     typed = typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, here)
     quantile_layer_path(torch, np, scipy, smi, here)
     joint = estimate_many_path(torch, np, cuda_exec, _compile, smi, here)
+    path_processes_path(torch, np, scipy, cuda_exec, _compile, smi)
 
     emit({"kernels": [
         {
@@ -3324,6 +3368,223 @@ def estimate_many_path(torch, np, cuda_exec, _compile, smi, here):
           "host_loop_samples_per_s": N_HOST_LOOP / (host_ms * 1e-3), "host_loop_warned": warned,
           "phase_s": time.perf_counter() - t_phase})
     return {"k1_launches": k1, "k2_launches": k2}
+
+
+def path_uniforms(np, n, d, seed, newton):
+    """Float32-exact uniforms in (0, 1); in NEWTON_CENTRAL for a Newton ppf."""
+    q = np.random.default_rng(seed).integers(1, 2**23, (n, d)) / 2**23
+    if newton:
+        lo, hi = NEWTON_CENTRAL
+        q = lo + (hi - lo) * q
+    return q
+
+
+def within_se(np, x, mean, var, label):
+    """(z of the mean, z of the variance or None): each within SE_MAX."""
+    x = x.double()
+    n = x.numel()
+    m, v = x.mean().item(), x.var(correction=0).item()
+    z_mean = (m - mean) / (v / n) ** 0.5
+    check(abs(z_mean) <= SE_MAX, f"{label}: mean {m} vs {mean} ({z_mean:.2f} SE)")
+    z_var = None
+    if var is not None:
+        m4 = ((x - m) ** 4).mean().item()
+        z_var = (v - var) / ((m4 - v * v) / n) ** 0.5
+        check(abs(z_var) <= SE_MAX, f"{label}: var {v} vs {var} ({z_var:.2f} SE)")
+    return z_mean, z_var
+
+
+def profile_block(torch, fn):
+    """One call under torch.profiler: device ms, kernel launches, idle
+    share, and the three kernels that take the most device time."""
+    fn()
+    _, wall = wall_ms(torch, fn)
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        _, profiled = wall_ms(torch, fn)
+    busy = launches = 0.0
+    top = {}
+    for event in prof.key_averages():
+        us = getattr(event, "device_time_total", 0) or getattr(event, "cuda_time_total", 0)
+        if us and event.device_type == torch.autograd.DeviceType.CUDA:
+            busy += us / 1e3
+            launches += event.count
+            top[event.key[:60]] = us / 1e3
+    return {"wall_ms": wall, "profiled_ms": profiled, "device_ms": busy,
+            "kernel_launches": int(launches), "idle_share": 1.0 - busy / profiled,
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:3])}
+
+
+def batch_order(torch, np):
+    """Whether a row of each time-axis op gets the same bits in a 2^18-row
+    call as in its 2^16-row blocks (252 steps), and each op's ms a block
+    (CUDA events): ``torch.cumsum`` along the last axis (reported: the
+    library's), ``processes.time_cumsum`` and the bridge's product (both
+    checked by the caller: streamed ``method=`` runs rely on them)."""
+    from probabilit_tpu_torch.models.processes import time_cumsum
+    from probabilit_tpu_torch.ops import bridge
+
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    z = torch.randn((N_PATH_STREAM, 252), generator=gen, device="cuda")
+    u = torch.special.ndtr(z)
+    ops = {
+        "cumsum_last_axis": lambda x: torch.cumsum(x, dim=1),
+        "time_cumsum": time_cumsum,
+        "bridge_product": lambda x: bridge.normal_increments(x, torch.float32),
+    }
+    out = {}
+    for name, op in ops.items():
+        x = u if name == "bridge_product" else z
+        whole = op(x)
+        blocks = torch.cat([op(x[i : i + PATHS_BLOCK]) for i in range(0, len(x), PATHS_BLOCK)])
+        out[f"{name}_bitwise"] = bool(torch.equal(whole, blocks))
+        out[f"{name}_differing_entries"] = int((whole != blocks).sum().item())
+        out[f"{name}_ms_a_block"] = cuda_time_ms(lambda: op(x[:PATHS_BLOCK]))
+    return out
+
+
+def path_processes_path(torch, np, scipy, cuda_exec, _compile, smi):
+    """Phase 20: the path processes on the card, through the plain executor."""
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch import config
+    from probabilit_tpu_torch.engine import streaming
+    from probabilit_tpu_torch.models.benchmarks import merton_book, path_families
+
+    t_phase = time.perf_counter()
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+
+    # (a) bench.py::bench_paths, and examples/06's checks at its size.
+    gbm = pt.GeometricBrownianMotion(s0=100, mu=0.03, sigma=0.2, T=1.0, steps=252)
+    disc = float(np.exp(-0.03))
+    call = gbm.terminal() - 100.0
+    vanilla = (call > 0) * call * disc
+    barrier = (gbm.maximum() < 130) * ((gbm.terminal() - 100) > 0) * (gbm.terminal() - 100) * disc
+
+    def bench(seed):
+        return streaming.estimate(barrier, N_PATHS, block_size=PATHS_BLOCK, random_state=seed,
+                                  executor="auto")
+
+    bench(0)
+    priced, bench_ms = median_wall(torch, lambda: bench(1))
+    d1 = (0.03 + 0.02) / 0.2
+    black_scholes = 100 * scipy.stats.norm.cdf(d1) - 100 * disc * scipy.stats.norm.cdf(d1 - 0.2)
+    opts = dict(block_size=PATHS_BLOCK, executor="auto")
+    terminal = streaming.estimate(gbm.terminal(), N_PATHS, random_state=2, **opts)
+    z_terminal = (terminal["mean"] - 100 * np.exp(0.03)) / terminal["sem"]
+    check(abs(z_terminal) <= SE_MAX, f"gbm terminal {terminal['mean']} ({z_terminal:.2f} SE)")
+    plain_call = streaming.estimate(vanilla, N_PATHS, random_state=3, **opts)
+    z_call = (plain_call["mean"] - black_scholes) / plain_call["sem"]
+    check(abs(z_call) <= SE_MAX, f"vanilla {plain_call['mean']} vs {black_scholes} ({z_call:.2f} SE)")
+    ac = gbm.average() - 100.0
+    asian = (ac > 0) * ac * disc
+    a_plain = streaming.estimate(asian, N_PATHS, random_state=4, **opts)
+    a_cv = streaming.estimate(asian, N_PATHS, random_state=4, control=(vanilla, black_scholes),
+                              **opts)
+    check(a_cv["sem"] < a_plain["sem"], f"the control did not tighten: {a_cv['sem']} >= {a_plain['sem']}")
+    emit({"phase": "paths_bench", "card": smi, "n": N_PATHS, "steps": 252, "block": PATHS_BLOCK,
+          "barrier_price": priced["mean"], "barrier_sem": priced["sem"], "wall_ms": bench_ms,
+          "g_path_elements_per_s": N_PATHS * 252 / (bench_ms * 1e-3) / 1e9,
+          "terminal_z": z_terminal, "vanilla": plain_call["mean"], "black_scholes": black_scholes,
+          "vanilla_z": z_call, "asian_sem": a_plain["sem"], "asian_control_sem": a_cv["sem"],
+          "control_rho": a_cv.get("control_rho")})
+
+    # (b) examples/09's book: estimate_many under Sobol with replicates.
+    views, prices = merton_book(steps=64)
+    loss = [100.0 - v.terminal() for v in views]
+    total = sum(loss)
+    width = views[0].joint._q_width
+    check(width == 3 * 3 * 64 + 2 * 64, f"the book's slab is {width} columns")
+
+    def book():
+        return streaming.estimate_many(loss + [total], N_BOOK, block_size=BOOK_BLOCK,
+                                       quantiles=(0.99,), cvar=(0.99,), method="sobol",
+                                       replicates=8, random_state=0)
+
+    book()
+    res, book_ms = wall_ms(torch, book)
+    desks = {}
+    for i, node in enumerate(loss):
+        st = res[node]
+        z = (st["mean"] - (100.0 - prices[i])) / st["sem"]
+        check(abs(z) <= SE_MAX, f"desk {i}: mean loss {st['mean']} vs {100.0 - prices[i]}")
+        desks[f"desk_{i}"] = {"mean_loss": st["mean"], "sem": st["sem"], "z": z,
+                              "var99": st["q0.99"], "cvar99": st["cvar0.99"]}
+    desk_sum = sum(res[node]["mean"] for node in loss)
+    total_rel = abs(res[total]["mean"] - desk_sum) / abs(desk_sum)
+    check(total_rel <= BOOK_TOTAL_TOL, f"the book's total is off its desks' sum by {total_rel}")
+    emit({"phase": "paths_book", "card": smi, "n": N_BOOK, "block": BOOK_BLOCK, "steps": 64,
+          "slab_columns": width, "quantile_bytes_a_block": BOOK_BLOCK * (width + 3) * 4,
+          "wall_ms": book_ms, "desks": desks, "total_mean_loss": res[total]["mean"],
+          "total_var99": res[total]["q0.99"], "total_rel_err": total_rel})
+
+    # (c) each factory one-shot at 252 steps, and one slab on card and CPU.
+    families = path_families(steps=252)
+    records = {}
+    for k, (name, fam) in enumerate(families.items()):
+        n = N_FAMILY_PATHS_SMALL if name in SMALL_PATH_FAMILIES else N_FAMILY_PATHS
+        term = fam.surface.terminal()
+        term.sample(1 << 10, random_state=0, gc_strategy=[])  # first-call costs (torch.func)
+        x, ms = wall_ms(torch, lambda: term.sample(n, random_state=40 + k, gc_strategy=[]))
+        check(x.device.type == "cuda" and tuple(x.shape) == (n,), f"{name}: {x.device}, {x.shape}")
+        z_mean, z_var = within_se(np, x, fam.mean, fam.var, name)
+        node = getattr(fam.surface, "joint", fam.surface)
+        q = path_uniforms(np, N_PATH_SLAB, _compile.get_plan(node).d_total, k, fam.newton)
+        on_card = node.sample_from_quantiles(q).cpu().double()
+        config.set_device("cpu")
+        try:
+            on_cpu = node.sample_from_quantiles(q).double()
+        finally:
+            config.set_device("cuda")
+        rows = on_cpu.reshape(N_PATH_SLAB, -1)
+        scale = rows.abs().amax(dim=1).clamp_min(1e-30)
+        rel = ((on_card.reshape(N_PATH_SLAB, -1) - rows).abs().amax(dim=1) / scale).max().item()
+        check(rel <= PATH_TOL, f"{name}: card vs CPU on one slab {rel}")
+        del node.samples_
+        records[name] = {"n": n, "ms": ms, "paths_per_s": n / (ms * 1e-3), "z_mean": z_mean,
+                         "z_var": z_var, "slab_columns": q.shape[1], "card_vs_cpu_rel": rel}
+    emit({"phase": "paths_families", "card": smi, "steps": 252, "rel_tolerance": PATH_TOL,
+          "families": records})
+
+    # (d) the time-axis ops a row must get the same bits from whatever
+    # its batch (2^18 rows against 2^16-row blocks), then streamed Sobol
+    # runs against one shot, bitwise.
+    scan_order = batch_order(torch, np)
+    check(scan_order["time_cumsum_bitwise"] and scan_order["bridge_product_bitwise"],
+          f"a path op's rows depend on the batch: {scan_order}")
+    streamed = {}
+    for label, t in (("gbm_terminal", gbm.terminal()),
+                     ("merton_average", families["merton"].surface.average())):
+        full = t.sample(N_PATH_STREAM, random_state=50, method="sobol").cpu().numpy()
+        blocks = streaming.sample_streaming(t, N_PATH_STREAM, block_size=PATHS_BLOCK,
+                                            random_state=50, method="sobol")
+        check(np.array_equal(full, blocks), f"{label}: streamed Sobol differs from one shot")
+        streamed[label] = True
+
+    # (e) no kernel, and the kernel path refuses a path graph.
+    refused = False
+    try:
+        barrier.sample(1 << 10, random_state=0, gc_strategy=[], executor="cuda")
+    except ValueError:
+        refused = True
+    check(refused, "executor='cuda' accepted a path graph")
+
+    # (f) where a block's time goes: one 2^16-path block, key mode.
+    profiles = {}
+    for k, name in enumerate(PROFILED_PATHS):
+        term = families[name].surface.terminal()
+        profiles[name] = profile_block(
+            torch, lambda: term.sample(PATHS_BLOCK, random_state=60 + k, gc_strategy=[]))
+    profiles["book"] = profile_block(torch, lambda: streaming.estimate_many(
+        loss + [total], BOOK_BLOCK, block_size=BOOK_BLOCK, quantiles=(0.99,), cvar=(0.99,),
+        method="sobol", random_state=61))
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          f"the path phase launched K1 {cuda_exec.LAUNCHES} and K2 {cuda_exec.STATS_LAUNCHES} times")
+    emit({"phase": "paths_profile", "card": smi, "block": PATHS_BLOCK, "steps": 252,
+          "batch_order": scan_order, "streamed_equals_one_shot": streamed, "cuda_refused": refused,
+          "k1_launches": cuda_exec.LAUNCHES, "k2_launches": cuda_exec.STATS_LAUNCHES,
+          "blocks": profiles, "phase_s": time.perf_counter() - t_phase})
 
 
 if __name__ == "__main__":

@@ -10,6 +10,10 @@ on a ``(n, d)`` quantile matrix, in the same three phases:
    nearest-correlation repair of the target (``Plan``);
 3. every node in topological order, keeping only the requested outputs.
 
+A path node (``models/processes.py``) owns a slab of ``_q_width``
+columns of an explicit quantile matrix (``Plan.slab_of``, ``d_total``)
+and one column of the uniforms the engine draws (``EmitContext.drawn``).
+
 Phase 2 has two branches, as in the JAX package: the sort-free
 Gaussian-copula recolouring when the engine generated the uniforms
 itself (``sample(method=None)``), and the correlator's own transform
@@ -52,12 +56,24 @@ _NCM_CACHE = {}
 
 
 class EmitContext:
-    """Evaluation context handed to ``Node._emit``: memoised lazy values."""
+    """Evaluation context handed to ``Node._emit``: memoised lazy values.
 
-    def __init__(self, n, columns, device):
+    ``drawn`` says where the uniforms came from: True when the engine drew
+    them itself (``method=None``), False for an explicit quantile matrix
+    (a ``method=`` sequence, ``sample_from_quantiles``).  The JAX package
+    reads the same fact off its in-trace PRNG key (``gen_key``).  Path
+    nodes branch on it: on an explicit matrix they read their slab of
+    columns (``slab``), otherwise they draw from a generator keyed by
+    their own column.
+    """
+
+    def __init__(self, n, columns, device, quantiles=None, slabs=None, drawn=False):
         self.n = n
         self.device = device
         self._columns = columns  # node_id -> (n,) quantile column
+        self._quantiles = quantiles  # the full (n, d_total) matrix
+        self._slabs = slabs or {}  # node_id -> (own column, start, extra)
+        self.drawn = drawn
         self._values = {}
 
     def value(self, node):
@@ -71,6 +87,20 @@ class EmitContext:
 
     def column(self, node):
         return self._columns[node._id]
+
+    def slab(self, node):
+        """The node's ``(n, _q_width)`` quantile slab (explicit matrix only).
+
+        Dimension 0 is the node's own column (the one that keys its
+        generator when the engine draws), so its best-placed QMC dimension
+        drives its dominant feature; the other ``_q_width - 1`` columns
+        are the node's block past the scalar columns.
+        """
+        own, start, extra = self._slabs[node._id]
+        col = self._quantiles[:, own : own + 1]
+        if not extra:
+            return col
+        return torch.cat([col, self._quantiles[:, start : start + extra]], dim=1)
 
 
 class Plan:
@@ -104,9 +134,23 @@ class Plan:
         self.dist_nodes = self.isns + composite
         self.col_of = {n._id: i for i, n in enumerate(self.dist_nodes)}
         self.d = len(self.dist_nodes)
-        # Multi-column (path) nodes are not ported, so every node owns
-        # exactly one column.
-        self.d_total = self.d
+
+        # Multi-column nodes (path processes declare ``_q_width``) own a
+        # slab of columns on an explicit quantile matrix: their own scalar
+        # column is dimension 0, and the other ``_q_width - 1`` drivers
+        # follow as one block past the scalar columns.  ``d_total`` is the
+        # matrix's width; without a path node it is ``d``.  Uniforms the
+        # engine draws itself stay (n, d).
+        self.slab_of = {}
+        off = self.d
+        for node in self.dist_nodes:
+            width = getattr(node, "_q_width", None)
+            if width is None:
+                continue
+            extra = max(int(width) - 1, 0)
+            self.slab_of[node._id] = (self.col_of[node._id], off, extra)
+            off += extra
+        self.d_total = off
 
         # Topo-ordered prefix needed before correlation induction: the ISNs
         # and their (Constant/Transform) ancestors.
@@ -179,6 +223,16 @@ class Plan:
                 _NCM_CACHE.pop(next(iter(_NCM_CACHE)))
             _NCM_CACHE[cache_key] = cached
         self.corr_matrix = cached
+
+    def columns_of(self, node):
+        """Every quantile column the node's randomness consumes: its own,
+        and a path node's block of extra drivers."""
+        nid = node._id
+        cols = [self.col_of[nid]]
+        if nid in self.slab_of:
+            _, start, extra = self.slab_of[nid]
+            cols.extend(range(start, start + extra))
+        return tuple(cols)
 
 
 def get_plan(sink):
@@ -278,14 +332,16 @@ def check_rows(plan, n):
         )
 
 
-def build_body(plan, keep_ids, correlator="imanconover", generated=False):
+def build_body(plan, keep_ids, correlator="imanconover", generated=False, drawn=False):
     """The 3-phase sampling function for ``plan``.
 
     Returns ``body(quantiles) -> {node_id: tensor}`` for the kept nodes;
-    ``quantiles`` is an ``(n, d)`` tensor, already clamped to (0, 1).
-    ``generated=True`` (the uniforms were drawn by the engine, and
-    ``recolor_eligible`` holds) takes the sort-free recolouring branch of
-    phase 2; otherwise the correlator transforms the sampled columns.
+    ``quantiles`` is an ``(n, d)`` tensor (``(n, d_total)`` when it is an
+    explicit matrix), already clamped to (0, 1).  ``drawn=True`` says the
+    engine drew the uniforms (``EmitContext.drawn``).  ``generated=True``
+    (the engine drew them, and ``recolor_eligible`` holds) takes the
+    sort-free recolouring branch of phase 2; otherwise the correlator
+    transforms the sampled columns.
     """
     corr_matrix = plan.corr_matrix
     correlator_cls = None if corr_matrix is None else resolve_correlator(correlator)
@@ -294,6 +350,8 @@ def build_body(plan, keep_ids, correlator="imanconover", generated=False):
     topo = list(plan.topo)
     pre_topo = list(plan.pre_topo)
     col_of = dict(plan.col_of)
+    slab_of = dict(plan.slab_of)
+    drawn = drawn or generated
     keep_ids = frozenset(keep_ids)
     parents_of = {node._id: {p._id for p in node.get_parents()} for node in topo}
     n_children = {node._id: 0 for node in topo}
@@ -305,7 +363,10 @@ def build_body(plan, keep_ids, correlator="imanconover", generated=False):
         n = quantiles.shape[0]
         check_rows(plan, n)
         columns = {nid: quantiles[:, col] for nid, col in col_of.items()}
-        ctx = EmitContext(n=n, columns=columns, device=quantiles.device)
+        ctx = EmitContext(
+            n=n, columns=columns, device=quantiles.device, quantiles=quantiles,
+            slabs=slab_of, drawn=drawn,
+        )
         fast = generated and corr_matrix is not None
 
         # Phase 1: initial sampling nodes and their Constant/Transform

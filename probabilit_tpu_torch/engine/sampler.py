@@ -69,24 +69,27 @@ def sample(
         return _sample_cuda(plan, size, random_state, method, correlator, gc_strategy)
     if executor is not None:
         raise ValueError(f"Unknown executor {executor!r}; use None or 'cuda'.")
-    # method=None draws iid uniforms from a torch.Generator, and declared
+    # method=None draws iid uniforms from a torch.Generator, one column a
+    # node (a path node keys its own draws by its column), and declared
     # correlations take the sort-free recolouring; a QMC or antithetic
-    # method gives an explicit quantile matrix of plan.d_total columns,
-    # which the correlator transforms (the JAX package's quantile path).
+    # method gives an explicit quantile matrix of plan.d_total columns, a
+    # path node's slab of drivers included, which the correlator
+    # transforms (the JAX package's quantile path).
+    drawn = method is None
     quantiles = _qmc.generate(
         method,
         resolve_seed(random_state),
         size,
-        plan.d_total,
+        plan.d if drawn else plan.d_total,
         dtype=config.float_dtype(),
         device=config.device(),
     )
     generated = (
-        method is None
+        drawn
         and plan.corr_matrix is not None
         and _compile.recolor_eligible(plan, _compile.resolve_correlator(correlator))
     )
-    return _execute(plan, quantiles, correlator, gc_strategy, generated)
+    return _execute(plan, quantiles, correlator, gc_strategy, generated, drawn)
 
 
 def cuda_limits():
@@ -105,8 +108,9 @@ def cuda_limits():
         f"{cuda_exec.TABLE_MAX} entries; and the arithmetic transforms on "
         "float32, int32 and bool values, under a sink that is not a NoOp (so "
         "estimate_many runs on executor=None).  Multivariate, marginal, copula and "
-        "QuantileTransform nodes, and scalar_transform nodes (a Python function), "
-        "run on executor=None."
+        "QuantileTransform nodes, scalar_transform nodes (a Python function), and "
+        "path processes and their functionals ((n, steps) values), run on "
+        "executor=None."
     )
 
 
@@ -169,14 +173,19 @@ def sample_from_quantiles(sink, quantiles, correlator="imanconover", gc_strategy
     quantiles = _qmc.clamp_open_unit(quantiles)
     _, n_dim = quantiles.shape
     if n_dim != plan.d_total:
+        extra = (
+            ""
+            if plan.d_total == plan.d
+            else f" ({plan.d} scalar columns + {plan.d_total - plan.d} path-driver columns)"
+        )
         raise ValueError(
             f"`quantiles` has {n_dim} columns but the graph has "
-            f"{plan.d_total} sampling dimensions."
+            f"{plan.d_total} sampling dimensions{extra}."
         )
     return _execute(plan, quantiles, correlator, gc_strategy)
 
 
-def _execute(plan, quantiles, correlator, gc_strategy, generated=False):
+def _execute(plan, quantiles, correlator, gc_strategy, generated=False, drawn=False):
     # Clear any stale samples before running, so a failure leaves none.
     _clear_samples(plan)
 
@@ -185,7 +194,7 @@ def _execute(plan, quantiles, correlator, gc_strategy, generated=False):
     else:
         keep_ids = frozenset({plan.sink._id} | {node._id for node in gc_strategy})
 
-    body = _compile.build_body(plan, keep_ids, correlator, generated=generated)
+    body = _compile.build_body(plan, keep_ids, correlator, generated=generated, drawn=drawn)
     outputs = body(quantiles)
 
     # Non-finite guard: one fused flag (one device sync), then the

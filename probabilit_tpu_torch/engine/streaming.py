@@ -439,7 +439,7 @@ def _block_program(
     generated = plan.corr_matrix is not None and _compile.recolor_eligible(
         plan, _compile.resolve_correlator(correlator)
     )
-    body = _compile.build_body(plan, keep, correlator, generated=generated)
+    body = _compile.build_body(plan, keep, correlator, generated=generated, drawn=True)
 
     def run(b, seed):
         q = _qmc.uniform(_derive_seed(seed, 0, b), block_size, plan.d, config.float_dtype(), device)

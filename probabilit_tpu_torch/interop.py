@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from probabilit_tpu_torch.models import graph as _graph
+from probabilit_tpu_torch.models import levy, markov, processes, sde, stochvol
 from probabilit_tpu_torch.models.distributions import (
     CopulaDistribution,
     CumulativeDistribution,
@@ -26,6 +27,34 @@ from probabilit_tpu_torch.models.distributions import (
 )
 
 __all__ = ["from_reference"]
+
+# Path nodes: each class, and its constructor's arguments, read off the
+# reference node's attributes of the same names.
+_PATH_NODES = {
+    cls.__name__: (cls, args)
+    for cls, args in (
+        (processes.BrownianPath, ("x0", "drift", "diffusion", "T", "steps")),
+        (processes.GBMPath, ("s0", "mu", "sigma", "T", "steps")),
+        (processes.OUPath, ("x0", "theta", "mu", "sigma", "T", "steps")),
+        (processes.PoissonProcessPath, ("rate", "T", "steps")),
+        (processes.MertonJumpPath,
+         ("s0", "mu", "sigma", "jump_rate", "jump_mean", "jump_std", "T", "steps")),
+        (processes.CorrelatedGBMPaths, ("s0", "mu", "sigma", "corr", "T", "steps")),
+        (processes.CorrelatedMertonPaths,
+         ("s0", "mu", "sigma", "corr", "jump_rate", "jump_mean", "jump_std", "common_rate",
+          "common_mean", "common_std", "loadings", "T", "steps")),
+        (levy.VGPath, ("mu", "theta", "sigma", "nu", "T", "steps")),
+        (levy.NIGPath, ("alpha", "beta", "delta", "mu", "T", "steps")),
+        (stochvol.CIRPath, ("v0", "kappa", "theta", "sigma", "T", "steps")),
+        (stochvol.HestonPath, ("s0", "mu", "v0", "kappa", "theta", "sigma", "rho", "T", "steps")),
+        (stochvol.CorrelatedHestonPaths,
+         ("s0", "mu", "v0", "kappa", "theta", "sigma", "rho", "corr", "T", "steps", "var_corr")),
+        (sde.SDEPath, ("drift", "diffusion", "x0", "T", "steps", "scheme")),
+        (markov.MarkovChainPath, ("transition", "x0", "values", "T", "steps")),
+        (markov.RegimeSwitchingGBMPath,
+         ("s0", "mu", "sigma", "transition", "x0_state", "T", "steps")),
+    )
+}
 
 
 def _is_node(x):
@@ -44,9 +73,13 @@ def from_reference(sink):
     table nodes carry their arrays over as numpy; the copula nodes their
     family and parameters (an empirical copula its pseudo-observations,
     whose own ranks reproduce them); a ``MarginalDistribution`` its slice,
-    a ``QuantileTransform`` its family and parameters, and a
+    a ``QuantileTransform`` its family and parameters, a
     ``ScalarFunctionTransform`` the same Python function and static
-    arguments, its node arguments mapped.
+    arguments, its node arguments mapped, and a path node its parameters
+    (an ``SDEPath`` the same callables, which then run on torch tensors; a
+    callable that calls ``jnp`` fails with its own error), an
+    ``AssetPath`` view and a ``PathFunctional`` theirs over the mapped
+    joint or path node.
     """
     seen = {sink._id: sink}
     stack = [sink]
@@ -66,6 +99,15 @@ def from_reference(sink):
         cls = getattr(_graph, name, None)
         if name == "Constant":
             node = _graph.Constant(ref.value)
+        elif name in _PATH_NODES:
+            cls, args = _PATH_NODES[name]
+            values = (getattr(ref, k) for k in args)
+            node = cls(**{k: np.array(v) if isinstance(v, np.ndarray) else v
+                          for k, v in zip(args, values)})
+        elif name == "AssetPath":
+            node = processes.AssetPath(mapping[ref.joint._id], ref.asset)
+        elif name == "PathFunctional":
+            node = mapping[ref.path._id]._functional(ref.op, ref.index)  # into the memo
         elif "Distribution" in {c.__name__ for c in type(ref).__mro__}:
             node = Distribution(
                 ref.distr,

@@ -17,6 +17,11 @@ Poisson -> binomial chain, BASELINE config 2), ``large_table`` (bench.py's
 node on one tape, at the JAX package's own test sizes
 (``tests/test_pallas_exec.py:159-178``).
 
+The path processes: ``path_families``, one path node (or asset view) of
+each of the 15 process factories with the closed-form mean and variance
+of its terminal value, and ``merton_book``, ``examples/09``'s three-desk
+``CorrelatedMerton`` book with each desk's expected terminal price.
+
 The int32 and bool nodes: ``breach_count`` (and ``_correlated``), a cost
 controller's count of overrunning work packages and its penalty tiers,
 and ``typed_ops``, a test graph of every int32 and bool operation at the
@@ -26,6 +31,8 @@ package's classes.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -57,6 +64,9 @@ __all__ = [
     "portfolio_var",
     "FAMILY_SWEEP",
     "family_graphs",
+    "PathFamily",
+    "path_families",
+    "merton_book",
 ]
 
 
@@ -458,3 +468,144 @@ def family_graphs():
         nodes = [(name, Distribution(name, *args, **kwargs)) for name, args, kwargs in group]
         graphs[label] = (Add(*(node for _, node in nodes)), nodes)
     return graphs
+
+
+class PathFamily(NamedTuple):
+    """One process factory's path surface (a path node, or an asset view),
+    whether it runs a Newton ppf, and its terminal value's closed-form mean
+    and variance (None where there is none)."""
+
+    surface: object
+    newton: bool
+    mean: float
+    var: float | None
+
+
+def ou_drift(t, x):
+    return 1.5 * (0.5 - x)
+
+
+def gbm_drift(t, x):
+    return 0.05 * x
+
+
+def gbm_diffusion(t, x):
+    return 0.2 * x
+
+
+MARKOV_P3 = [[0.8, 0.15, 0.05], [0.1, 0.8, 0.1], [0.05, 0.15, 0.8]]
+MARKOV_VALUES = [1.0, 2.0, 5.0]
+REGIME_P2 = [[0.95, 0.05], [0.1, 0.9]]
+REGIME_MU, REGIME_SIGMA = [0.08, -0.02], [0.15, 0.4]
+
+
+def _merton_moments(s0, mu, sigma, T, jumps):
+    """E[S_T], Var[S_T] of s0 exp((mu - sigma^2/2) T + sigma W_T + sum of
+    compound-Poisson normal jumps), ``jumps`` a list of (rate, mean, std)."""
+    m1 = s0 * np.exp(mu * T + sum(r * T * np.expm1(m + s * s / 2) for r, m, s in jumps))
+    m2 = s0 * s0 * np.exp(
+        2 * mu * T + sigma**2 * T + sum(r * T * np.expm1(2 * m + 2 * s * s) for r, m, s in jumps)
+    )
+    return m1, m2 - m1 * m1
+
+
+def path_families(steps=252):
+    """``{name: PathFamily}``, one entry per process factory, at T = 1
+    unless noted and ``steps`` grid points (the parameters of the port's
+    CPU path tests).  The SDE runs Milstein on dX = 0.05 X dt + 0.2 X dW
+    (its scheme's own moments), Heston's mean is s0 e^{mu T} up to the
+    trapezoid's O(dt^2)."""
+    import probabilit_tpu_torch as pt
+
+    dt = 1.0 / steps
+    e15 = np.exp(-1.5)
+    ek = np.exp(-2.0)
+    g = np.sqrt(2.0**2 - 0.5**2)
+    m1 = 1.0 + 0.05 * dt
+    m2 = m1**2 + 0.04 * dt + 0.5 * 0.2**4 * dt * dt
+    p = np.linalg.matrix_power(np.array(MARKOV_P3), steps)[0]
+    values = np.array(MARKOV_VALUES)
+    P2, mu2, sd2 = np.array(REGIME_P2), np.array(REGIME_MU), np.array(REGIME_SIGMA)
+
+    def regime(m):
+        D = np.diag(np.exp(m * mu2 * dt + 0.5 * m * (m - 1) * sd2**2 * dt))
+        return 100.0**m * (np.linalg.matrix_power(D @ P2, steps - 1) @ D @ np.ones(2))[0]
+
+    corr2 = [[1.0, 0.6], [0.6, 1.0]]
+    merton = _merton_moments(100.0, 0.03, 0.2, 1.0, [(1.0, -0.05, 0.1)])
+    cmerton = _merton_moments(100.0, 0.03, 0.2, 1.0, [(0.5, -0.05, 0.1), (0.2, -0.1, 0.05)])
+    return {
+        "brownian": PathFamily(
+            pt.BrownianMotion(x0=1.0, drift=0.3, diffusion=1.5, T=2.0, steps=steps),
+            False, 1.6, 1.5**2 * 2.0),
+        "gbm": PathFamily(
+            pt.GeometricBrownianMotion(s0=100, mu=0.05, sigma=0.2, steps=steps),
+            False, 100 * np.exp(0.05), 1e4 * np.exp(0.1) * np.expm1(0.04)),
+        "ou": PathFamily(
+            pt.OrnsteinUhlenbeck(x0=2.0, theta=1.5, mu=0.5, sigma=0.8, steps=steps),
+            False, 0.5 + 1.5 * e15, 0.64 * (1 - e15 * e15) / 3.0),
+        "poisson": PathFamily(pt.PoissonProcess(rate=3.0, T=2.0, steps=steps), False, 6.0, 6.0),
+        "merton": PathFamily(
+            pt.MertonJumpDiffusion(s0=100, mu=0.03, sigma=0.2, jump_rate=1.0,
+                                    jump_mean=-0.05, jump_std=0.1, steps=steps),
+            False, *merton),
+        "correlated_gbm": PathFamily(
+            pt.CorrelatedGBM([100, 50], [0.03, 0.02], [0.2, 0.3], corr2, steps=steps)[0],
+            False, 100 * np.exp(0.03), 1e4 * np.exp(0.06) * np.expm1(0.04)),
+        "correlated_merton": PathFamily(
+            pt.CorrelatedMerton([100.0, 50.0], [0.03, 0.02], [0.2, 0.3], [[1, 0.5], [0.5, 1]],
+                                 jump_rate=[0.5, 1.0], jump_mean=-0.05, common_rate=0.2,
+                                 common_mean=-0.1, common_std=0.05, steps=steps)[0],
+            False, *cmerton),
+        "variance_gamma": PathFamily(
+            pt.VarianceGamma(mu=0.1, theta=-0.2, sigma=0.3, nu=0.25, T=2.0, steps=steps),
+            True, (0.1 - 0.2) * 2.0, (0.3**2 + 0.25 * 0.2**2) * 2.0),
+        "normal_inverse_gaussian": PathFamily(
+            pt.NormalInverseGaussian(alpha=2.0, beta=-0.5, delta=0.8, mu=0.1, T=1.5,
+                                      steps=steps),
+            True, (0.1 - 0.8 * 0.5 / g) * 1.5, 0.8 * 4.0 / g**3 * 1.5),
+        "cox_ingersoll_ross": PathFamily(
+            pt.CoxIngersollRoss(v0=0.03, kappa=2.0, theta=0.04, sigma=0.3, steps=steps),
+            True, 0.04 + (0.03 - 0.04) * ek,
+            0.03 * 0.09 * ek * (1 - ek) / 2.0 + 0.04 * 0.09 * (1 - ek) ** 2 / 4.0),
+        "heston": PathFamily(
+            pt.Heston(s0=100, mu=0.04, v0=0.04, kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7,
+                       steps=steps),
+            True, 100 * np.exp(0.04), None),
+        "correlated_heston": PathFamily(
+            pt.CorrelatedHeston([100.0, 50.0], [0.0, 0.0], v0=0.04, kappa=2.0, theta=0.04,
+                                 sigma=0.3, rho=[-0.5, -0.3], corr=corr2, steps=steps)[0],
+            True, 100.0, None),
+        "sde_milstein": PathFamily(
+            pt.SDE(gbm_drift, gbm_diffusion, x0=100.0, steps=steps, scheme="milstein"),
+            False, 100 * m1**steps, 1e4 * (m2**steps - m1 ** (2 * steps))),
+        "markov_chain": PathFamily(
+            pt.MarkovChain(MARKOV_P3, x0=0, values=MARKOV_VALUES, steps=steps),
+            False, p @ values, p @ values**2 - (p @ values) ** 2),
+        "regime_switching_gbm": PathFamily(
+            pt.RegimeSwitchingGBM(100.0, REGIME_MU, REGIME_SIGMA, REGIME_P2, steps=steps),
+            False, regime(1), regime(2) - regime(1) ** 2),
+    }
+
+
+def merton_book(steps=64):
+    """``examples/09``'s three-desk book: ``CorrelatedMerton`` views with
+    correlated diffusions, idiosyncratic jumps and a common crash stream
+    (intensity 0.3 a year, mean -8%) loaded [1, 0.8, 0.5].  Returns
+    ``(views, expected terminal prices)``."""
+    from probabilit_tpu_torch.models.processes import CorrelatedMerton
+
+    mu, sigma = [0.05, 0.04, 0.03], [0.2, 0.25, 0.15]
+    rates, loads = [0.5, 0.3, 0.0], [1.0, 0.8, 0.5]
+    views = CorrelatedMerton(
+        s0=[100.0, 100.0, 100.0], mu=mu, sigma=sigma,
+        corr=[[1, 0.5, 0.2], [0.5, 1, 0.3], [0.2, 0.3, 1]], jump_rate=rates, jump_mean=-0.04,
+        jump_std=0.08, common_rate=0.3, common_mean=-0.08, common_std=0.04, loadings=loads,
+        T=1.0, steps=steps,
+    )
+    means = [
+        _merton_moments(100.0, mu[i], sigma[i], 1.0,
+                        [(rates[i], -0.04, 0.08), (0.3, -0.08 * loads[i], 0.04 * loads[i])])[0]
+        for i in range(3)
+    ]
+    return views, means

@@ -16,6 +16,9 @@ is of n terms of magnitude about 1: z_k, z_j z_k).  They differ only where
 nvcc contracts a*b+c into FMAs, where CUDA's libm rounds differently from
 PyTorch's, and in the order of float32 partial sums.  The three sort
 kernels move bits and compare, so they equal their twins bitwise.  The
+path processes run no kernel (the plain executor on the card): each
+factory's slab on the card within 1e-4 of each path's largest magnitude
+of the CPU's (a Newton factory on uniforms in [0.001, 0.999]).  The
 megakernel is generated and built per graph structure at its first run
 here (a few seconds each).
 """
@@ -743,3 +746,54 @@ def test_scalar_transform_on_the_card(cuda_card):
     assert host.device.type == "cuda" and bool((host >= 0).all())
     with pytest.raises(ValueError, match="scalar_transform"):
         f(x, y).sample(1000, random_state=0, gc_strategy=[], executor="cuda")
+
+
+# --- The path processes: plain PyTorch on the card, no kernel ----------------------------
+
+
+def _path_uniforms(n, d, seed, newton):
+    q = np.random.default_rng(seed).integers(1, 2**23, (n, d)) / 2**23
+    return 0.001 + 0.998 * q if newton else q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(benchmarks.path_families(steps=16)))
+def test_path_family_on_the_card_equals_the_cpu(cuda_card, name):
+    """One slab through each factory on the card and on the CPU: every path
+    within 1e-4 of its largest magnitude (the CPU parity tolerance; a
+    Newton factory on uniforms in [0.001, 0.999]); no kernel launched."""
+    fam = benchmarks.path_families(steps=32)[name]
+    node = getattr(fam.surface, "joint", fam.surface)
+    q = _path_uniforms(4096, tcompile.get_plan(node).d_total, 3, fam.newton)
+    launches = cuda_exec.LAUNCHES
+    on_card = node.sample_from_quantiles(q)
+    assert on_card.device.type == "cuda" and cuda_exec.LAUNCHES == launches
+    config.set_device("cpu")
+    try:
+        on_cpu = node.sample_from_quantiles(q).double()
+    finally:
+        config.set_device("cuda")
+    rows = on_cpu.reshape(4096, -1)
+    err = (on_card.cpu().double().reshape(4096, -1) - rows).abs().amax(dim=1)
+    assert bool((err <= REL_TOL * rows.abs().amax(dim=1)).all()), name
+
+
+@pytest.mark.cuda
+def test_path_graph_runs_without_the_kernels(cuda_card):
+    """A path graph launches neither K1 nor K2 under executor="auto", and
+    executor="cuda" refuses it; a streamed Sobol run equals one shot."""
+    fam = benchmarks.path_families(steps=64)["gbm"]
+    g = fam.surface
+    payoff = (g.maximum() < 130) * (g.terminal() - 100)
+    launches, stats = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    st = streaming.estimate(g.terminal(), 1 << 18, block_size=1 << 16, random_state=0,
+                            executor="auto")
+    assert (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES) == (launches, stats)
+    assert abs(st["mean"] - fam.mean) <= 5 * st["sem"]
+    with pytest.raises(ValueError, match="path processes"):
+        payoff.sample(1 << 10, random_state=0, gc_strategy=[], executor="cuda")
+    t = g.terminal()
+    full = t.sample(1 << 16, random_state=1, method="sobol").cpu().numpy()
+    blocks = streaming.sample_streaming(t, 1 << 16, block_size=1 << 13, random_state=1,
+                                        method="sobol")
+    np.testing.assert_array_equal(full, blocks)
