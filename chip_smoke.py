@@ -303,6 +303,30 @@ takes a path node, so neither K1 nor K2 may be launched here):
     ``torch.profiler`` over one 2^16-path block of GBM, OU, CIR, Heston,
     the Milstein SDE and the Markov chain, and one 2^19-path block of the
     book: device ms, kernel launches, the idle share and the top kernels.
+21. ``sensitivity`` and ``sobol_indices`` (``engine/sensitivity.py``:
+    ``torch.autograd`` through the plain executor, no kernel) on
+    ``mixed_dag_20``'s sink with respect to its 8 distributions' 16
+    parameters: one shot at 2^24 (wall and device ms, idle share, peak
+    memory), and at 2^20 the card against the CPU on one quantile matrix
+    (each gradient within 1e-4 of max(1, |gradient|)) and against central
+    differences of ``sample_from_quantiles`` in float64 on that matrix
+    (within 1e-4, a step of 1e-6 of max(1, |parameter|)); one shot of
+    q0.95 at 2^25, past ``torch.quantile``'s 2^24 (finite); the Sobol
+    sequence's gradients streamed in 2^16 blocks against one shot at 2^20
+    (within 1e-4 of max(1, |gradient|), the JAX package's tolerance,
+    float32 sums in other orders); streamed at
+    2^28 in blocks of 2^24 for the mean (its value against
+    ``estimate(executor=None)`` on the same blocks, within 1e-6) and for
+    cvar0.95, their peak memory within twice one block's; a
+    checkpointed run cut after its first segment and resumed, bitwise
+    against the uninterrupted checkpointed run; ``bench_paths``' GBM
+    Greeks (delta and d/dmu of the terminal mean, 2^20 paths of 252 steps
+    in 2^16 blocks, 8 replicates) within 5 replicate SEs of e^{mu T} and
+    s0 T e^{mu T}; Sobol' indices at 2^20 under ``method="sobol"`` (wall
+    ms, peak memory), the card against the CPU on the same A and B at
+    2^16 (the moments within 1e-5 relative, each index within 1e-4), and
+    the Ishigami function's indices within 0.01 of their closed forms at
+    2^15; K1 and K2 launched 0 times in the phase.
 
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
@@ -421,6 +445,26 @@ PATH_TOL = 1e-4  # of each path's largest magnitude (the CPU parity tolerance)
 N_PATH_STREAM = 1 << 18
 BOOK_TOTAL_TOL = 1e-9  # the total's mean against the desks' means' sum, relative
 PROFILED_PATHS = ("gbm", "ou", "cox_ingersoll_ross", "heston", "sde_milstein", "markov_chain")
+N_SENS = 1 << 24  # the one-shot gradient's size (one streamed block)
+N_SENS_CHECK = 1 << 20  # card against the CPU and central differences
+N_SENS_STREAM = 1 << 28
+SENS_CHECKPOINT_EVERY = 1 << 26  # four segments of four blocks
+SENS_TOL = 1e-4  # card against CPU: of max(1, |gradient|)
+SENS_FD_TOL = 1e-4  # autograd (float32) against float64 central differences, likewise
+SENS_FD_STEP = 1e-6  # the central difference's step, of max(1, |parameter|)
+SENS_VALUE_TOL = 1e-6  # the streamed mean against estimate(executor=None), relative
+N_SENS_QUANTILE = 1 << 25  # a one-shot q<level> past torch.quantile's 2^24 elements
+SENS_SOBOL_BLOCK = 1 << 16
+SENS_SOBOL_TOL = 1e-4  # streamed Sobol-sequence gradients against one shot
+N_GREEK_PATHS = 1 << 20
+GREEK_BLOCK = 1 << 16
+GREEK_REPLICATES = 8
+N_SOBOL = 1 << 20
+N_SOBOL_CHECK = 1 << 16
+SOBOL_MOMENT_TOL = 1e-5
+SOBOL_INDEX_TOL = 1e-4
+N_ISHIGAMI = 1 << 15
+ISHIGAMI_TOL = 0.01  # the JAX package's (tests/test_sensitivity.py:459)
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1048,6 +1092,7 @@ def main():
     quantile_layer_path(torch, np, scipy, smi, here)
     joint = estimate_many_path(torch, np, cuda_exec, _compile, smi, here)
     path_processes_path(torch, np, scipy, cuda_exec, _compile, smi)
+    sensitivity_path(torch, np, cuda_exec, _compile, smi, here)
 
     emit({"kernels": [
         {
@@ -3586,6 +3631,217 @@ def path_processes_path(torch, np, scipy, cuda_exec, _compile, smi):
           "k1_launches": cuda_exec.LAUNCHES, "k2_launches": cuda_exec.STATS_LAUNCHES,
           "blocks": profiles, "phase_s": time.perf_counter() - t_phase})
 
+
+def sensitivity_path(torch, np, cuda_exec, _compile, smi, here):
+    """Phase 21: pathwise gradients and Sobol' indices on the card, through
+    the plain executor (no kernel has a backward)."""
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch import config
+    from probabilit_tpu_torch.engine import sensitivity as sens
+    from probabilit_tpu_torch.engine import streaming
+    from probabilit_tpu_torch.models.benchmarks import mixed_dag_20
+
+    t_phase = time.perf_counter()
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    sink = mixed_dag_20()
+    plan = _compile.get_plan(sink)
+    pairs = [(node, slot) for node in plan.isns for slot in sens._numeric_slots(node)]
+    check(len(pairs) == 16, f"mixed_dag_20 has {len(pairs)} numeric slots")
+    wrt = list(plan.isns)
+
+    def peak_mb(fn):
+        """(result, wall ms, the MB the call itself held at its peak: over
+        what the earlier phases leave allocated)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = wall_ms(torch, fn)
+        return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    resident_mb = torch.cuda.memory_allocated() / 2**20
+
+    # (a) One shot at 2^24, then the card against the CPU and against
+    # float64 central differences on one 2^20 quantile matrix.
+    def one_shot():
+        return pt.sensitivity(sink, wrt=wrt, size=N_SENS, random_state=21)
+
+    one_shot()
+    res, shot_ms, shot_mb = peak_mb(one_shot)
+    profile = profile_block(torch, one_shot)
+    q = np.random.default_rng(21).integers(1, 2**23, (N_SENS_CHECK, plan.d)) / 2**23
+    theta = [float(sens._read_slot(n, s)) for n, s in pairs]
+    fn = sens._build_grad_fn(plan, pairs, torch.mean, _compile.resolve_correlator("imanconover"),
+                             drawn=False)
+
+    def grads_on(device):
+        qt = torch.as_tensor(q, dtype=torch.float32, device=device)
+        value, grad = fn(torch.tensor(theta, dtype=torch.float32, device=device), qt)
+        return float(value), grad.cpu().double().numpy()
+
+    card_value, card_grad = grads_on("cuda")
+    config.set_device("cpu")
+    try:
+        cpu_value, cpu_grad = grads_on("cpu")
+    finally:
+        config.set_device("cuda")
+    cpu_err = np.abs(card_grad - cpu_grad) / np.maximum(1.0, np.abs(cpu_grad))
+    check(float(cpu_err.max()) <= SENS_TOL, f"gradient card vs CPU {cpu_err.max()}")
+    fd = np.zeros(len(pairs))
+    config.set_dtype(torch.float64)
+    try:
+        for k, (node, slot) in enumerate(pairs):
+            h = SENS_FD_STEP * max(1.0, abs(theta[k]))
+            side = []
+            for sign in (1.0, -1.0):
+                sens._write_slot(node, slot, theta[k] + sign * h)
+                try:
+                    side.append(float(sink.sample_from_quantiles(q, gc_strategy=[]).mean()))
+                finally:
+                    sens._write_slot(node, slot, theta[k])
+            fd[k] = (side[0] - side[1]) / (2.0 * h)
+    finally:
+        config.set_dtype(torch.float32)
+    fd_err = np.abs(card_grad - fd) / np.maximum(1.0, np.abs(fd))
+    check(float(fd_err.max()) <= SENS_FD_TOL, f"gradient vs central differences {fd_err.max()}")
+    labels = [f"{type(n).__name__}#{plan.col_of[n._id]}.{s}" for n, s in pairs]
+    emit({"phase": "sensitivity_one_shot", "card": smi, "n": N_SENS, "slots": len(pairs),
+          "value": res.value, "wall_ms": shot_ms, "peak_mb": shot_mb,
+          "resident_mb_before_phase": resident_mb, **profile,
+          "check_n": N_SENS_CHECK, "card_vs_cpu_max_rel": float(cpu_err.max()),
+          "card_vs_cpu_value": card_value - cpu_value, "central_differences_max_rel":
+          float(fd_err.max()), "tolerances": {"card_vs_cpu": SENS_TOL, "central": SENS_FD_TOL},
+          "gradients": dict(zip(labels, card_grad.tolist())), "central": dict(zip(labels, fd))})
+
+    # A one-shot quantile past torch.quantile's limit, and the Sobol
+    # sequence streamed against one shot (the order of float32 sums).
+    big, big_ms, big_mb = peak_mb(lambda: pt.sensitivity(
+        sink, wrt=wrt, size=N_SENS_QUANTILE, statistic="q0.95", random_state=25))
+    check(np.isfinite(big.value) and all(np.isfinite(list(big.gradients.values()))),
+          f"one-shot q0.95 at {N_SENS_QUANTILE}: {big}")
+    qmc = dict(wrt=wrt, size=N_SENS_CHECK, method="sobol", random_state=26)
+    whole = pt.sensitivity(sink, **qmc)
+    blocks = pt.sensitivity(sink, block_size=SENS_SOBOL_BLOCK, **qmc)
+    sobol_rel = max(abs(blocks[p] - whole[p]) / max(1.0, abs(whole[p])) for p in pairs)
+    sobol_value_rel = abs(blocks.value - whole.value) / abs(whole.value)
+    check(max(sobol_rel, sobol_value_rel) <= SENS_SOBOL_TOL,
+          f"streamed Sobol gradients vs one shot: {sobol_rel}, value {sobol_value_rel}")
+    emit({"phase": "sensitivity_quantile_and_sobol_stream", "card": smi,
+          "quantile_n": N_SENS_QUANTILE, "quantile_value": big.value, "quantile_wall_ms": big_ms,
+          "quantile_peak_mb": big_mb, "sobol_n": N_SENS_CHECK, "sobol_block": SENS_SOBOL_BLOCK,
+          "sobol_stream_max_rel": sobol_rel, "sobol_stream_value_rel": sobol_value_rel,
+          "tolerance": SENS_SOBOL_TOL})
+
+    # (b) Streamed at 2^28 in blocks of 2^24: the mean against the
+    # estimate of the same blocks, cvar0.95, and a checkpoint cut and
+    # resumed.
+    opts = dict(wrt=wrt, size=N_SENS_STREAM, block_size=N_SENS, random_state=22)
+    mean, mean_ms, mean_mb = peak_mb(lambda: pt.sensitivity(sink, **opts))
+    est = streaming.estimate(sink, N_SENS_STREAM, block_size=N_SENS, random_state=22,
+                             executor=None)
+    value_rel = abs(mean.value - est["mean"]) / abs(est["mean"])
+    check(value_rel <= SENS_VALUE_TOL, f"streamed value vs estimate {value_rel}")
+    tail, tail_ms, tail_mb = peak_mb(lambda: pt.sensitivity(sink, statistic="cvar0.95", **opts))
+    check(max(mean_mb, tail_mb) <= 2.0 * shot_mb,
+          f"streamed peak {max(mean_mb, tail_mb)} MB against one block's {shot_mb}")
+    path = here / "build" / "chip_phase21_checkpoint.npz"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    ck = dict(opts, checkpoint=str(path), checkpoint_every=SENS_CHECKPOINT_EVERY)
+    full = pt.sensitivity(sink, **ck)
+    real = sens._save_grad_checkpoint
+
+    def cut(*args, **kwargs):
+        real(*args, **kwargs)
+        raise RuntimeError("cut after one segment")
+
+    sens._save_grad_checkpoint = cut
+    try:
+        pt.sensitivity(sink, **ck)
+        check(False, "the cut run finished")
+    except RuntimeError as exc:
+        check("cut after one segment" in str(exc), f"the cut run raised {exc!r}")
+    finally:
+        sens._save_grad_checkpoint = real
+    check(path.exists(), "the cut run left no checkpoint")
+    resumed, resume_ms = wall_ms(torch, lambda: pt.sensitivity(sink, **ck))
+    bitwise = resumed.value == full.value and resumed.gradients == full.gradients
+    check(bitwise, "the resumed run differs from the uninterrupted checkpointed run")
+    check(not path.exists(), "the finished run left its checkpoint")
+    emit({"phase": "sensitivity_streamed", "card": smi, "n": N_SENS_STREAM, "block": N_SENS,
+          "mean_value": mean.value, "estimate_mean": est["mean"], "value_rel": value_rel,
+          "mean_wall_ms": mean_ms, "mean_peak_mb": mean_mb, "cvar95_value": tail.value,
+          "cvar95_wall_ms": tail_ms, "cvar95_peak_mb": tail_mb, "one_block_peak_mb": shot_mb,
+          "checkpoint_segments": N_SENS_STREAM // SENS_CHECKPOINT_EVERY,
+          "resumed_bitwise": bitwise, "resume_wall_ms": resume_ms,
+          "mean_gradients": dict(zip(labels, (mean[p] for p in pairs))),
+          "cvar95_gradients": dict(zip(labels, (tail[p] for p in pairs)))})
+
+    # (c) bench_paths' GBM: the terminal mean's delta and d/dmu.
+    gbm = pt.GeometricBrownianMotion(s0=100, mu=0.03, sigma=0.2, T=1.0, steps=252)
+
+    def greeks():
+        return pt.sensitivity(gbm.terminal(), wrt={gbm: ["s0", "mu"]}, size=N_GREEK_PATHS,
+                              block_size=GREEK_BLOCK, replicates=GREEK_REPLICATES,
+                              random_state=23)
+
+    greeks()
+    g, greek_ms = wall_ms(torch, greeks)
+    z_delta = (g[(gbm, "s0")] - np.exp(0.03)) / g.sems[(gbm, "s0")]
+    z_mu = (g[(gbm, "mu")] - 100 * np.exp(0.03)) / g.sems[(gbm, "mu")]
+    check(abs(z_delta) <= SE_MAX and abs(z_mu) <= SE_MAX,
+          f"GBM Greeks {g.gradients} ({z_delta:.2f}, {z_mu:.2f} SE)")
+    emit({"phase": "sensitivity_greeks", "card": smi, "paths": N_GREEK_PATHS, "steps": 252,
+          "block": GREEK_BLOCK, "replicates": GREEK_REPLICATES, "wall_ms": greek_ms,
+          "delta": g[(gbm, "s0")], "delta_sem": g.sems[(gbm, "s0")], "delta_z": z_delta,
+          "dmu": g[(gbm, "mu")], "dmu_sem": g.sems[(gbm, "mu")], "dmu_z": z_mu})
+
+    # (d) Sobol' indices: 2^20 on the card, the card against the CPU on
+    # one A and B, and Ishigami against its closed forms.
+    def indices():
+        return pt.sobol_indices(sink, size=N_SOBOL, random_state=24, method="sobol")
+
+    indices()
+    sob, sobol_ms, sobol_mb = peak_mb(indices)
+    cols = tuple(plan.columns_of(v) for v in plan.isns)
+    AB = np.random.default_rng(24).integers(1, 2**23, (N_SOBOL_CHECK, 2 * plan.d)) / 2**23
+    sobol_fn = sens._build_sobol_fn(plan, cols)
+
+    def sobol_on(device):
+        A = torch.as_tensor(AB[:, :plan.d], dtype=torch.float32, device=device)
+        B = torch.as_tensor(AB[:, plan.d:], dtype=torch.float32, device=device)
+        return [v.cpu().double().numpy() for v in sobol_fn(A, B)]
+
+    on_card = sobol_on("cuda")
+    config.set_device("cpu")
+    try:
+        on_cpu = sobol_on("cpu")
+    finally:
+        config.set_device("cuda")
+    moment_rel = max(abs(float(a) - float(b)) / max(1.0, abs(float(b)))
+                     for a, b in zip(on_card[:2], on_cpu[:2]))
+    index_err = max(float(np.abs(a - b).max()) for a, b in zip(on_card[2:4], on_cpu[2:4]))
+    check(moment_rel <= SOBOL_MOMENT_TOL and index_err <= SOBOL_INDEX_TOL,
+          f"Sobol' card vs CPU: moments {moment_rel}, indices {index_err}")
+    xs = [pt.Distribution("uniform", loc=-np.pi, scale=2 * np.pi) for _ in range(3)]
+    f = pt.Sin(xs[0]) + 7 * pt.Sin(xs[1]) ** 2 + 0.1 * xs[2] ** 4 * pt.Sin(xs[0])
+    ish = pt.sobol_indices(f, size=N_ISHIGAMI, random_state=1)
+    ish_err = max(max(abs(ish.first_order[x] - s), abs(ish.total_order[x] - t))
+                  for x, s, t in zip(xs, (0.3139, 0.4424, 0.0), (0.5576, 0.4424, 0.2437)))
+    check(ish_err <= ISHIGAMI_TOL, f"Ishigami indices off by {ish_err}")
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          f"the sensitivity phase launched K1 {cuda_exec.LAUNCHES} and K2 "
+          f"{cuda_exec.STATS_LAUNCHES} times")
+    emit({"phase": "sensitivity_sobol", "card": smi, "n": N_SOBOL, "variables": len(cols),
+          "rows": (2 + len(cols)) * N_SOBOL, "wall_ms": sobol_ms, "peak_mb": sobol_mb,
+          "first_order": {f"{type(v).__name__}#{plan.col_of[v._id]}": sob.first_order[v]
+                          for v in plan.isns},
+          "total_order": {f"{type(v).__name__}#{plan.col_of[v._id]}": sob.total_order[v]
+                          for v in plan.isns},
+          "check_n": N_SOBOL_CHECK, "card_vs_cpu_moments_rel": moment_rel,
+          "card_vs_cpu_indices_abs": index_err, "ishigami_n": N_ISHIGAMI,
+          "ishigami_max_abs_err": ish_err, "k1_launches": cuda_exec.LAUNCHES,
+          "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
 
 if __name__ == "__main__":
     main()

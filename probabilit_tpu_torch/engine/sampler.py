@@ -31,14 +31,18 @@ __all__ = ["sample", "sample_from_quantiles", "resolve_seed"]
 
 
 def resolve_seed(random_state):
-    """Map ``random_state`` (None, an int, or a numpy ``Generator``) to an
-    integer seed: None draws fresh entropy, a ``Generator`` is advanced."""
+    """Map ``random_state`` (None, an int, or a numpy ``Generator`` or
+    ``RandomState``) to an integer seed: None draws fresh entropy, a
+    ``Generator`` or ``RandomState`` is advanced by one draw, as the JAX
+    package's ``resolve_key`` advances it."""
     if random_state is None:
         return int(np.random.SeedSequence().entropy % (2**63))
     if isinstance(random_state, (int, np.integer)):
         return int(random_state)
     if isinstance(random_state, np.random.Generator):
         return int(random_state.integers(2**63))
+    if isinstance(random_state, np.random.RandomState):
+        return int(random_state.randint(2**31))
     raise TypeError(f"Cannot interpret random_state: {random_state!r}")
 
 

@@ -264,6 +264,22 @@ class Node(abc.ABC):
             self, size, block_size=block_size, random_state=random_state, **kwargs
         )
 
+    def sensitivity(self, wrt, size=65536, random_state=None, **kwargs):
+        """Pathwise derivative of a statistic of this node with respect to
+        distribution parameters, by ``torch.autograd`` through the plain
+        executor.  See ``engine.sensitivity.sensitivity``."""
+        from probabilit_tpu_torch.engine import sensitivity as _sens
+
+        return _sens.sensitivity(self, wrt, size=size, random_state=random_state, **kwargs)
+
+    def sobol_indices(self, wrt=None, size=8192, random_state=None, **kwargs):
+        """First-order and total Sobol' indices of this node over its
+        (independent) sampling variables, by batched pick-freeze on the
+        plain executor.  See ``engine.sensitivity.sobol_indices``."""
+        from probabilit_tpu_torch.engine import sensitivity as _sens
+
+        return _sens.sobol_indices(self, wrt, size=size, random_state=random_state, **kwargs)
+
     def _is_initial_sampling_node(self):
         """A distribution with no distribution ancestors."""
         if not self._is_distribution:

@@ -797,3 +797,56 @@ def test_path_graph_runs_without_the_kernels(cuda_card):
     blocks = streaming.sample_streaming(t, 1 << 16, block_size=1 << 13, random_state=1,
                                         method="sobol")
     np.testing.assert_array_equal(full, blocks)
+
+
+# --- Sensitivities and Sobol' indices: autograd through the plain executor --------------
+
+
+@pytest.mark.cuda
+def test_sensitivity_on_the_card_equals_the_cpu(cuda_card):
+    """mixed_dag_20's 16 parameter gradients on one 2^18 quantile matrix:
+    the card within 1e-4 of max(1, |gradient|) of the CPU; no kernel."""
+    from probabilit_tpu_torch.engine import sensitivity as sens
+
+    sink = benchmarks.mixed_dag_20()
+    plan = tcompile.get_plan(sink)
+    pairs = [(n, s) for n in plan.isns for s in sens._numeric_slots(n)]
+    theta = [float(sens._read_slot(n, s)) for n, s in pairs]
+    fn = sens._build_grad_fn(plan, pairs, torch.mean, tcompile.resolve_correlator("imanconover"),
+                             drawn=False)
+    q = np.random.default_rng(16).integers(1, 2**23, (1 << 18, plan.d)) / 2**23
+    launches, stats = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+
+    def on(device):
+        value, grad = fn(torch.tensor(theta, device=device),
+                         torch.as_tensor(q, dtype=torch.float32, device=device))
+        return float(value), grad.cpu().double().numpy()
+
+    card = on("cuda")
+    cpu = on("cpu")
+    assert (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES) == (launches, stats)
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    assert np.all(np.abs(card[1] - cpu[1]) <= REL_TOL * np.maximum(1.0, np.abs(cpu[1])))
+
+
+@pytest.mark.cuda
+def test_streamed_sensitivity_and_sobol_run_without_the_kernels(cuda_card):
+    """A streamed gradient, a correlated one and Sobol' indices on the card
+    launch neither K1 nor K2; the streamed value is the estimate's."""
+    from probabilit_tpu_torch.engine import sensitivity as sens
+
+    sink = benchmarks.mixed_dag_20()
+    isns = tcompile.get_plan(sink).isns
+    launches, stats = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+    res = sens.sensitivity(sink, wrt=isns, size=1 << 22, block_size=1 << 20, random_state=4)
+    est = streaming.estimate(sink, 1 << 22, block_size=1 << 20, random_state=4, executor=None)
+    assert abs(res.value - est["mean"]) <= 1e-6 * abs(est["mean"])
+    a, b = Distribution("norm"), Distribution("norm", loc=1.0, scale=2.0)
+    s = (a + b) ** 2
+    s.correlate(a, b, corr_mat=np.array([[1.0, 0.7], [0.7, 1.0]]))
+    corr = sens.sensitivity(s, wrt={b: ["scale"]}, size=1 << 20, block_size=1 << 18,
+                            random_state=0)
+    assert abs(corr[(b, "scale")] - 5.4) <= 0.05 * 5.4
+    sob = sens.sobol_indices(sink, size=1 << 16, random_state=0)
+    assert 0.0 < sob.variance and all(np.isfinite(list(sob.first_order.values())))
+    assert (cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES) == (launches, stats)

@@ -35,6 +35,27 @@ def on_the_cpu():
         config.set_device(previous)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def vector_math_initialised():
+    """One call of each vectorised math function on a single thread first.
+
+    torch's CPU float ops split a tensor into 2048-element chunks across
+    OpenMP threads.  When the first such call in a fresh process runs on
+    two threads at once (a 4096-element ``torch.log``), the second chunk
+    has come back wrong by up to 4e-5 (about 1 process in 100 to 500 with
+    the CPU build of torch 2.13, MKL inside): the vector math initialises
+    itself lazily, and racily.  Under ``-n 6 --dist loadfile`` this file
+    can be the first on its worker, so it sets that state up itself
+    rather than inherit it from whichever file ran before."""
+    one = torch.ones(1)
+    for fn in (torch.log, torch.log10, torch.log1p, torch.exp, torch.expm1, torch.sqrt,
+               torch.sin, torch.cos, torch.tan, torch.asin, torch.acos, torch.atan,
+               torch.sinh, torch.cosh, torch.tanh, torch.asinh, torch.atanh):
+        fn(0.5 * one)
+    torch.acosh(2.0 * one)
+    torch.atan2(one, one)
+
+
 N = 4096
 ULP_TOL = 4
 
