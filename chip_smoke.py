@@ -327,6 +327,27 @@ takes a path node, so neither K1 nor K2 may be launched here):
     2^16 (the moments within 1e-5 relative, each index within 1e-4), and
     the Ishigami function's indices within 0.01 of their closed forms at
     2^15; K1 and K2 launched 0 times in the phase.
+22. ``sweep``, ``tilted`` and ``mlmc_estimate`` (``engine/sweep.py``,
+    ``importance.py``, ``mlmc.py``: the plain executor, no kernel takes
+    their graphs), each result with its wall and device ms, kernel
+    launches, idle share and peak memory over the call's start: a
+    64-point common-random-numbers ladder of ``mixed_dag_20``'s price
+    scale at 2^20 draws (mean, q0.95, cvar0.95; the mean monotone; one
+    batched evaluation, as ``sweep._batchable`` decides), an 8 x 8
+    meshgrid of its shape and scale and 8 of the ladder's scales on
+    independent streams (the loop), the card against the CPU on one
+    quantile matrix for four scenarios (within 1e-4 of max(1, |value|)),
+    beside one scenario's evaluation; the ladder streamed at 2^24 draws a
+    scenario in 2^20 blocks, scenarios 0 and 63 against
+    ``estimate(executor=None)`` with the scale set by hand (within 1e-6);
+    ``examples/04``'s three ``sweep`` calls on ``build_project_cost`` (the
+    ladders monotone, the sequential one converged); ``examples/08``'s
+    P(Z < -6) by a lower tilt at 10^6 and 2^24 draws, within 4 SE of
+    ``norm.cdf(-6)``; ``examples/07``'s Milstein ``mlmc_estimate`` at eps
+    0.02 and the README's Euler call at eps 0.01, within 3 eps of
+    e^{rT} x Black-Scholes, with their levels, samples a level, cost
+    against plain MC and one block's launches a level; K1 and K2
+    launched 0 times in the phase.
 
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
@@ -465,6 +486,23 @@ SOBOL_MOMENT_TOL = 1e-5
 SOBOL_INDEX_TOL = 1e-4
 N_ISHIGAMI = 1 << 15
 ISHIGAMI_TOL = 0.01  # the JAX package's (tests/test_sensitivity.py:459)
+N_LADDER = 1 << 20
+LADDER_POINTS = 64  # also the 8 x 8 meshgrid's scenarios
+LADDER_STATISTICS = ("mean", "q0.95", "cvar0.95")
+LADDER_LOOP_POINTS = 8  # the ladder's first scenarios on independent streams: the loop
+N_LADDER_CHECK = 1 << 16
+LADDER_CHECK_SCENARIOS = 4
+LADDER_TOL = 1e-4  # card against the CPU on one matrix: of max(1, |statistic|)
+N_LADDER_STREAM = 1 << 24
+LADDER_BLOCK = 1 << 20  # 64 scenarios x 2^20 float32: 256 MB of samples a block
+LADDER_STREAM_TOL = 1e-6  # a streamed scenario against estimate(executor=None), likewise
+N_RARE = 10**6
+RARE_BLOCK = 1 << 17
+N_RARE_LARGE = 1 << 24
+RARE_LARGE_BLOCK = 1 << 20
+RARE_SE = 4.0
+MLMC_CASES = (("milstein", 0.02), ("euler", 0.01))  # examples/07's mlmc_demo, the README's call
+MLMC_SE = 3.0  # the estimate within 3 eps of e^{rT} x Black-Scholes
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1093,6 +1131,7 @@ def main():
     joint = estimate_many_path(torch, np, cuda_exec, _compile, smi, here)
     path_processes_path(torch, np, scipy, cuda_exec, _compile, smi)
     sensitivity_path(torch, np, cuda_exec, _compile, smi, here)
+    estimators_path(torch, np, scipy, cuda_exec, _compile, smi)
 
     emit({"kernels": [
         {
@@ -3439,11 +3478,10 @@ def within_se(np, x, mean, var, label):
     return z_mean, z_var
 
 
-def profile_block(torch, fn):
-    """One call under torch.profiler: device ms, kernel launches, idle
-    share, and the three kernels that take the most device time."""
-    fn()
-    _, wall = wall_ms(torch, fn)
+def profiled_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: its wall ms, device ms,
+    kernel launches, idle share, and the three kernels that take the most
+    device time."""
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
@@ -3456,9 +3494,17 @@ def profile_block(torch, fn):
             busy += us / 1e3
             launches += event.count
             top[event.key[:60]] = us / 1e3
-    return {"wall_ms": wall, "profiled_ms": profiled, "device_ms": busy,
-            "kernel_launches": int(launches), "idle_share": 1.0 - busy / profiled,
+    return {"profiled_ms": profiled, "device_ms": busy, "kernel_launches": int(launches),
+            "idle_share": 1.0 - busy / profiled,
             "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:3])}
+
+
+def profile_block(torch, fn):
+    """A warm call, a timed one, then one under torch.profiler
+    (``profiled_call``)."""
+    fn()
+    _, wall = wall_ms(torch, fn)
+    return {"wall_ms": wall, **profiled_call(torch, fn)}
 
 
 def batch_order(torch, np):
@@ -3842,6 +3888,217 @@ def sensitivity_path(torch, np, cuda_exec, _compile, smi, here):
           "card_vs_cpu_indices_abs": index_err, "ishigami_n": N_ISHIGAMI,
           "ishigami_max_abs_err": ish_err, "k1_launches": cuda_exec.LAUNCHES,
           "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
+
+
+def measured(torch, fn):
+    """(result, record) of ``fn``: one call's wall ms (host clock, card
+    synchronised) and its peak MB above what was allocated when it began
+    (earlier phases' tensors can be freed during the phase, so the phase's
+    own start is no floor), then a second call under torch.profiler
+    (``profiled_call``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = wall_ms(torch, fn)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return out, {"wall_ms": wall, "peak_mb": peak, **profiled_call(torch, fn)}
+
+
+def black_scholes_call(np, scipy, s0, k, r, sigma, t):
+    d1 = (np.log(s0 / k) + (r + sigma**2 / 2) * t) / (sigma * np.sqrt(t))
+    d2 = d1 - sigma * np.sqrt(t)
+    return float(s0 * scipy.stats.norm.cdf(d1) - k * np.exp(-r * t) * scipy.stats.norm.cdf(d2))
+
+
+def estimators_path(torch, np, scipy, cuda_exec, _compile, smi):
+    """Phase 22: ``sweep``, ``tilted`` and ``mlmc_estimate`` on the card,
+    through the plain executor (no kernel takes their graphs)."""
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch import config
+    from probabilit_tpu_torch.engine import mlmc, streaming
+    from probabilit_tpu_torch.engine import sweep as sweep_mod
+    from probabilit_tpu_torch.models.benchmarks import build_project_cost, mixed_dag_20
+
+    t_phase = time.perf_counter()
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    sink = mixed_dag_20()
+    plan = _compile.get_plan(sink)
+    price = plan.isns[0]  # lognorm(s=0.25, scale=50)
+    scales = np.linspace(40.0, 60.0, LADDER_POINTS)
+    ladder = {(price, "scale"): scales}
+
+    # (a) A 64-point CRN ladder of the price's scale at 2^20 draws, an 8 x 8
+    # meshgrid of its shape and scale, and the card against the CPU on one
+    # explicit matrix for four scenarios.
+    def one_shot():
+        return pt.sweep(sink, ladder, size=N_LADDER, random_state=22,
+                        statistics=LADDER_STATISTICS)
+
+    one_shot()
+    lad, lad_rec = measured(torch, one_shot)
+    check(all(np.all(np.isfinite(lad[k])) for k in lad.keys()), "ladder statistics not finite")
+    check(bool(np.all(np.diff(lad["mean"]) > 0)), f"the ladder's mean is not monotone: {lad['mean']}")
+    ss, aa = np.meshgrid(np.linspace(0.15, 0.35, 8), np.linspace(40.0, 60.0, 8))
+    grid, grid_rec = measured(torch, lambda: pt.sweep(
+        sink, {price: {"s": ss.ravel(), "scale": aa.ravel()}}, size=N_LADDER, random_state=23,
+        statistics=LADDER_STATISTICS))
+    check(grid.n == LADDER_POINTS and all(np.all(np.isfinite(grid[k])) for k in grid.keys()),
+          "meshgrid statistics not finite")
+    # Independent streams take the loop (one body a scenario): its cost on
+    # the card beside the batch.
+    loose, loose_rec = measured(torch, lambda: pt.sweep(
+        sink, {(price, "scale"): scales[:LADDER_LOOP_POINTS]}, size=N_LADDER, random_state=25,
+        statistics=LADDER_STATISTICS, common_random_numbers=False))
+    check(all(np.all(np.isfinite(loose[k])) for k in loose.keys()),
+          "independent-stream ladder not finite")
+    q = np.random.default_rng(22).integers(1, 2**23, (N_LADDER_CHECK, plan.d)) / 2**23
+    fn = sweep_mod._build_sweep_fn(plan, [(price, "scale")], LADDER_STATISTICS, True,
+                                   _compile.resolve_correlator("imanconover"), True)
+
+    def ladder_on(device):
+        th = torch.tensor(scales[:LADDER_CHECK_SCENARIOS, None], dtype=torch.float32,
+                          device=device)
+        return fn(th, torch.as_tensor(q, dtype=torch.float32, device=device))
+
+    card = ladder_on("cuda")
+    config.set_device("cpu")
+    try:
+        cpu = ladder_on("cpu")
+    finally:
+        config.set_device("cuda")
+    ladder_err = float((np.abs(card - cpu) / np.maximum(1.0, np.abs(cpu))).max())
+    check(ladder_err <= LADDER_TOL, f"sweep card vs CPU {ladder_err}")
+    # One scenario's evaluation (the body and a mean) beside the ladder.
+    one = sweep_mod._build_sweep_fn(plan, [(price, "scale")], ["mean"], False,
+                                    _compile.resolve_correlator("imanconover"), True)
+    qd = torch.rand((N_LADDER, plan.d), device="cuda")
+    th1 = torch.tensor([[50.0]], device="cuda")
+    one(th1, qd)
+    _, one_ms = wall_ms(torch, lambda: one(th1, qd))
+    emit({"phase": "estimators_sweep", "at_s": time.perf_counter() - t_phase, "card": smi, "n": N_LADDER, "scenarios": LADDER_POINTS,
+          "statistics": LADDER_STATISTICS, "batched": sweep_mod._batchable(plan, [(price, "scale")],
+                                                                          True),
+          "ladder": lad_rec, "meshgrid": grid_rec,
+          "independent_streams": {"scenarios": LADDER_LOOP_POINTS, **loose_rec},
+          "one_scenario_mean_ms": one_ms, "ladder_mean": lad["mean"][[0, 31, 63]].tolist(),
+          "ladder_q95": lad["q0.95"][[0, 31, 63]].tolist(),
+          "ladder_cvar95": lad["cvar0.95"][[0, 31, 63]].tolist(),
+          "check_n": N_LADDER_CHECK, "check_scenarios": LADDER_CHECK_SCENARIOS,
+          "card_vs_cpu_max_rel": ladder_err, "tolerance": LADDER_TOL})
+
+    # (b) The same ladder streamed at 2^24 draws a scenario in 2^20 blocks;
+    # scenarios 0 and 63 against estimate(executor=None) with the scale set
+    # by hand (to the float32 value the sweep swaps in).
+    streamed, st_rec = measured(torch, lambda: pt.sweep(
+        sink, ladder, size=N_LADDER_STREAM, block_size=LADDER_BLOCK, random_state=24,
+        statistics=LADDER_STATISTICS))
+    check(bool(np.all(np.diff(streamed["mean"]) > 0)), "the streamed ladder is not monotone")
+    stream_err = {}
+    for s in (0, LADDER_POINTS - 1):
+        saved = price.kwargs["scale"]
+        price.kwargs["scale"] = float(np.float32(scales[s]))
+        try:
+            est = streaming.estimate(sink, N_LADDER_STREAM, block_size=LADDER_BLOCK,
+                                     random_state=24, executor=None, quantiles=(0.95,),
+                                     cvar=(0.95,))
+        finally:
+            price.kwargs["scale"] = saved
+        stream_err[s] = max(abs(streamed[k][s] - est[k]) / max(1.0, abs(est[k]))
+                            for k in LADDER_STATISTICS)
+        check(stream_err[s] <= LADDER_STREAM_TOL,
+              f"streamed scenario {s} vs estimate: {stream_err[s]}")
+    emit({"phase": "estimators_sweep_streamed", "at_s": time.perf_counter() - t_phase, "card": smi, "n": N_LADDER_STREAM,
+          "block": LADDER_BLOCK, "scenarios": LADDER_POINTS, **st_rec,
+          "vs_estimate_max_rel": {str(s): e for s, e in stream_err.items()},
+          "tolerance": LADDER_STREAM_TOL, "mean": streamed["mean"][[0, 63]].tolist()})
+
+    # (c) examples/04's three sweeps of the project-cost model.
+    total, variables = build_project_cost()
+    rate = variables["hourly_rate"]
+    rates = np.linspace(85.0, 105.0, 9)
+    calls = {
+        "crn_ladder": dict(size=1 << 16, random_state=0, statistics=("mean", "q0.95")),
+        "streamed_replicated": dict(size=1 << 17, block_size=1 << 15, random_state=0,
+                                    replicates=4, statistics=("mean", "q0.95")),
+        "sequential": dict(size=1 << 14, random_state=0, replicates=4, target_sem=200.0),
+    }
+    example = {}
+    for label, kwargs in calls.items():
+        res, rec = measured(torch, lambda kw=kwargs: pt.sweep(total, {(rate, "loc"): rates},
+                                                              **kw))
+        check(bool(np.all(np.diff(res["mean"]) > 0)), f"examples/04 {label}: mean not monotone")
+        if "q0.95" in res.keys():
+            check(bool(np.all(np.diff(res["q0.95"]) > 0)),
+                  f"examples/04 {label}: P95 not monotone")
+        example[label] = {**rec, "mean": res["mean"][[0, 4, 8]].tolist()}
+        if label == "sequential":
+            check(res.converged, f"the sequential ladder did not converge in {res.rounds} rounds")
+            example[label].update(rounds=res.rounds, converged=res.converged,
+                                  draws_a_scenario=res.size, worst_sem=float(res["sem"].max()))
+        if label == "streamed_replicated":
+            example[label]["q95_base"] = float(res["q0.95"][4])
+            example[label]["q95_base_sem"] = float(res["q0.95_sem"][4])
+    emit({"phase": "estimators_examples_04", "at_s": time.perf_counter() - t_phase, "card": smi, **example})
+
+    # (d) examples/08's first case: P(Z < -6) by a lower tilt at the
+    # suggested exponent, at 10^6 in 2^17 blocks and at 2^24 in 2^20 blocks.
+    exact = float(scipy.stats.norm.cdf(-6.0))
+    k = pt.suggest_tilt(1e-9)
+    z, w = pt.tilted("norm", k=k, tail="lower")
+    event = (z < -6.0) * w
+    rare = {}
+    for n, block in ((N_RARE, RARE_BLOCK), (N_RARE_LARGE, RARE_LARGE_BLOCK)):
+        est, rec = measured(torch, lambda n=n, block=block: pt.estimate(
+            event, n, block_size=block, random_state=0))
+        zs = (est["mean"] - exact) / est["sem"]
+        check(abs(zs) <= RARE_SE, f"P(Z < -6) at {n}: {est['mean']} vs {exact} ({zs:.2f} SE)")
+        rare[str(n)] = {**rec, "block": block, "mean": est["mean"], "sem": est["sem"], "z": zs}
+    emit({"phase": "estimators_rare_event", "at_s": time.perf_counter() - t_phase, "card": smi, "k": k, "exact": exact, **rare})
+
+    # (e) examples/07's mlmc_demo (Milstein, eps 0.02) and the README's Euler
+    # call at eps 0.01; then each level's launches on one block.
+    want = float(np.exp(0.05)) * black_scholes_call(np, scipy, 100.0, 100.0, 0.05, 0.2, 1.0)
+
+    def payoff(paths):
+        return torch.clamp(paths[:, -1] - 100.0, min=0.0)
+
+    def drift(t, x):
+        return 0.05 * x
+
+    def diffusion(t, x):
+        return 0.2 * x
+
+    for scheme, eps in MLMC_CASES:
+        res, rec = measured(torch, lambda s=scheme, e=eps: pt.mlmc_estimate(
+            drift, diffusion, payoff, x0=100.0, eps=e, scheme=s, random_state=0))
+        check(abs(res["mean"] - want) <= MLMC_SE * eps,
+              f"mlmc {scheme}: {res['mean']} vs {want} (eps {eps})")
+
+        def make(n_steps, s=scheme):
+            return pt.SDE(drift, diffusion, x0=100.0, T=1.0, steps=n_steps, scheme=s)
+
+        levels = []
+        for lv, steps in enumerate(res["steps"]):
+            draw, sums, _ = mlmc._level_kernel(make, payoff, 4, 4, lv)
+            rows = min(res["n_per_level"][lv], max(64, ((1 << 22) // steps) // 64 * 64))
+            prof = profile_block(torch, lambda: sums(draw(lv, rows, 0)).tolist())
+            levels.append({"level": lv, "steps": steps, "n": res["n_per_level"][lv],
+                           "block_rows": rows, "launches_a_block": prof["kernel_launches"],
+                           "block_wall_ms": prof["wall_ms"], "block_device_ms": prof["device_ms"],
+                           "block_idle_share": prof["idle_share"]})
+        emit({"phase": "estimators_mlmc", "at_s": time.perf_counter() - t_phase, "card": smi, "scheme": scheme, "eps": eps, **rec,
+              "mean": res["mean"], "want": want, "error_over_eps": (res["mean"] - want) / eps,
+              "levels": res["levels"], "n_per_level": res["n_per_level"],
+              "steps": res["steps"], "cost": res["cost"], "cost_mc": res["cost_mc"],
+              "cost_over_cost_mc": res["cost"] / res["cost_mc"], "per_level": levels})
+
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          f"the estimators phase launched K1 {cuda_exec.LAUNCHES} and K2 "
+          f"{cuda_exec.STATS_LAUNCHES} times")
+    emit({"phase": "estimators", "card": smi, "k1_launches": cuda_exec.LAUNCHES,
+          "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
+
 
 if __name__ == "__main__":
     main()

@@ -63,28 +63,31 @@ _SEGMENT_BLOCKS = 64  # blocks a checkpointed segment holds by default
 
 
 def _quantile(x, level):
-    """``jnp.quantile(x, level)`` (linear interpolation) by one sort.
+    """``jnp.quantile(x, level)`` (linear interpolation) along the last axis,
+    by one sort.
 
     ``torch.quantile`` refuses inputs past 2^24 elements; a sort and two
     gathers differentiate at any size, the gradient flowing through the
     sort's permutation.  The rank and weights are computed in ``x``'s
-    float type, as jnp does; a NaN anywhere gives NaN, as there.
+    float type, as jnp does; a NaN anywhere gives NaN, as there.  The
+    rows of an ``(S, n)`` tensor (a batched sweep's scenarios) give ``(S,)``.
     """
     npt = np.float32 if x.dtype == torch.float32 else np.float64
-    xs = torch.sort(x).values
-    n = x.shape[0]
+    xs = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
     pos = npt(level) * (npt(n) - npt(1.0))
     low, high = np.floor(pos), np.ceil(pos)
     w_high = pos - low
     w_low = npt(1.0) - w_high
     low, high = int(min(max(low, 0), n - 1)), int(min(max(high, 0), n - 1))
-    out = xs[low] * float(w_low) + xs[high] * float(w_high)
-    return torch.where(torch.isnan(xs[-1]), xs[-1], out)  # sort puts NaN last
+    out = xs[..., low] * float(w_low) + xs[..., high] * float(w_high)
+    return torch.where(torch.isnan(xs[..., -1]), xs[..., -1], out)  # sort puts NaN last
 
 
 def _cvar(x, level):
     v = _quantile(x, level)
-    return v + torch.mean(torch.maximum(x - v, torch.zeros_like(x))) / (1.0 - level)
+    tail = torch.maximum(x - v[..., None], torch.zeros_like(x))
+    return v + torch.mean(tail, dim=-1) / (1.0 - level)
 
 
 _STATISTICS = {

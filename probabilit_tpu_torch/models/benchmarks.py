@@ -22,6 +22,10 @@ each of the 15 process factories with the closed-form mean and variance
 of its terminal value, and ``merton_book``, ``examples/09``'s three-desk
 ``CorrelatedMerton`` book with each desk's expected terminal price.
 
+The estimators: ``build_project_cost``, ``examples/04_sensitivity.py``'s
+project-cost model (labour, materials, delay risk), whose hourly-rate
+ladders the scenario sweeps run.
+
 The int32 and bool nodes: ``breach_count`` (and ``_correlated``), a cost
 controller's count of overrunning work packages and its penalty tiers,
 and ``typed_ops``, a test graph of every int32 and bool operation at the
@@ -67,6 +71,7 @@ __all__ = [
     "PathFamily",
     "path_families",
     "merton_book",
+    "build_project_cost",
 ]
 
 
@@ -609,3 +614,25 @@ def merton_book(steps=64):
         for i in range(3)
     ]
     return views, means
+
+
+def build_project_cost():
+    """``examples/04_sensitivity.py``'s project-cost model: labour,
+    materials and delay risk.  Returns ``(total, {name: variable})``."""
+    labour_hours = Distribution("triang", c=0.3, loc=800, scale=600)
+    hourly_rate = Distribution("norm", loc=95.0, scale=8.0)
+    materials = Distribution("lognorm", s=0.35, scale=40_000.0)
+    delay_months = Distribution("expon", scale=1.5)
+    overhead_rate = Distribution("uniform", loc=0.10, scale=0.08)
+
+    base = labour_hours * hourly_rate + materials
+    delay_penalty = delay_months * 12_000.0
+    total = (base + delay_penalty) * (1.0 + overhead_rate)
+    variables = {
+        "labour_hours": labour_hours,
+        "hourly_rate": hourly_rate,
+        "materials": materials,
+        "delay_months": delay_months,
+        "overhead_rate": overhead_rate,
+    }
+    return total, variables

@@ -272,6 +272,14 @@ class Node(abc.ABC):
 
         return _sens.sensitivity(self, wrt, size=size, random_state=random_state, **kwargs)
 
+    def sweep(self, scenarios, size=65536, random_state=None, **kwargs):
+        """Statistics of this node under S parameter scenarios, one
+        evaluation of the plain executor per scenario, with common random
+        numbers by default.  See ``engine.sweep.sweep``."""
+        from probabilit_tpu_torch.engine import sweep as _sweep
+
+        return _sweep.sweep(self, scenarios, size=size, random_state=random_state, **kwargs)
+
     def sobol_indices(self, wrt=None, size=8192, random_state=None, **kwargs):
         """First-order and total Sobol' indices of this node over its
         (independent) sampling variables, by batched pick-freeze on the
