@@ -348,6 +348,35 @@ takes a path node, so neither K1 nor K2 may be launched here):
     e^{rT} x Black-Scholes, with their levels, samples a level, cost
     against plain MC and one block's launches a level; K1 and K2
     launched 0 times in the phase.
+23. ``american_price``/``american_greeks``, the Student-t copula and the
+    permutation correlator (``engine/american.py``,
+    ``ops/correlation.StudentTCopula``, ``ops/permutation.py``: the plain
+    path, no kernel), each result with its wall ms and peak memory, and
+    launches, device ms and idle share from ``torch.profiler`` (for the t
+    copula one 2^24 block, for the permutation climb 10 iterations): the
+    Longstaff-Schwartz 2001 table 1 puts (GBM, K = 40, r = 0.06, 50
+    dates, s0 = 36 / 40 / 44) at 2^20 paths, each within 0.04 of 4.478 /
+    2.314 / 1.110 and below it + 3 SE, and one fit alone for its launches
+    a date; Ikonen-Toivanen's Heston put (s0 = 9, K = 10, r = 0.1, T =
+    0.25, 50 dates) at 2^18, the joint basis more than 3 SE above the
+    asset basis and within [0.985 x 1.1080, 1.1080 + 3 SE];
+    Andersen-Broadie's two-asset Bermudan max-call (degree 5, Sobol) at
+    2^17 within [13.902 - 4 SE, 13.934 + 2 SE]; the ATM put's Greeks at
+    2^18 (16 dates) against central differences of ``american_price`` on
+    common seeds (delta within 0.02, vega within 5%, rho negative); one
+    2^14-path fit and evaluation on the card and on the CPU from the same
+    increments (the first solve's weights within 1e-3 of its largest; the
+    card's policy applied on both, at most 1e-3 of the paths moved and the
+    price over the rest within 1e-4 relative; the two whole prices within
+    0.5 SE: one flipped decision moves every earlier date's carry);
+    ``mixed_correlated_50`` under
+    ``correlator="tcopula"`` one-shot at 1e8 (and 1e7 when 1e8 peaks
+    over 40 GB), Kendall's tau of two drivers within 0.01 of (2/pi)
+    arcsin(rho), the sink's 99.9% quantile above the Gaussian copula's on
+    the same seed, and streamed at 2^28 in 2^24 blocks; the permutation
+    correlator on a (10^5, 10) matrix, 1,000 iterations, columns still
+    permutations, its error reported; K1 and K2 launched 0 times in the
+    phase.
 
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
@@ -503,6 +532,30 @@ RARE_LARGE_BLOCK = 1 << 20
 RARE_SE = 4.0
 MLMC_CASES = (("milstein", 0.02), ("euler", 0.01))  # examples/07's mlmc_demo, the README's call
 MLMC_SE = 3.0  # the estimate within 3 eps of e^{rT} x Black-Scholes
+N_LSMC = 1 << 20
+LSMC_TABLE = ((36.0, 4.478), (40.0, 2.314), (44.0, 1.110))  # Longstaff-Schwartz 2001, table 1
+LSMC_TOL = 0.04  # |price - FD| (the JAX package's tests/test_american.py)
+N_HESTON_LSMC = 1 << 18
+HESTON_FD = 1.1080  # Ikonen-Toivanen 2007: the American put at s0 = 9
+N_MAX_CALL = 1 << 17
+MAX_CALL_BOUNDS = (13.902, 13.934)  # Andersen-Broadie 2004, table 2: value and upper bound
+N_LSMC_GREEKS = 1 << 18
+LSMC_DELTA_TOL = 0.02  # against the central difference (the JAX package's test)
+LSMC_VEGA_REL_TOL = 0.05
+N_LSMC_CHECK = 1 << 14
+LSMC_PRICE_TOL = 1e-4  # card against the CPU under one policy, relative
+LSMC_WEIGHT_TOL = 1e-3  # the first solve, card against the CPU, of its largest |weight|
+LSMC_MOVED_SHARE = 1e-3  # paths whose value moves under one policy
+LSMC_SE_SHARE = 0.5  # the two devices' whole prices, in standard errors
+N_TCOPULA = 10**8
+N_TCOPULA_SMALL = 10**7  # run as well when 10^8 holds more than TCOPULA_PEAK_MB
+TCOPULA_PEAK_MB = 40 * 1024
+N_TCOPULA_STREAM = 1 << 28
+TCOPULA_BLOCK = 1 << 24
+N_TAU = 100_000  # the rows Kendall's tau is computed on
+TAU_TOL = 0.01
+PERMUTATION_SHAPE = (10**5, 10)
+PERMUTATION_PROFILED_ITERATIONS = 10  # the profiler's trace costs about 0.5 ms a launch
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1132,6 +1185,7 @@ def main():
     path_processes_path(torch, np, scipy, cuda_exec, _compile, smi)
     sensitivity_path(torch, np, cuda_exec, _compile, smi, here)
     estimators_path(torch, np, scipy, cuda_exec, _compile, smi)
+    american_copula_path(torch, np, scipy, cuda_exec, _compile, smi)
 
     emit({"kernels": [
         {
@@ -3890,18 +3944,23 @@ def sensitivity_path(torch, np, cuda_exec, _compile, smi, here):
           "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
 
 
-def measured(torch, fn):
-    """(result, record) of ``fn``: one call's wall ms (host clock, card
+def walled(torch, fn):
+    """(result, record) of one call of ``fn``: its wall ms (host clock, card
     synchronised) and its peak MB above what was allocated when it began
     (earlier phases' tensors can be freed during the phase, so the phase's
-    own start is no floor), then a second call under torch.profiler
-    (``profiled_call``)."""
+    own start is no floor)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out, wall = wall_ms(torch, fn)
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    return out, {"wall_ms": wall, "peak_mb": peak, **profiled_call(torch, fn)}
+    return out, {"wall_ms": wall, "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}
+
+
+def measured(torch, fn):
+    """``walled``, then a second call under torch.profiler
+    (``profiled_call``)."""
+    out, record = walled(torch, fn)
+    return out, {**record, **profiled_call(torch, fn)}
 
 
 def black_scholes_call(np, scipy, s0, k, r, sigma, t):
@@ -4097,6 +4156,224 @@ def estimators_path(torch, np, scipy, cuda_exec, _compile, smi):
           f"the estimators phase launched K1 {cuda_exec.LAUNCHES} and K2 "
           f"{cuda_exec.STATS_LAUNCHES} times")
     emit({"phase": "estimators", "card": smi, "k1_launches": cuda_exec.LAUNCHES,
+          "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
+
+
+def american_copula_path(torch, np, scipy, cuda_exec, _compile, smi):
+    """Phase 23: ``american_price``/``american_greeks``, the Student-t
+    copula and the permutation correlator on the card, through the plain
+    executor (no kernel takes their work)."""
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch.correlation import PermutationCorrelator
+    from probabilit_tpu_torch.engine import american
+    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50
+
+    t_phase = time.perf_counter()
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+
+    def put(strike):
+        return lambda s: torch.clamp(strike - s, min=0.0)
+
+    def gbm(s0=40.0, sigma=0.2, steps=50):
+        return pt.GeometricBrownianMotion(s0=s0, mu=0.06, sigma=sigma, T=1.0, steps=steps)
+
+    # One small call of each kind first: the first call of a path family or
+    # of autograd sets up what the timed calls reuse.
+    heston = pt.Heston(s0=9.0, mu=0.1, v0=0.0625, kappa=5.0, theta=0.16, sigma=0.9, rho=0.1,
+                       T=0.25, steps=50)
+    pt.american_price(gbm(), put(40.0), rate=0.06, size=1 << 12, random_state=0)
+    pt.american_price(heston, put(10.0), rate=0.1, size=1 << 12, random_state=0)
+    pt.american_greeks(gbm(steps=16), put(40.0), rate=0.06, size=1 << 12, random_state=0)
+
+    # (a) Longstaff-Schwartz 2001, table 1: GBM puts at 2^20 paths, 50 dates;
+    # then one fit alone, for its launches a date.
+    table = {}
+    for s0, fd in LSMC_TABLE:
+        res, rec = measured(torch, lambda s0=s0: pt.american_price(
+            gbm(s0), put(40.0), rate=0.06, size=N_LSMC, random_state=0))
+        check(abs(res["price"] - fd) < LSMC_TOL and res["price"] < fd + 3 * res["se"],
+              f"LSMC put at s0 = {s0}: {res['price']} +- {res['se']} against FD {fd}")
+        table[str(s0)] = {**rec, "price": res["price"], "se": res["se"], "fd": fd,
+                          "exercise_fraction": res["exercise_fraction"]}
+    pay, feats = american._sample_states(gbm(36.0), 23, N_LSMC, torch.float32, None, "joint",
+                                         None)
+    powers = american._monomial_powers(1, 3)
+    fit = profile_block(torch, lambda: american._fit_weights(
+        pay, feats, put(40.0), powers, float(np.exp(-0.06 / 50)), 1e-6))
+    del pay, feats
+    emit({"phase": "american_ls2001", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "n": N_LSMC, "dates": 50, "tolerance": LSMC_TOL, "puts": table,
+          "fit_alone": fit, "fit_launches_a_date": fit["kernel_launches"] / 49})
+
+    # (b) Heston, Ikonen-Toivanen: the joint (s, v) basis against the asset's.
+    prices = {}
+    for state in ("joint", "asset"):
+        res, rec = measured(torch, lambda state=state: pt.american_price(
+            heston, put(10.0), rate=0.1, size=N_HESTON_LSMC, random_state=0, state=state))
+        prices[state] = {**rec, "price": res["price"], "se": res["se"],
+                         "exercise_fraction": res["exercise_fraction"]}
+    pj, pa = prices["joint"], prices["asset"]
+    se = max(pj["se"], pa["se"])
+    check(pj["price"] - pa["price"] > 3 * se,
+          f"Heston joint basis {pj['price']} does not beat the asset basis {pa['price']}")
+    check(0.985 * HESTON_FD <= pj["price"] <= HESTON_FD + 3 * pj["se"],
+          f"Heston joint price {pj['price']} +- {pj['se']} against FD {HESTON_FD}")
+    emit({"phase": "american_heston", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "n": N_HESTON_LSMC, "dates": 50, "fd": HESTON_FD, **prices,
+          "joint_minus_asset_over_se": (pj["price"] - pa["price"]) / se})
+
+    # (c) Andersen-Broadie's Bermudan max-call on two assets, Sobol paths.
+    joint = pt.CorrelatedGBM([100.0, 100.0], [-0.05, -0.05], [0.2, 0.2],
+                             [[1.0, 0.0], [0.0, 1.0]], T=3.0, steps=9)[0].joint
+    res, rec = measured(torch, lambda: pt.american_price(
+        joint, lambda a, b: torch.clamp(torch.maximum(a, b) - 100.0, min=0.0), rate=0.05,
+        size=N_MAX_CALL, degree=5, method="sobol", random_state=0))
+    low, high = MAX_CALL_BOUNDS
+    check(low - 4 * res["se"] <= res["price"] <= high + 2 * res["se"],
+          f"max-call {res['price']} +- {res['se']} outside [{low} - 4 se, {high} + 2 se]")
+    emit({"phase": "american_max_call", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "n": N_MAX_CALL, "dates": 9, "degree": 5, "method": "sobol", **rec,
+          "price": res["price"], "se": res["se"], "exercise_fraction": res["exercise_fraction"],
+          "bounds": MAX_CALL_BOUNDS})
+
+    # (d) The ATM put's Greeks against central differences on common seeds.
+    greeks, rec = measured(torch, lambda: pt.american_greeks(
+        gbm(steps=16), put(40.0), rate=0.06, size=N_LSMC_GREEKS, random_state=0))
+
+    def price_at(s0, sigma):
+        return pt.american_price(gbm(s0, sigma, 16), put(40.0), rate=0.06, size=N_LSMC_GREEKS,
+                                 random_state=0)["price"]
+
+    fd_delta = (price_at(40.25, 0.2) - price_at(39.75, 0.2)) / 0.5
+    fd_vega = (price_at(40.0, 0.21) - price_at(40.0, 0.19)) / 0.02
+    check(-1.0 < greeks["s0"] < 0.0 and abs(greeks["s0"] - fd_delta) <= LSMC_DELTA_TOL,
+          f"delta {greeks['s0']} against the central difference {fd_delta}")
+    check(greeks["sigma"] > 0.0 and abs(greeks["sigma"] - fd_vega) <= LSMC_VEGA_REL_TOL * fd_vega,
+          f"vega {greeks['sigma']} against the central difference {fd_vega}")
+    check(greeks["rate"] < 0.0, f"rho {greeks['rate']} is not negative")
+    emit({"phase": "american_greeks", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "n": N_LSMC_GREEKS, "dates": 16, **rec, "greeks": greeks, "fd_delta": fd_delta,
+          "fd_vega": fd_vega})
+
+    # (e) One 2^14-path fit and evaluation on the card and on the CPU from
+    # the same increments (drawn on the CPU), in float32.  The two devices
+    # sum the Gram matrices in other orders, and one flipped decision moves
+    # every earlier date's carry, so the fits are held on their first solve
+    # (the last interior date), the policy on one fit (the card's, applied
+    # on both), and the whole prices against their standard error.
+    node = gbm(36.0)
+    cpu = torch.Generator().manual_seed(23)
+    incs = [node._increments(cpu, N_LSMC_CHECK, torch.float32) for _ in range(2)]
+    disc = float(np.exp(-0.06 / 50))
+
+    def fit_and_evaluate(device, fitted=None):
+        fit_pay, eval_pay = (
+            torch.stack([s.T for s in node._state_paths_from_increments(inc.to(device))], dim=2)
+            for inc in incs)
+        if fitted is None:
+            fitted = american._fit_weights(fit_pay, fit_pay, put(40.0), powers, disc, 1e-6)
+        fitted = tuple(t.to(device) for t in fitted)
+        value, _ = american._apply_policy(eval_pay, eval_pay, put(40.0), powers, disc, fitted)
+        return value.double().cpu().numpy(), fitted
+
+    v_card, fit_card = fit_and_evaluate("cuda")
+    v_cpu, fit_cpu = fit_and_evaluate("cpu")
+    v_policy, _ = fit_and_evaluate("cpu", fit_card)
+    w_card, w_cpu = (f[0].double().cpu().numpy() for f in (fit_card, fit_cpu))
+    first_solve_gap = float(np.abs(w_card[-1] - w_cpu[-1]).max() / np.abs(w_cpu[-1]).max())
+    weight_gaps = np.abs(w_card - w_cpu).max(axis=1) / np.abs(w_cpu).max(axis=1)
+    moved = np.abs(v_policy - v_card) > LSMC_PRICE_TOL * np.maximum(1.0, np.abs(v_card))
+    policy_gap = abs(v_policy[~moved].mean() - v_card[~moved].mean()) / abs(v_card.mean())
+    se = float(v_cpu.std() / np.sqrt(N_LSMC_CHECK))
+    price_gap = abs(v_card.mean() - v_cpu.mean())
+    check(first_solve_gap <= LSMC_WEIGHT_TOL,
+          f"LSMC first solve, card against CPU: {first_solve_gap}")
+    check(moved.mean() <= LSMC_MOVED_SHARE and policy_gap <= LSMC_PRICE_TOL,
+          f"LSMC policy, card against CPU: {moved.mean()} of the paths moved, price {policy_gap}")
+    check(price_gap <= LSMC_SE_SHARE * se, f"LSMC card against CPU: {price_gap} against se {se}")
+    emit({"phase": "american_card_vs_cpu", "n": N_LSMC_CHECK, "dates": 50,
+          "price_card": float(v_card.mean()), "price_cpu": float(v_cpu.mean()), "se": se,
+          "price_gap_over_se": price_gap / se, "first_solve_weight_gap": first_solve_gap,
+          "weight_gap_by_date": weight_gaps.tolist(),
+          "one_policy_moved_share": float(moved.mean()),
+          "one_policy_price_rel_gap": float(policy_gap),
+          "own_policies_moved_share": float(np.mean(np.abs(v_cpu - v_card) > LSMC_PRICE_TOL
+                                                    * np.maximum(1.0, np.abs(v_card)))),
+          "tolerances": {"first_solve": LSMC_WEIGHT_TOL, "moved_share": LSMC_MOVED_SHARE,
+                         "policy_price": LSMC_PRICE_TOL, "price_over_se": LSMC_SE_SHARE}})
+
+    # (f) The t copula on mixed_correlated_50: one shot at 1e8 beside the
+    # Gaussian copula on the same seed, and streamed at 2^28 in 2^24 blocks.
+    sink = mixed_correlated_50()
+    plan = _compile.get_plan(sink)
+    keep = list(plan.corr_vars)
+
+    def one_shot(n, correlator):
+        return sink.sample(n, random_state=23, correlator=correlator, gc_strategy=keep,
+                           executor=None)
+
+    shots = {}
+    for n in (N_TCOPULA, N_TCOPULA_SMALL):
+        x, rec = walled(torch, lambda n=n: one_shot(n, "tcopula"))
+        check(bool(torch.isfinite(x).all()), f"t copula at {n}: values not finite")
+        rho = float(plan.corr_matrix[0, 3])
+        a, b = (v.samples_[:N_TAU].double().cpu().numpy() for v in (keep[0], keep[3]))
+        tau = float(scipy.stats.kendalltau(a, b).statistic)
+        want = 2.0 / np.pi * np.arcsin(rho)
+        check(abs(tau - want) <= TAU_TOL, f"t copula tau {tau} against {want}")
+        q_t = float(torch.sort(x).values[int(0.999 * (n - 1))])
+        del x
+        g, g_rec = walled(torch, lambda n=n: one_shot(n, "imanconover"))
+        q_g = float(torch.sort(g).values[int(0.999 * (n - 1))])
+        del g
+        check(q_t > q_g, f"t copula's 99.9% quantile {q_t} not above the Gaussian's {q_g}")
+        shots[str(n)] = {**rec, "tau": tau, "tau_want": want, "rho": rho, "q999_t": q_t,
+                         "q999_gaussian": q_g, "gaussian": g_rec}
+        if rec["peak_mb"] <= TCOPULA_PEAK_MB:
+            break
+    est, streamed = walled(torch, lambda: pt.estimate(
+        sink, N_TCOPULA_STREAM, block_size=TCOPULA_BLOCK, random_state=23,
+        correlator="tcopula", executor=None))
+    check(np.isfinite(est["mean"]), "streamed t copula estimate not finite")
+    # One 2^24 block under the profiler stands for both: a one-shot call
+    # runs the same body (the launches do not depend on n), and a trace of
+    # its ~22,000 launches takes the profiler about ten seconds.
+    block = profiled_call(torch, lambda: pt.estimate(
+        sink, TCOPULA_BLOCK, block_size=TCOPULA_BLOCK, random_state=23, correlator="tcopula",
+        executor=None))
+    emit({"phase": "tcopula", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "graph": "mixed_correlated_50", "k": len(keep), "df": 4.0, "one_shot": shots,
+          "streamed": {"n": N_TCOPULA_STREAM, "block": TCOPULA_BLOCK, **streamed,
+                       "mean": est["mean"], "sem": est["sem"]},
+          "one_block_profiled": block})
+
+    # (g) The permutation correlator on a (10^5, 10) matrix toward the
+    # repaired target, default 1,000 iterations; a short run profiled.
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    X = torch.randn(PERMUTATION_SHAPE, generator=gen, device="cuda")
+    target = plan.corr_matrix
+    pc = PermutationCorrelator(seed=23).set_target(target)
+    err0 = pc._error(np.corrcoef(X.cpu().numpy(), rowvar=False), target)
+    Y, rec = walled(torch, lambda: pc(X))
+    err = pc._error(np.corrcoef(Y.cpu().numpy(), rowvar=False), target)
+    check(torch.equal(torch.sort(Y, dim=0).values, torch.sort(X, dim=0).values),
+          "a permuted column is not a permutation of its input")
+    check(err < err0, f"the permutation climb did not improve: {err0} -> {err}")
+    short = PermutationCorrelator(iterations=PERMUTATION_PROFILED_ITERATIONS,
+                                  seed=23).set_target(target)
+    prof = profiled_call(torch, lambda: short(X))
+    steps = PERMUTATION_PROFILED_ITERATIONS * PERMUTATION_SHAPE[1]
+    emit({"phase": "permutation_correlator", "at_s": time.perf_counter() - t_phase,
+          "card": smi, "shape": list(PERMUTATION_SHAPE), "iterations": pc.iters,
+          **rec, "error_before": err0, "error": err,
+          "profiled_iterations": PERMUTATION_PROFILED_ITERATIONS, "profiled": prof,
+          "launches_a_column_step": prof["kernel_launches"] / steps})
+
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          f"the American and copula phase launched K1 {cuda_exec.LAUNCHES} and K2 "
+          f"{cuda_exec.STATS_LAUNCHES} times")
+    emit({"phase": "american_copula", "card": smi, "k1_launches": cuda_exec.LAUNCHES,
           "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
 
 

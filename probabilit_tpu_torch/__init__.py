@@ -10,7 +10,9 @@ sampling, copula and multivariate nodes, streamed
 pathwise parameter gradients (``sensitivity``, ``torch.autograd`` through
 the plain executor) and Sobol' indices (``sobol_indices``), scenario
 ladders (``sweep``), quantile-space importance tilting (``tilted``,
-``suggest_tilt``) and multilevel Monte Carlo (``mlmc_estimate``),
+``suggest_tilt``), multilevel Monte Carlo (``mlmc_estimate``),
+Longstaff-Schwartz American exercise (``american_price``,
+``american_greeks``),
 scalar Python functions as nodes (``scalar_transform``), path processes
 (Brownian, GBM, OU, Poisson, Merton, Lévy, CIR, Heston, SDE, Markov and
 the joint multi-asset paths, ``models/processes.py``), and a hand-written
@@ -21,6 +23,8 @@ JAX.  Importing it compiles nothing: the kernel is built at first use.
 """
 
 from probabilit_tpu_torch import config
+from probabilit_tpu_torch.engine.american import american_greeks, american_price
+from probabilit_tpu_torch.inspection import plot
 from probabilit_tpu_torch.engine.sampler import sample, sample_from_quantiles
 from probabilit_tpu_torch.engine.sensitivity import (
     SensitivityResult,
@@ -124,6 +128,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "plot",
     "sample",
     "sample_from_quantiles",
     "estimate",
@@ -139,6 +144,8 @@ __all__ = [
     "suggest_tilt",
     "wide_families",
     "mlmc_estimate",
+    "american_price",
+    "american_greeks",
     "Distribution",
     "EmpiricalDistribution",
     "CumulativeDistribution",

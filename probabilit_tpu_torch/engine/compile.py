@@ -17,8 +17,10 @@ and one column of the uniforms the engine draws (``EmitContext.drawn``).
 Phase 2 has two branches, as in the JAX package: the sort-free
 Gaussian-copula recolouring when the engine generated the uniforms
 itself (``sample(method=None)``), and the correlator's own transform
-(Iman-Conover's four sorts) on an explicit quantile matrix.  There is no
-program cache: nothing is traced or compiled.
+(Iman-Conover's four sorts) on an explicit quantile matrix.  A
+mixed-score correlator (``StudentTCopula``) draws its mixing scales from
+a generator keyed by the first correlated column's leading quantiles, in
+both branches.  There is no program cache: nothing is traced or compiled.
 """
 
 from __future__ import annotations
@@ -50,7 +52,12 @@ __all__ = [
 CORRELATOR_MAP = {
     "imanconover": _correlation.ImanConover,
     "cholesky": _correlation.Cholesky,
+    # The t copula at its default df; a parameterised one is passed as an
+    # instance, e.g. sample(correlator=StudentTCopula(df=3)).
+    "tcopula": _correlation.StudentTCopula,
 }
+# The salt of a mixed-score correlator's stream (``_mixing_key``).
+_MIX_SALT = 0x7C09
 
 _NCM_CACHE = {}
 
@@ -255,14 +262,21 @@ def resolve_correlator(correlator):
     """Name -> class from ``CORRELATOR_MAP``; classes and instances pass
     through (an instance carries its configuration, e.g. ``ties``)."""
     if isinstance(correlator, str):
-        name = correlator.lower()
-        if name == "tcopula":
-            raise NotImplementedError(
-                "correlator='tcopula' (StudentTCopula) is not ported yet "
-                "(ROADMAP A6b); use 'imanconover' or 'cholesky'."
-            )
-        return CORRELATOR_MAP[name]
+        return CORRELATOR_MAP[correlator.lower()]
     return correlator
+
+
+def _mixing_key(instance, column):
+    """The mixing stream of a mixed-score correlator: a ``torch.Generator``
+    keyed by the float32 bits of the first correlated column's leading
+    quantiles and the correlator's ``seed`` (``multivariate._key_from_q``),
+    so a streamed block's mixing follows its own quantiles.  None for a
+    Gaussian-score correlator."""
+    if getattr(type(instance), "gaussian_scores", True):
+        return None
+    from probabilit_tpu_torch.ops import multivariate as _mv
+
+    return _mv._key_from_q(column, salt=(_MIX_SALT, getattr(instance, "seed", 0)))
 
 
 def correlator_token(correlator_cls):
@@ -381,6 +395,7 @@ def build_body(plan, keep_ids, correlator="imanconover", generated=False, drawn=
         if corr_matrix is not None:
             instance = instantiate_correlator(correlator_cls).set_target(corr_matrix)
             dtype = config.float_dtype()
+            w_key = _mixing_key(instance, ctx.column(corr_vars[0]))
             if fast:
                 # Sort-free Gaussian-copula Iman-Conover: recolour the
                 # normal scores of the variables' own uniforms to the
@@ -391,18 +406,26 @@ def build_body(plan, keep_ids, correlator="imanconover", generated=False, drawn=
                     [_special.ndtri_fast(ctx.column(v).to(dtype)) for v in corr_vars]
                 )
                 y = instance._recolor_scores(z)
+                gaussian = w_key is None
+                if not gaussian:
+                    # Mixed scores: one shared mixing draw, the rows to
+                    # uniforms one at a time; score_emit's closed forms
+                    # assume Gaussian scores and are skipped.
+                    u_rows = clamp_open_unit(instance._copula_uniforms(y, w_key))
                 for i, var in enumerate(corr_vars):
-                    val_i = _ppf.score_emit(var, y[i], ctx)
+                    val_i = _ppf.score_emit(var, y[i], ctx) if gaussian else None
                     if val_i is None:
                         saved = ctx._columns[var._id]
-                        ctx._columns[var._id] = clamp_open_unit(_special.ndtr_fast(y[i]))
+                        ctx._columns[var._id] = (
+                            clamp_open_unit(_special.ndtr_fast(y[i])) if gaussian else u_rows[i]
+                        )
                         val_i = var._emit(ctx)
                         ctx._columns[var._id] = saved
                     ctx.set_value(var, val_i)
             else:
                 XT = torch.stack([ctx.value(v) for v in corr_vars]).to(dtype)
                 if hasattr(instance, "_apply_rows"):
-                    X_corr_T = instance._apply_rows(XT)
+                    X_corr_T = instance._apply_rows(XT, w_key=w_key)
                 else:
                     X_corr_T = instance._apply(XT.T).T
                 for i, var in enumerate(corr_vars):

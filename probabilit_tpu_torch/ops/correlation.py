@@ -1,20 +1,26 @@
 """Correlation induction on sample matrices, in PyTorch.
 
-Port of ``probabilit_tpu/ops/correlation.py:41-569, 683-729``:
+Port of ``probabilit_tpu/ops/correlation.py``:
 
 * ``ImanConover``: rank-based, marginal-preserving correlation induction
   (Iman & Conover 1982).  ``_apply_rows`` is the four-sort pipeline on a
   (K, N) matrix (sort, scores back to original order, one (K,K)@(K,N)
   product, sort of the recoloured scores and placement of the sorted
   originals); ``_recolor_scores`` is the sort-free Gaussian-copula form
-  that generated sampling uses.
+  that generated sampling uses; ``_apply_generated`` the two-sort form
+  for pre-sorted marginals.
+* ``StudentTCopula``: the same pipeline with the recoloured scores divided
+  by a per-observation mixing scale ``sqrt(W / df)``, ``W ~ chi2(df)``
+  (the hooks ``_mix_scores``, ``_copula_uniforms``, ``_mix_state`` and
+  ``_copula_uniform_row``; identities or the normal CDF in the base).
 * ``Cholesky``: exact Pearson induction by whiten-then-colour.
 * ``decorrelate``: whitening helper; ``rankdata``: 0-based ranks.
 
 Statistics-bearing products run in full float32: ``_full_float32`` turns
 TF32 off around them, as the JAX package pins float32 matmul precision
-(``correlation.py:537-541``).  ``StudentTCopula`` and the mesh-sharded
-``_apply_rows_sharded`` are still to port (ROADMAP A6b).
+(``correlation.py:537-541``).  A mixing stream is a ``torch.Generator``
+(``w_key``); the JAX package's is a PRNG key.  The mesh-sharded
+``_apply_rows_sharded`` is still to port (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ __all__ = [
     "Correlator",
     "Cholesky",
     "ImanConover",
+    "StudentTCopula",
     "decorrelate",
     "rankdata",
 ]
@@ -246,6 +253,8 @@ class ImanConover(Correlator):
 
     # The recoloured scores map to uniforms through the normal CDF, so the
     # engine may use the closed-form score shortcuts (ppf.score_emit).
+    # Mixed-score subclasses (StudentTCopula) set False and route through
+    # _copula_uniforms.
     gaussian_scores = True
 
     def __init__(self, ties="average"):
@@ -270,6 +279,32 @@ class ImanConover(Correlator):
                 raise ValueError(msg)
         return self._apply(_as_tensor(X))
 
+    def _mix_scores(self, y, w_key=None):
+        """Hook between recolouring and rank placement: the identity here
+        (the base class is the Gaussian copula)."""
+        return y
+
+    def _copula_uniforms(self, y, w_key=None):
+        """(K, N) recoloured scores -> correlated uniforms, one score row at
+        a time (the JAX package's ``lax.map``): the live state of the
+        conversion stays one row."""
+        mix = self._mix_state(y.shape[-1], y.dtype, w_key, y.device)
+        out = torch.empty_like(y)
+        for i in range(y.shape[0]):
+            out[i] = self._copula_uniform_row(y[i], mix)
+        return out
+
+    def _mix_state(self, n, dtype, w_key=None, device=None):
+        """Shared per-observation state of the row-wise conversion: None
+        here; StudentTCopula's (n,) mixing scale."""
+        return None
+
+    def _copula_uniform_row(self, y_row, mix):
+        """One score row -> correlated uniforms, given ``_mix_state``."""
+        from probabilit_tpu_torch.ops import special as _special
+
+        return _special.ndtr_fast(y_row)
+
     def _apply(self, X):
         """Standard (N, K) layout entry; the work is in ``_apply_rows``."""
         return self._apply_rows(X.T).T
@@ -293,12 +328,13 @@ class ImanConover(Correlator):
         var = torch.square(scores_sorted - mean).mean(dim=1, keepdim=True)
         return scores, mean, var
 
-    def _apply_rows(self, XT):
+    def _apply_rows(self, XT, w_key=None):
         """Iman-Conover on a (K, N) matrix: four sorts (two of them the
-        scatters of ``apply_inverse_permutation_rows``) and one product."""
-        return self._transform_rows(XT, torch.as_tensor(self.P))
+        scatters of ``apply_inverse_permutation_rows``) and one product.
+        ``w_key`` is the mixing stream of a mixed-score subclass."""
+        return self._transform_rows(XT, torch.as_tensor(self.P), w_key=w_key)
 
-    def _transform_rows(self, XT, target_P):
+    def _transform_rows(self, XT, target_P, w_key=None):
         K, N = XT.shape
         dtype = XT.dtype
 
@@ -314,6 +350,10 @@ class ImanConover(Correlator):
             # Step 3: decorrelate and recolour in one (K,K) @ (K,N) product.
             M = target_P.to(dtype=dtype, device=XT.device) @ _triangular_inverse(L)
             correlated = M @ ((scores - s_mean) / s_std)
+
+        # The elliptical-mixing hook: the identity for the Gaussian copula,
+        # a per-observation chi(df)/sqrt(df) division for StudentTCopula.
+        correlated = self._mix_scores(correlated, w_key)
 
         # Step 4: place the sorted originals at the ranks of the scores.
         _, order2 = _sort.rowsort_with_order(correlated)
@@ -338,6 +378,79 @@ class ImanConover(Correlator):
             P = torch.as_tensor(self.P, dtype=dtype, device=z.device)
             M = P @ _triangular_inverse(L)
             return M @ (zc / std[:, None])
+
+    def _apply_generated(self, z, x_sorted):
+        """Two-sort Iman-Conover for pre-sorted marginals.
+
+        ``z`` (K, N) iid normal scores take the role of the van der
+        Waerden scores (the original Iman-Conover formulation with random
+        scores); ``x_sorted`` (K, N) holds each variable's values in
+        ascending order (``ops/orderstats.sorted_uniforms`` through a
+        ppf).  Returns (K, N) correlated samples with exact marginals:
+        ``x_sorted`` placed at the ranks of the recoloured (and, for a
+        mixed-score subclass, mixed) scores.  The engine uses the
+        sort-free form instead; this is kept for direct use.
+        """
+        correlated = self._mix_scores(self._recolor_scores(z))
+        _, order2 = _sort.rowsort_with_order(correlated)
+        return _sort.apply_inverse_permutation_rows(order2, x_sorted.to(z.dtype))
+
+
+class StudentTCopula(ImanConover):
+    """Marginal-preserving dependence induction through a Student-t copula.
+
+    Iman-Conover, like every Gaussian-copula method, has no tail
+    dependence.  The t copula with ``df`` degrees of freedom keeps the
+    elliptical shape matrix but gives the tail dependence ``lambda = 2
+    t_{df+1}(-sqrt((df+1)(1-rho)/(1+rho)))``.  The recoloured Gaussian
+    scores ``y`` are divided by a per-observation mixing scale
+    ``sqrt(W/df)``, ``W ~ chi2(df)``, shared across the K variables (the
+    sharing couples the tails); rank placement then restores the exact
+    marginals, so only the dependence changes.  Kendall's tau obeys
+    ``(2/pi) arcsin(rho)``, as for every elliptical copula.
+
+    ``df``    tail-heaviness of the dependence (not of the marginals).
+    ``seed``  seeds the mixing draws when the correlator is applied to a
+              plain array (``StudentTCopula(df)(X)``); in the sampling
+              engine the mixing stream is keyed by the first correlated
+              column's leading quantiles (``engine/compile.py``).
+    """
+
+    gaussian_scores = False
+
+    def __init__(self, df=4.0, ties="average", seed=0):
+        super().__init__(ties=ties)
+        df = float(df)
+        if not df > 0.0:
+            raise ValueError(f"df must be positive, got {df}.")
+        self.df = df
+        self.seed = int(seed)
+
+    def _cache_token(self):
+        return (type(self).__qualname__, self.df, self.ties, self.seed)
+
+    def _mix_scale(self, n, dtype, w_key=None, device=None):
+        """(n,) mixing scales sqrt(W/df), W ~ chi2(df) (``chi2_draws``),
+        from ``w_key`` or, without one, a generator seeded ``seed`` on
+        ``device``."""
+        from probabilit_tpu_torch.ops.special import chi2_draws
+
+        if w_key is None:
+            w_key = torch.Generator(device=config.device() if device is None else device)
+            w_key.manual_seed(self.seed)
+        w = chi2_draws(w_key, self.df, n, dtype, w_key.device)
+        return torch.sqrt(w / self.df)
+
+    def _mix_scores(self, y, w_key=None):
+        return y / self._mix_scale(y.shape[1], y.dtype, w_key, y.device)[None, :]
+
+    def _mix_state(self, n, dtype, w_key=None, device=None):
+        return self._mix_scale(n, dtype, w_key, device)
+
+    def _copula_uniform_row(self, y_row, mix):
+        from probabilit_tpu_torch.ops import special as _special
+
+        return _special.t_cdf(y_row / mix, self.df)
 
 
 def decorrelate(X, remove_variance=True):

@@ -39,15 +39,16 @@ def lookup(name):
     return _REGISTRY.get(name)
 
 
-def _key_from_q(q):
+def _key_from_q(q, salt=_KEY_SALT):
     """A ``torch.Generator`` on ``q``'s device, keyed by the float32 bits of
     the column's first two values (the second is the first for a column of
-    one): about 2^48 distinct keys, so streamed blocks do not collide.  One
-    host read."""
+    one): about 2^48 distinct keys, so streamed blocks do not collide.
+    ``salt`` (an int or a tuple of ints) separates the streams of users of
+    one column.  One host read."""
     q32 = q.reshape(-1)[:2].to(torch.float32).contiguous()
     bits = q32.view(torch.int32).cpu().numpy().astype(np.int64) & 0xFFFFFFFF
     b0, b1 = int(bits[0]), int(bits[-1])
-    words = np.random.SeedSequence(_KEY_SALT, spawn_key=(b0, b1)).generate_state(2, np.uint32)
+    words = np.random.SeedSequence(salt, spawn_key=(b0, b1)).generate_state(2, np.uint32)
     gen = torch.Generator(device=q.device)
     gen.manual_seed(int(words[0]) | int(words[1]) << 32)
     return gen

@@ -18,6 +18,7 @@ import torch
 
 from probabilit_tpu.ops import pallas_sort as ps
 from probabilit_tpu_torch.ops import bitonic_sort as bs
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 SRC = Path(__file__).resolve().parent.parent / "probabilit_tpu_torch" / "csrc" / "bitonic_sort.cu"
 

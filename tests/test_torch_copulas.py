@@ -46,6 +46,7 @@ from probabilit_tpu_torch.models.factories import (
 )
 from probabilit_tpu_torch.models.graph import Constant
 from probabilit_tpu_torch.ops import copulas, multivariate
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

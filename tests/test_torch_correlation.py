@@ -48,6 +48,7 @@ from probabilit_tpu_torch.models import benchmarks
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import correlation, ncm, ppf, sort, special
 from probabilit_tpu_torch.utils import build_corrmat
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 65536
@@ -435,8 +436,8 @@ def test_rows_guard_and_correlator_arguments():
     with pytest.raises(ValueError, match=message):
         sink.sample_from_quantiles(np.full((10, 10), 0.5))
     assert sink.sample(50, random_state=0).shape == (50,)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        sink.sample(100, correlator="tcopula")
+    t = sink.sample(100, random_state=0, correlator="tcopula")  # the Student-t copula
+    assert t.shape == (100,) and bool(torch.isfinite(t).all())
     # The correlator is only resolved for correlated graphs.
     assert benchmarks.mixed_dag_20().sample(10, correlator="tcopula").shape == (10,)
     # An instance carries its configuration.

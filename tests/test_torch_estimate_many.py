@@ -25,6 +25,7 @@ from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import streaming
 from probabilit_tpu_torch.models.distributions import DiscreteDistribution, Distribution
 from probabilit_tpu_torch.models.graph import Log, NoOp
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 REL_TOL = 1e-6  # float32 order statistics, float64 sums (see the module docstring)
 MERGE_TOL = 1e-12  # float64 host merges and finalizers on the same carries

@@ -38,6 +38,7 @@ from probabilit_tpu_torch.models import benchmarks, factories
 from probabilit_tpu_torch.ops import ppf
 from probabilit_tpu_torch.ops.ncm import nearest_correlation_matrix
 from probabilit_tpu_torch.utils import build_corrmat
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 N = 65536
 REL_TOL = 1e-4

@@ -37,6 +37,7 @@ from probabilit_tpu_torch.models import benchmarks
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import ppf, special
 from test_distributions import FAMILIES as SWEEP
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

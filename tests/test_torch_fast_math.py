@@ -41,6 +41,7 @@ from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models import benchmarks
 from probabilit_tpu_torch.ops import fast_math as fm
 from probabilit_tpu_torch.ops import ppf, special
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 CSRC = Path(__file__).resolve().parent.parent / "probabilit_tpu_torch" / "csrc"
 REL_TOL = 1e-4

@@ -39,6 +39,7 @@ from probabilit_tpu_torch.models.graph import (
     topological_sort,
 )
 from probabilit_tpu_torch.utils import helpers
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 ULPS = 4  # float32 ulps between the packages (see the module docstring)
 

@@ -31,7 +31,7 @@ from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.engine import importance
 from probabilit_tpu_torch.ops.qmc import clamp_open_unit
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 ULPS = 4
 TAIL_TOL = 1e-4

@@ -34,6 +34,7 @@ from test_torch_processes import (  # noqa: F401  (the fixtures are used by name
     run_battery,
     within_se,
 )
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 CORR2 = [[1.0, 0.6], [0.6, 1.0]]
 

@@ -28,6 +28,7 @@ from test_torch_processes import (  # noqa: F401  (the fixtures are used by name
     run_battery,
     within_se,
 )
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 16
 

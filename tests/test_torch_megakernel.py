@@ -36,6 +36,7 @@ from probabilit_tpu_torch.models.distributions import (
 )
 from probabilit_tpu_torch.ops import philox
 from test_torch_cuda import GRAPHS  # the same graphs the card tests run
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "probabilit_tpu_torch"

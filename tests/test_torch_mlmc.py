@@ -37,7 +37,7 @@ import probabilit_tpu_torch as pt
 from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.engine import cuda_exec, mlmc
 from probabilit_tpu_torch.ops import qmc
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 SUM_TOL = 1e-5
 ROWS = 256

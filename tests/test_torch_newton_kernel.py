@@ -40,6 +40,7 @@ from probabilit_tpu_torch.models import benchmarks
 from probabilit_tpu_torch.models import graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution, EmpiricalDistribution
 from probabilit_tpu_torch.ops import ppf, special
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

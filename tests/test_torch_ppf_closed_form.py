@@ -31,6 +31,7 @@ import torch
 from probabilit_tpu.ops import ppf as jax_ppf
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.ops import ppf
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -34,6 +34,7 @@ from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import ppf, special
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -34,6 +34,7 @@ from probabilit_tpu.ops import ppf as jax_ppf
 from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.ops import ppf, special
 from test_distributions import DISCRETE_FAMILIES, PCHIP_FAMILIES
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

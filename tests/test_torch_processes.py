@@ -51,6 +51,7 @@ from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.models.processes import PathFunctional
 from probabilit_tpu_torch.ops import bridge
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 F32_TOL = 1e-4  # of each path's largest magnitude, float32 (the DAG tolerance)
 F64_TOL = 1e-9  # the same, float64

@@ -9,8 +9,8 @@ unscrambled and scrambled across the 2^31 and 2^32 index boundaries,
 Halton unscrambled and shifted (float32 bitwise; float64 within
 4 * 2^-53, XLA fusing multiply-adds the port rounds apart), LHS at awkward
 totals and with padding lanes, and the mixers.  Then the ports of the
-JAX package's ``tests/test_qmc.py`` without its mesh and order-statistic
-cases (ROADMAP A12, A6b), run through the port's generators and ``sample``.
+JAX package's ``tests/test_qmc.py`` without its mesh cases (ROADMAP A12),
+run through the port's generators, ``sample`` and ``ops/orderstats``.
 """
 
 import jax
@@ -25,6 +25,7 @@ from probabilit_tpu.ops import qmc as jax_qmc
 from probabilit_tpu_torch import _build, config
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import hashing, qmc
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)
@@ -412,3 +413,24 @@ def test_sobol_matches_scipy_joe_kuo_integration_error():
         errs_ours.append((f(ours) - 1.0) ** 2)
         errs_scipy.append((f(sp) - 1.0) ** 2)
     assert np.sqrt(np.mean(errs_ours)) < 2.0 * np.sqrt(np.mean(errs_scipy))
+
+
+def test_sorted_uniforms_sorted_and_uniform():
+    from probabilit_tpu_torch.ops.orderstats import sorted_uniforms
+
+    u = sorted_uniforms(torch.Generator().manual_seed(0), 3, 50_000).numpy()
+    assert u.shape == (3, 50_000)
+    assert (np.diff(u, axis=1) >= 0).all()
+    assert u.min() > 0 and u.max() < 1
+    # Each row is a sorted uniform sample: KS against the uniform CDF.
+    for row in u:
+        assert scipy.stats.kstest(row, "uniform").pvalue > 1e-3
+
+
+def test_sorted_uniforms_exact_count_boundaries():
+    from probabilit_tpu_torch.ops.orderstats import sorted_uniforms
+
+    for n in [1, 2, 4095, 4096, 4097]:  # at and around the block size
+        u = sorted_uniforms(torch.Generator().manual_seed(1), 1, n).numpy()
+        assert u.shape == (1, n)
+        assert (np.diff(u[0]) >= 0).all()

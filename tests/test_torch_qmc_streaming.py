@@ -24,6 +24,7 @@ from probabilit_tpu_torch.models.benchmarks import mixed_dag_20
 from probabilit_tpu_torch.models.distributions import Distribution, MultivariateDistribution
 from probabilit_tpu_torch.models.factories import ClaytonCopula
 from probabilit_tpu_torch.models.graph import Exp
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 METHODS = ["sobol", "halton", "lhs", "antithetic"]
 

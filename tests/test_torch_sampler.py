@@ -22,6 +22,7 @@ from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models import benchmarks, graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 N = 65536
 REL_TOL = 1e-4
@@ -140,16 +141,16 @@ def test_non_finite_values_raise_and_leave_no_stale_samples():
 
 
 def test_correlated_graph_raises_not_implemented():
-    # Correlated graphs sample now; the Student-t copula is still to port.
+    # Correlated graphs sample now, through the Student-t copula too.
     a, b = JaxDistribution("norm"), JaxDistribution("norm")
     jax_sink = (a + b).correlate(a, b, corr_mat=np.array([[1.0, 0.5], [0.5, 1.0]]))
     sink = interop.from_reference(jax_sink)[jax_sink._id]
     assert tcompile.get_plan(sink).corr_vars
     assert sink.sample(100, random_state=0).shape == (100,)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        sink.sample(100, random_state=0, correlator="tcopula")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        sink.sample_from_quantiles(np.full((20, 2), 0.5), correlator="tcopula")
+    assert sink.sample(100, random_state=0, correlator="tcopula").shape == (100,)
+    q = np.random.default_rng(0).random((20, 2))
+    t = sink.sample_from_quantiles(q, correlator="tcopula")
+    assert t.shape == (20,) and bool(torch.isfinite(t).all())
 
 
 def test_cuda_executor_raises_here_and_never_runs_the_plain_version(monkeypatch):

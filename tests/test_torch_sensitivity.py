@@ -32,7 +32,7 @@ from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec, sensitivity as sens
 from probabilit_tpu_torch.engine.sampler import resolve_seed
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 TOL = {"float32": (1e-5, 1e-4), "float64": (1e-11, 1e-9)}  # (value, gradient)
 N = 1 << 12

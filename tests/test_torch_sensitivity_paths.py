@@ -27,6 +27,7 @@ from test_torch_sensitivity import (  # noqa: F401  (the fixtures are used by na
     on_the_cpu,
     vector_math_initialised,
 )
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 8
 CORR = [[1.0, 0.6], [0.6, 1.0]]

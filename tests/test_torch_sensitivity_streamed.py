@@ -19,7 +19,7 @@ import probabilit_tpu_torch as pt
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import sensitivity as sens
 from probabilit_tpu_torch.engine import streaming
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

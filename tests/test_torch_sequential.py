@@ -21,6 +21,7 @@ from probabilit_tpu_torch.engine import checkpoint, cuda_exec, streaming
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.models.graph import Constant, Exp, Log
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,7 @@ from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import streaming
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.models.graph import Log
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

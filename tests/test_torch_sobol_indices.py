@@ -27,7 +27,7 @@ from probabilit_tpu.ops import qmc as jax_qmc
 from probabilit_tpu_torch import config, interop
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import sensitivity as sens
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 TOL = {"float32": (1e-5, 1e-4), "float64": (1e-10, 1e-10)}  # (moments, indices)
 N = 1 << 13

@@ -24,6 +24,7 @@ from probabilit_tpu.ops import special as jax_special
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import ppf, qmc, special
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -26,6 +26,7 @@ from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.models import benchmarks
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.models.graph import Exp, Log
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 REL_TOL = 1e-6
 

@@ -38,7 +38,7 @@ from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.engine import sweep as tsweep
 from probabilit_tpu_torch.models.benchmarks import mixed_dag_20
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "float64": 1e-11}
 N = 1 << 11

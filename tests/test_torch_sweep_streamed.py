@@ -24,7 +24,7 @@ from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import streaming
 from probabilit_tpu_torch.models.benchmarks import mixed_dag_20
-from test_torch_graph import vector_math_initialised  # noqa: F401  (autouse)
+from test_torch_graph import one_torch_thread, vector_math_initialised  # noqa: F401  (autouse)
 
 TOL = 1e-6
 SCALES = [40.0, 45.0, 50.0, 55.0, 60.0]  # float32-exact: the hand-set graph holds the same value

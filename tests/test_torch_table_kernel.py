@@ -41,6 +41,7 @@ from probabilit_tpu_torch.models.distributions import (
     Distribution,
     EmpiricalDistribution,
 )
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -34,6 +34,7 @@ from probabilit_tpu_torch.models.distributions import (
     EmpiricalDistribution,
 )
 from probabilit_tpu_torch.ops import table_search
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

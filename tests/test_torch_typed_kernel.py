@@ -31,6 +31,7 @@ from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec, streaming
 from probabilit_tpu_torch.models import benchmarks, graph as tg
 from probabilit_tpu_torch.models.distributions import Distribution
+from test_torch_graph import one_torch_thread  # noqa: F401  (autouse)
 
 N = 512
 JAX = types.SimpleNamespace(
