@@ -377,6 +377,31 @@ takes a path node, so neither K1 nor K2 may be launched here):
     correlator on a (10^5, 10) matrix, 1,000 iterations, columns still
     permutations, its error reported; K1 and K2 launched 0 times in the
     phase.
+24. The sample-axis mesh and the profiling utilities
+    (``parallel/mesh.py``, ``utils/profiling.py``), run after phase 19,
+    before the profiler sessions of phases 20-23 (after phase 23's, a
+    short session has recorded no kernel on the H100 machines the script
+    was run on): (a) under
+    ``make_mesh()`` (every card; the device count is printed) and under
+    four shards on ``cuda:0``, each against the same call without a mesh,
+    with both wall ms (reported, not a claim): ``mixed_dag_20``'s
+    ``sample(2^24)`` iid and Sobol bitwise, ``mixed_correlated_50``'s iid
+    and Sobol within 1e-3, ``estimate(2^26)`` with quantiles and CVaR
+    bitwise (``executor="auto"`` under the mesh, the plain executor
+    without), the README's Euler ``mlmc_estimate`` at eps 0.01 (the same
+    samples a level, the mean within 1e-4), a Longstaff-Schwartz put at
+    2^16 paths (within 3 SE), the 16 gradients of ``mixed_dag_20`` at 2^20
+    (within 1e-5 relative) and an 8-point ladder at 2^20 bitwise;
+    ``executor="cuda"`` must raise the mesh message; K1 and K2 launched 0
+    times there.  (b) ``trace()`` around one ``sample(1e8,
+    executor="cuda")``: the trace file is written under
+    ``build/chip_smoke_trace_<attempt>`` and names K1 (up to three
+    traces: a short session's kernel records are sometimes lost, each
+    attempt's kernel events are printed); ``PROBABILIT_TPU_PROFILE=1``
+    on both executors prints the header and the build+compile, execute
+    and host phases, their sum within the call's wall time;
+    ``compiled_stats`` of the plain body at 2^20 (flops, bytes, peak
+    bytes).
 
 Every line but the last is one JSON object; the line before the last
 holds the kernels' record, with each kernel's bound: the larger of its
@@ -556,6 +581,17 @@ N_TAU = 100_000  # the rows Kendall's tau is computed on
 TAU_TOL = 0.01
 PERMUTATION_SHAPE = (10**5, 10)
 PERMUTATION_PROFILED_ITERATIONS = 10  # the profiler's trace costs about 0.5 ms a launch
+N_MESH = 1 << 24  # phase 24's one-shot samples
+N_MESH_ESTIMATE = 1 << 26
+MESH_SHARDS_ONE_CARD = 4  # the repeated-device mesh: four shards on cuda:0
+MESH_CORR_TOL = 1e-3  # rtol and atol, tests/test_parallel.py's correlated case
+MESH_MLMC_TOL = 1e-4  # relative, tests/test_mlmc.py's mesh case
+MESH_GRAD_TOL = (1e-5, 1e-6)  # rtol, atol: tests/test_torch_mesh_estimators.py
+N_MESH_LSMC = 1 << 16
+N_MESH_GRADIENTS = 1 << 20
+MESH_LADDER_POINTS = 8
+N_PROFILE_STATS = 1 << 20
+TRACE_ATTEMPTS = 3
 
 # The card's rates for the bound (NVIDIA H100 SXM, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1182,6 +1218,10 @@ def main():
     typed = typed_path(torch, np, scipy, cuda_exec, _compile, smi, registers, int_cost, here)
     quantile_layer_path(torch, np, scipy, smi, here)
     joint = estimate_many_path(torch, np, cuda_exec, _compile, smi, here)
+    # Phase 24 runs here, before phases 20-23 open their profiler sessions:
+    # after those, a short profiler session has recorded no kernel on the
+    # H100 machines this script was run on.
+    mesh = mesh_profiling_path(torch, np, cuda_exec, _compile, smi, here)
     path_processes_path(torch, np, scipy, cuda_exec, _compile, smi)
     sensitivity_path(torch, np, cuda_exec, _compile, smi, here)
     estimators_path(torch, np, scipy, cuda_exec, _compile, smi)
@@ -1197,7 +1237,7 @@ def main():
             "replaces": "probabilit_tpu/engine/pallas_exec.py:515",
             "launches": launches + corr["k1_launches"] + stream["k1_launches"]
             + families["k1_launches"] + portfolio["k1_launches"] + tables["k1_launches"]
-            + typed["k1_launches"] + joint["k1_launches"],
+            + typed["k1_launches"] + joint["k1_launches"] + mesh["k1_launches"],
             "max_abs_err": max(main_err, corr["k1_err"], stream["k1_err"], odd["k1_err"],
                                portfolio["k1_err"], typed["k1_abs_err"]),
             "ms": kernel_ms,
@@ -4375,6 +4415,176 @@ def american_copula_path(torch, np, scipy, cuda_exec, _compile, smi):
           f"{cuda_exec.STATS_LAUNCHES} times")
     emit({"phase": "american_copula", "card": smi, "k1_launches": cuda_exec.LAUNCHES,
           "k2_launches": cuda_exec.STATS_LAUNCHES, "phase_s": time.perf_counter() - t_phase})
+
+
+def mesh_profiling_path(torch, np, cuda_exec, _compile, smi, here):
+    """Phase 24: the sample-axis mesh and the profiling utilities on the
+    card (``parallel/mesh.py``, ``utils/profiling.py``)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import probabilit_tpu_torch as pt
+    from probabilit_tpu_torch.models.benchmarks import mixed_correlated_50, mixed_dag_20
+    from probabilit_tpu_torch.parallel import make_mesh, use_mesh
+    from probabilit_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    sink, corr = mixed_dag_20(), mixed_correlated_50()
+    plan = _compile.get_plan(sink)
+    ladder = {(plan.isns[0], "scale"): np.linspace(40.0, 60.0, MESH_LADDER_POINTS)}
+
+    def call_payoff(paths):
+        return torch.clamp(paths[:, -1] - 100.0, min=0.0)
+
+    gbm = pt.GeometricBrownianMotion(s0=36.0, mu=0.06, sigma=0.2, T=1.0, steps=50)
+
+    def bitwise(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return repr(a) == repr(b)
+
+    def correlated_close(a, b):
+        return bool(torch.all(torch.abs(b - a) <= MESH_CORR_TOL * (1.0 + torch.abs(a))))
+
+    def mlmc_close(a, b):
+        return (a["n_per_level"] == b["n_per_level"]
+                and abs(b["mean"] - a["mean"]) <= MESH_MLMC_TOL * abs(a["mean"]))
+
+    def lsmc_close(a, b):
+        return abs(b["price"] - a["price"]) <= 3 * a["se"] and 0.0 < b["exercise_fraction"] < 1.0
+
+    def gradients_close(a, b):
+        rtol, atol = MESH_GRAD_TOL
+        return len(a.gradients) == 16 and all(
+            abs(b.gradients[k] - g) <= atol + rtol * abs(g) for k, g in a.gradients.items())
+
+    def ladder_equal(a, b):
+        return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                   for k in ("mean", "q0.95", "cvar0.95"))
+
+    # name: (call under the mesh or not, agreement with the call without one).
+    # estimate() takes executor="auto", which picks K1 without a mesh: the
+    # baseline asks for the plain executor, whose stream the mesh keeps.
+    cases = {
+        "sample_iid": (lambda meshed: sink.sample(N_MESH, random_state=24, gc_strategy=[]),
+                       bitwise),
+        "sample_sobol": (lambda meshed: sink.sample(N_MESH, random_state=24, method="sobol",
+                                                    gc_strategy=[]), bitwise),
+        "correlated_iid": (lambda meshed: corr.sample(N_MESH, random_state=24, gc_strategy=[]),
+                           correlated_close),
+        "correlated_sobol": (lambda meshed: corr.sample(N_MESH, random_state=24, method="sobol",
+                                                        gc_strategy=[]), correlated_close),
+        "estimate": (lambda meshed: pt.estimate(
+            sink, N_MESH_ESTIMATE, random_state=24, quantiles=(0.5, 0.99), cvar=(0.99,),
+            executor="auto" if meshed else None), bitwise),
+        "mlmc_euler": (lambda meshed: pt.mlmc_estimate(
+            lambda t, x: 0.05 * x, lambda t, x: 0.2 * x, call_payoff, x0=100.0, eps=0.01,
+            scheme="euler", random_state=0), mlmc_close),
+        "lsmc_put": (lambda meshed: pt.american_price(
+            gbm, lambda s: torch.clamp(40.0 - s, min=0.0), rate=0.06, size=N_MESH_LSMC,
+            random_state=0), lsmc_close),
+        "gradients": (lambda meshed: pt.sensitivity(
+            sink, wrt=list(plan.isns), size=N_MESH_GRADIENTS, random_state=24),
+            gradients_close),
+        "ladder": (lambda meshed: pt.sweep(
+            sink, ladder, size=N_MESH_GRADIENTS, random_state=24,
+            statistics=("mean", "q0.95", "cvar0.95")), ladder_equal),
+    }
+
+    # (a) Each case without a mesh (a warm call, then the timed one), under
+    # make_mesh() (every card) and under four shards on cuda:0.
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    base = {}
+    records = {name: {} for name in cases}
+    for name, (fn, _) in cases.items():
+        fn(False)
+        base[name], records[name]["no_mesh_wall_ms"] = wall_ms(torch, lambda fn=fn: fn(False))
+    meshes = {"make_mesh": make_mesh(),
+              f"{MESH_SHARDS_ONE_CARD}_shards_on_cuda0":
+              make_mesh([torch.device("cuda:0")] * MESH_SHARDS_ONE_CARD)}
+    for label, mesh in meshes.items():
+        with use_mesh(mesh):
+            for name, (fn, agree) in cases.items():
+                out, ms = wall_ms(torch, lambda fn=fn: fn(True))
+                ok = agree(base[name], out)
+                records[name][label] = {"wall_ms": ms, "agrees": ok}
+                check(ok, f"phase 24, {name} under {label}: disagrees with the run without a mesh")
+            try:
+                sink.sample(N_MESH, random_state=0, gc_strategy=[], executor="cuda")
+            except ValueError as err:
+                refusal = str(err)
+            else:
+                refusal = None
+            check(refusal is not None and "does not run under a device mesh" in refusal,
+                  f"executor='cuda' under {label}: {refusal!r}")
+    check(cuda_exec.LAUNCHES == 0 and cuda_exec.STATS_LAUNCHES == 0,
+          f"the mesh phase launched K1 {cuda_exec.LAUNCHES} and K2 "
+          f"{cuda_exec.STATS_LAUNCHES} times")
+    emit({"phase": "mesh", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "device_count": torch.cuda.device_count(),
+          "meshes": {label: mesh.size for label, mesh in meshes.items()},
+          "n": N_MESH, "n_estimate": N_MESH_ESTIMATE, "cases": records,
+          "cuda_refusal": refusal, "k1_launches": cuda_exec.LAUNCHES,
+          "k2_launches": cuda_exec.STATS_LAUNCHES})
+
+    # (b) trace() around one K1 sample at 1e8; the profile hook on both
+    # executors; compiled_stats of the plain body at 2^20.
+    t_b = time.perf_counter()
+    cuda_exec.LAUNCHES = 0
+    cuda_exec.STATS_LAUNCHES = 0
+    # A short profiler session's kernel records are sometimes lost
+    # (CUPTI): up to TRACE_ATTEMPTS traces, each attempt's kernel events
+    # printed.
+    attempts = []
+    for attempt in range(TRACE_ATTEMPTS):
+        trace_dir = here / "build" / f"chip_smoke_trace_{attempt}"
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with profiling.trace(logdir=str(trace_dir)) as where:
+            sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor="cuda")
+        trace_file = Path(where) / "trace.json"
+        trace_text = trace_file.read_text()
+        events = json.loads(trace_text)["traceEvents"]
+        named = "graph_megakernel" in trace_text
+        attempts.append({"kernel_events": sum(e.get("cat") == "kernel" for e in events),
+                         "names_k1": named})
+        if named:
+            break
+    check(attempts[-1]["names_k1"], f"no trace names the K1 kernel: {attempts}")
+    hooks = {}
+    os.environ["PROBABILIT_TPU_PROFILE"] = "1"
+    try:
+        for executor in ("cuda", None):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                _, wall = wall_ms(torch, lambda executor=executor: sink.sample(
+                    N_MAIN, random_state=0, gc_strategy=[], executor=executor))
+            lines = err.getvalue().splitlines()
+            check(lines[:1] == ["[probabilit-tpu profile] sample() phases:"],
+                  f"profile header missing: {lines[:1]}")
+            phases = {line.split()[0]: float(line.split()[1]) for line in lines[1:]}
+            check(list(phases) == ["build+compile", "execute", "host"],
+                  f"profile phases {list(phases)}")
+            check(sum(phases.values()) <= wall, f"profile phases {phases} over the wall {wall}")
+            hooks[str(executor)] = {"wall_ms": wall, "phases_ms": phases}
+    finally:
+        del os.environ["PROBABILIT_TPU_PROFILE"]
+    body = _compile.build_body(plan, {sink._id})
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q = torch.rand((N_PROFILE_STATS, plan.d), generator=gen, device="cuda")
+    stats = profiling.compiled_stats(body, q)
+    check(stats["flops"] > 0 and stats["bytes_accessed"] > 0 and stats["peak_bytes"] > 0
+          and stats["output_bytes"] == 4 * N_PROFILE_STATS, f"compiled_stats {stats}")
+    launches = cuda_exec.LAUNCHES
+    emit({"phase": "profiling", "at_s": time.perf_counter() - t_phase, "card": smi,
+          "trace_file": str(trace_file.relative_to(here)), "trace_bytes": len(trace_text),
+          "trace_attempts": attempts,
+          "profile_hook": hooks, "compiled_stats_plain_body": {"n": N_PROFILE_STATS, **stats},
+          "k1_launches": launches, "k2_launches": cuda_exec.STATS_LAUNCHES,
+          "part_s": time.perf_counter() - t_b, "phase_s": time.perf_counter() - t_phase})
+    return {"k1_launches": launches}
 
 
 if __name__ == "__main__":

@@ -31,6 +31,12 @@ are the same estimators on other bits.  ``american_greeks`` fits once and
 differentiates the evaluation pass with ``torch.autograd`` (the fitted
 policy detached).  No kernel lies on this path.
 
+Under a device mesh the paths are drawn on the first device (a
+``torch.Generator`` cannot be addressed by row) and split by rows: each
+date's Gram matrix and right-hand side are the sums of the shards'
+partial products, the solve runs once, and each shard applies the
+weights, and later the policy, to its own rows.
+
 >>> import torch
 >>> from probabilit_tpu_torch import GeometricBrownianMotion
 >>> gbm = GeometricBrownianMotion(s0=36.0, mu=0.06, sigma=0.2, T=1.0, steps=50)
@@ -42,7 +48,9 @@ True
 
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import numpy as np
 import torch
@@ -51,6 +59,7 @@ from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine.sampler import resolve_seed
 from probabilit_tpu_torch.engine.streaming import _derive_seed
 from probabilit_tpu_torch.ops.correlation import _full_float32
+from probabilit_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["american_price", "american_greeks"]
 
@@ -156,16 +165,34 @@ def _call_payoff(payoff, p_k):
     return payoff(*(p_k[:, j] for j in range(p_k.shape[1])))
 
 
-def _standardize(s_k, itm):
-    """Per-date ITM mean/std of each state dim (guarded against empty ITM).
+def _shards(x):
+    """The time-major ``x``'s row blocks (axis 1) under the active mesh,
+    each on its shard's device, or ``[x]`` without one."""
+    mesh = _mesh.current_mesh()
+    if mesh is None:
+        return [x]
+    return [b for b in _mesh.split_rows(x, mesh, axis=1) if b.shape[1]]
+
+
+def _total(parts, device):
+    """The shards' partial results summed on ``device`` (one part: itself)."""
+    return functools.reduce(operator.add, [p.to(device) for p in parts])
+
+
+def _standardize(s_ks, itms, device):
+    """Per-date ITM mean/std of each state dim (guarded against empty ITM),
+    from the shards' partial sums.
 
     Powers of a zero-mean unit-variance state keep the monomial Gram
     matrix well-conditioned in float32.
     """
-    cnt = torch.clamp(itm.sum(), min=1.0)
-    mu = (s_k * itm[:, None]).sum(dim=0) / cnt
-    dev = s_k - mu[None, :]
-    var = (itm[:, None] * (dev * dev)).sum(dim=0) / cnt
+    cnt = torch.clamp(_total([itm.sum() for itm in itms], device), min=1.0)
+    mu = _total([(s_k * itm[:, None]).sum(dim=0) for s_k, itm in zip(s_ks, itms)], device) / cnt
+    parts = []
+    for s_k, itm in zip(s_ks, itms):
+        dev = s_k - mu.to(s_k.device)[None, :]
+        parts.append((itm[:, None] * (dev * dev)).sum(dim=0))
+    var = _total(parts, device) / cnt
     sd = torch.sqrt(var + 1e-12)
     return mu, torch.clamp(sd, min=1e-6)
 
@@ -182,28 +209,39 @@ def _fit_weights(pay, feats, payoff, powers, disc, ridge):
     date with in-the-money paths raise ``FloatingPointError`` (one host
     read, after the loop); a date without one has no regression, and its
     weights are NaN, so that no path exercises there.
+
+    Under a device mesh the paths are split by rows: each date's moments,
+    Gram matrix and right-hand side are the sums of the shards' partial
+    products on the first device, the solve runs once there, and each
+    shard applies the weights to its own rows.
     """
     dtype, device = pay.dtype, pay.device
     nb = len(powers)
-    v = _call_payoff(payoff, pay[-1])
+    pays, feat_parts = _shards(pay), _shards(feats)
+    vs = [_call_payoff(payoff, p[-1]) for p in pays]
     eye = torch.eye(nb, dtype=dtype, device=device)
     ws, mus, sds, counts = [], [], [], []
     with _full_float32():
         for k in range(pay.shape[0] - 2, -1, -1):
-            v = disc * v
-            ex = _call_payoff(payoff, pay[k])
-            itm = (ex > 0).to(dtype)
-            mu, sd = _standardize(feats[k], itm)
-            phi = _basis((feats[k] - mu[None, :]) / sd[None, :], powers)
-            phiw = phi * itm[:, None]
-            g = phiw.T @ phi
+            vs = [disc * v for v in vs]
+            exs = [_call_payoff(payoff, p[k]) for p in pays]
+            itms = [(ex > 0).to(dtype) for ex in exs]
+            mu, sd = _standardize([f[k] for f in feat_parts], itms, device)
+            phis = [
+                _basis((f[k] - mu.to(f.device)[None, :]) / sd.to(f.device)[None, :], powers)
+                for f in feat_parts
+            ]
+            phiws = [phi * itm[:, None] for phi, itm in zip(phis, itms)]
+            g = _total([phiw.T @ phi for phiw, phi in zip(phiws, phis)], device)
             g = g + (ridge * torch.trace(g) / nb) * eye
-            b = phiw.T @ (v * itm)
+            b = _total([phiw.T @ (v * itm) for phiw, v, itm in zip(phiws, vs, itms)], device)
             w = torch.linalg.solve_ex(g, b)[0]
-            count = itm.sum()
+            count = _total([itm.sum() for itm in itms], device)
             w = torch.where(count > 0, w, torch.full_like(w, math.nan))
-            cont = phi @ w
-            v = torch.where((itm > 0) & (ex > cont), ex, v)
+            vs = [
+                torch.where((itm > 0) & (ex > phi @ w.to(phi.device)), ex, v)
+                for phi, itm, ex, v in zip(phis, itms, exs, vs)
+            ]
             ws.append(w)
             mus.append(mu)
             sds.append(sd)
@@ -220,9 +258,24 @@ def _fit_weights(pay, feats, payoff, powers, disc, ridge):
 
 def _apply_policy(pay, feats, payoff, powers, disc, fit):
     """Forward pass: exercise the fitted policy on the given paths.
-    Returns ``(value, stopped)``, each ``(n,)``."""
-    ws, mus, sds = fit
+    Returns ``(value, stopped)``, each ``(n,)``.  Under a device mesh each
+    shard runs its own rows; the results are gathered on the first
+    device."""
+    mesh = _mesh.current_mesh()
+    if mesh is None:
+        return _apply_policy_rows(pay, feats, payoff, powers, disc, fit)
+    parts = [
+        _apply_policy_rows(p, f, payoff, powers, disc, fit)
+        for p, f in zip(_shards(pay), _shards(feats))
+    ]
+    return _mesh.gather_rows(parts, [p[0].shape[0] for p in parts], mesh.devices[0])
+
+
+def _apply_policy_rows(pay, feats, payoff, powers, disc, fit):
     n, dtype, device = pay.shape[1], pay.dtype, pay.device
+    ws, mus, sds = (x.to(device) for x in fit)
+    if isinstance(disc, torch.Tensor):
+        disc = disc.to(device)
     stopped = torch.zeros((n,), dtype=torch.bool, device=device)
     value = torch.zeros((n,), dtype=dtype, device=device)
     df = torch.as_tensor(disc, dtype=dtype, device=device)

@@ -21,6 +21,11 @@ itself (``sample(method=None)``), and the correlator's own transform
 mixed-score correlator (``StudentTCopula``) draws its mixing scales from
 a generator keyed by the first correlated column's leading quantiles, in
 both branches.  There is no program cache: nothing is traced or compiled.
+
+Under a device mesh (``parallel/mesh.py``) ``map_quantiles`` runs a body
+on each shard's rows when the plan needs no other shard's rows
+(``shards_alone``), and on the gathered rows on ``mesh.devices[0]``
+otherwise, where phase 2 takes Iman-Conover's column-sharded transform.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from probabilit_tpu_torch.ops import ncm as _ncm
 from probabilit_tpu_torch.ops import ppf as _ppf
 from probabilit_tpu_torch.ops import special as _special
 from probabilit_tpu_torch.ops.qmc import clamp_open_unit
+from probabilit_tpu_torch.parallel import mesh as _mesh
 from probabilit_tpu_torch.utils import build_corrmat
 
 __all__ = [
@@ -291,6 +297,58 @@ def instantiate_correlator(correlator_cls):
     if isinstance(correlator_cls, _correlation.Correlator):
         return correlator_cls
     return correlator_cls()
+
+
+def _active_mesh_key():
+    """The active mesh's cache identity (axis names, shard count, first
+    device), or None: a program built without a mesh is never reused
+    under one."""
+    m = _mesh.current_mesh()
+    return None if m is None else (m.axis_names, m.size, str(m.devices[0]))
+
+
+def find_key_seeded(plan):
+    """The first node whose randomness comes from a generator keyed by its
+    quantile column (a copula node, or a multivariate ``Distribution``),
+    or None."""
+    from probabilit_tpu_torch.models.distributions import Distribution, _scipy_is_multivariate
+
+    for node in plan.topo:
+        if getattr(node, "_key_seeded", False):
+            return node
+        if isinstance(node, Distribution) and _scipy_is_multivariate(node.distr):
+            return node
+    return None
+
+
+def shards_alone(plan, drawn):
+    """Can each shard evaluate the plan on its own rows?  Not with
+    declared correlations (statistics and ranks over every row), nor with
+    a node keyed by its column's leading quantiles, which only shard 0
+    holds: a key-seeded node, or a path node on drawn uniforms."""
+    if plan.corr_matrix is not None or find_key_seeded(plan) is not None:
+        return False
+    return not (drawn and plan.slab_of)
+
+
+def map_quantiles(plan, fn, quantiles, drawn=False, axis=0):
+    """``fn(quantiles)`` under the active mesh.
+
+    Without a mesh, one call.  Under one, ``quantiles`` (a tensor, or
+    its row blocks as ``mesh.split_rows`` gives them) is split by rows and
+    ``fn`` runs on each shard's block on its device when ``shards_alone``
+    allows, the outputs gathered on ``mesh.devices[0]`` along ``axis`` (the
+    output's sample axis); otherwise ``fn`` runs once there on the
+    gathered rows."""
+    mesh = _mesh.current_mesh()
+    if mesh is None:
+        return fn(quantiles)
+    if shards_alone(plan, drawn):
+        return _mesh.map_rows(fn, quantiles, mesh, axis)
+    if isinstance(quantiles, (tuple, list)):
+        quantiles = _mesh.gather_rows(quantiles, [b.shape[0] for b in quantiles],
+                                      mesh.devices[0])
+    return fn(quantiles.to(mesh.devices[0]))
 
 
 def _generatable(var):

@@ -549,6 +549,13 @@ def supports(plan, keep_ids):
 def environment_issue(device=None):
     """None if the kernel can run on ``device`` (default
     ``config.device()``), else the reason it cannot."""
+    from probabilit_tpu_torch.parallel import mesh as _mesh
+
+    if _mesh.current_mesh() is not None:
+        return (
+            "executor='cuda' does not run under a device mesh; use the default "
+            "executor for sharded sampling."
+        )
     device = config.device() if device is None else torch.device(device)
     if not torch.cuda.is_available():
         return (

@@ -22,7 +22,9 @@ drivers, runs both grids through the path node's own
 ``_increments_from_normals`` and ``_path_from_increments`` (the code the
 ``SDE`` node and the exact-law families sample with), applies the payoff
 and folds four float64 sums on the device, read once per extension of a
-level.  The adaptive outer loop (optimal per-level allocation and the
+level.  Under a device mesh the level's rows are split over the shards,
+each shard computes its own payoff differences and their four sums, and
+the sums are added on the mesh's first device.  The adaptive outer loop (optimal per-level allocation and the
 weak-convergence level test) is host Python on those sums, as in
 Giles' algorithm and the JAX package.  The JAX package draws a
 fixed-shape masked block under folded keys; the port draws exactly the
@@ -44,12 +46,15 @@ True
 
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import torch
 
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine.streaming import _derive_seed
+from probabilit_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["mlmc_estimate"]
 
@@ -91,7 +96,7 @@ def _level_kernel(make_node, payoff, m0, refine, level, method=None):
     def path_payoff(node, z):
         return payoff(node._path_from_increments(node._increments_from_normals(z, dtype)))
 
-    def sums(z):
+    def shard_sums(z):
         pf = path_payoff(fine, z)
         if coarse is None:
             d = pf
@@ -100,6 +105,16 @@ def _level_kernel(make_node, payoff, m0, refine, level, method=None):
             d = pf - path_payoff(coarse, zc)
         d, pf = d.to(torch.float64), pf.to(torch.float64)
         return torch.stack([d.sum(), (d * d).sum(), pf.sum(), (pf * pf).sum()])
+
+    def sums(z):
+        # Under a mesh each shard sums its own rows; the four float64
+        # sums are added on the mesh's first device.
+        mesh = _mesh.current_mesh()
+        if mesh is None:
+            return shard_sums(z)
+        parts = [shard_sums(b).to(mesh.devices[0])
+                 for b in _mesh.split_rows(z, mesh) if b.shape[0]]
+        return functools.reduce(operator.add, parts)
 
     return draw, sums, steps_f
 

@@ -16,9 +16,23 @@ Port of ``probabilit_tpu/engine/sampler.py:45-257``.  Two executors:
 
 The two executors draw different random streams; each is deterministic
 per seed.
+
+Under a device mesh (``parallel/mesh.py``) the plain executor splits the
+rows over the shards (``compile.map_quantiles``): a ``method=`` sequence
+is generated shard by shard (``qmc.generate_sharded``), the generator's
+uniforms of ``method=None`` are drawn on ``mesh.devices[0]`` and split,
+and the samples come back as one tensor there.  ``executor="cuda"``
+refuses a mesh, as the JAX package's ``executor="pallas"`` does.
+
+With ``PROBABILIT_TPU_PROFILE=1`` either executor times its
+build+compile, execute and host phases (``utils/profiling.PhaseTimer``,
+each phase synchronised with the card) and prints them to stderr.
 """
 
 from __future__ import annotations
+
+import contextlib
+import sys
 
 import numpy as np
 import torch
@@ -26,6 +40,8 @@ import torch
 from probabilit_tpu_torch import config
 from probabilit_tpu_torch.engine import compile as _compile
 from probabilit_tpu_torch.ops import qmc as _qmc
+from probabilit_tpu_torch.parallel import mesh as _mesh
+from probabilit_tpu_torch.utils import profiling as _profiling
 
 __all__ = ["sample", "sample_from_quantiles", "resolve_seed"]
 
@@ -44,6 +60,16 @@ def resolve_seed(random_state):
     if isinstance(random_state, np.random.RandomState):
         return int(random_state.randint(2**31))
     raise TypeError(f"Cannot interpret random_state: {random_state!r}")
+
+
+def _phase(timer, name, device):
+    """``timer``'s phase, or nothing when profiling is off."""
+    return contextlib.nullcontext() if timer is None else timer.phase(name, device)
+
+
+def _report(timer):
+    if timer is not None:
+        print(f"[probabilit-tpu profile] sample() phases:\n{timer.report()}", file=sys.stderr)
 
 
 def _clear_samples(plan):
@@ -80,7 +106,7 @@ def sample(
     # path node's slab of drivers included, which the correlator
     # transforms (the JAX package's quantile path).
     drawn = method is None
-    quantiles = _qmc.generate(
+    quantiles = _qmc.generate_sharded(
         method,
         resolve_seed(random_state),
         size,
@@ -143,21 +169,29 @@ def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
     env_issue = cuda_exec.environment_issue()
     if env_issue is not None:
         raise ValueError(env_issue)
+    timer = _profiling.PhaseTimer() if _profiling.profiling_enabled() else None
+    device = config.device()
     seed = resolve_seed(random_state)
     _clear_samples(plan)
     _compile.check_rows(plan, size)
     words = cuda_exec.seed_words(seed)
     keep_order = cuda_exec.keep_order(plan, keep_ids)
-    tape = cuda_exec.lowered(plan, keep_order, config.device())
-    ab = None
-    if plan.corr_matrix is not None:
-        ab = cuda_exec.recolor_transform(plan, words, size, device=config.device())
-    out, nonfinite = cuda_exec.run(tape, words, size, ab)
-    if nonfinite.item():
-        raise ValueError("Sampling produced non-finite values.")
-    by_id = {node._id: node for node in plan.topo}
-    for k, nid in enumerate(keep_order):
-        by_id[nid].samples_ = out[k]
+    with _phase(timer, "build+compile", device):
+        tape = cuda_exec.lowered(plan, keep_order, device)
+        if timer is not None and tape.code.device.type == "cuda":
+            tape.kernel  # the nvcc build at first use, inside the phase
+    with _phase(timer, "execute", device):
+        ab = None
+        if plan.corr_matrix is not None:
+            ab = cuda_exec.recolor_transform(plan, words, size, device=device)
+        out, nonfinite = cuda_exec.run(tape, words, size, ab)
+    with _phase(timer, "host", device):
+        if nonfinite.item():
+            raise ValueError("Sampling produced non-finite values.")
+        by_id = {node._id: node for node in plan.topo}
+        for k, nid in enumerate(keep_order):
+            by_id[nid].samples_ = out[k]
+    _report(timer)
     return sink.samples_
 
 
@@ -190,6 +224,9 @@ def sample_from_quantiles(sink, quantiles, correlator="imanconover", gc_strategy
 
 
 def _execute(plan, quantiles, correlator, gc_strategy, generated=False, drawn=False):
+    timer = _profiling.PhaseTimer() if _profiling.profiling_enabled() else None
+    device = _mesh.home_device()
+
     # Clear any stale samples before running, so a failure leaves none.
     _clear_samples(plan)
 
@@ -198,33 +235,37 @@ def _execute(plan, quantiles, correlator, gc_strategy, generated=False, drawn=Fa
     else:
         keep_ids = frozenset({plan.sink._id} | {node._id for node in gc_strategy})
 
-    body = _compile.build_body(plan, keep_ids, correlator, generated=generated, drawn=drawn)
-    outputs = body(quantiles)
+    with _phase(timer, "build+compile", device):
+        body = _compile.build_body(plan, keep_ids, correlator, generated=generated, drawn=drawn)
+    with _phase(timer, "execute", device):
+        outputs = _compile.map_quantiles(plan, body, quantiles, drawn)
 
-    # Non-finite guard: one fused flag (one device sync), then the
-    # offending node is named.
-    floats = {
-        nid: v
-        for nid, v in outputs.items()
-        if v is not None and v.is_floating_point()
-    }
-    if floats and not torch.stack(
-        [torch.isfinite(v).all() for v in floats.values()]
-    ).all().item():
-        by_id = {node._id: node for node in plan.topo}
-        for nid, value in floats.items():
-            if not torch.isfinite(value).all():
-                raise ValueError(
-                    f"Sampling this node gave non-finite values: "
-                    f"{by_id[nid]}\n{value}"
-                )
+    with _phase(timer, "host", device):
+        # Non-finite guard: one fused flag (one device sync), then the
+        # offending node is named.
+        floats = {
+            nid: v
+            for nid, v in outputs.items()
+            if v is not None and v.is_floating_point()
+        }
+        if floats and not torch.stack(
+            [torch.isfinite(v).all() for v in floats.values()]
+        ).all().item():
+            by_id = {node._id: node for node in plan.topo}
+            for nid, value in floats.items():
+                if not torch.isfinite(value).all():
+                    raise ValueError(
+                        f"Sampling this node gave non-finite values: "
+                        f"{by_id[nid]}\n{value}"
+                    )
 
-    # Host finalizers: a string-valued DiscreteDistribution's values.
-    for nid, fn in plan.finalizers.items():
-        if nid in outputs:
-            outputs[nid] = fn(outputs[nid])
+        # Host finalizers: a string-valued DiscreteDistribution's values.
+        for nid, fn in plan.finalizers.items():
+            if nid in outputs:
+                outputs[nid] = fn(outputs[nid])
 
-    for node in plan.topo:
-        if node._id in outputs:
-            node.samples_ = outputs[node._id]
+        for node in plan.topo:
+            if node._id in outputs:
+                node.samples_ = outputs[node._id]
+    _report(timer)
     return plan.sink.samples_

@@ -27,6 +27,12 @@ the method's points from ``b * block_size``), so the streamed value is
 that estimate's mean.  The carries are float64 device tensors, merged on
 the host in float64 across checkpointed segments.
 
+Under a device mesh the quantiles are split by rows, each shard runs the
+forward on its own rows, and the sink's rows are gathered on the first
+device through a differentiable ``.to`` before the statistic
+(``_sink_rows``), so autograd carries the gradient back through every
+shard.
+
 Where the port differs from the JAX package (ROADMAP C): ``checkpoint=``
 needs an explicit ``random_state`` (R3: a run seeded from fresh entropy
 could never resume), and the checkpoint file is removed only after a
@@ -512,7 +518,7 @@ def sensitivity(
     if method_name is not None:
         if method_name not in _QMC_METHODS:
             raise ValueError(f"method must be one of {_QMC_METHODS} or None, got {method!r}.")
-        seeded = _streaming._find_key_seeded(plan)
+        seeded = _compile.find_key_seeded(plan)
         if seeded is not None:
             raise ValueError(
                 f"method={method!r} drives the run from an explicit "
@@ -686,7 +692,9 @@ def sensitivity(
         width = plan.d if drawn else plan.d_total
 
         def run_one(s):
-            q = _qmc.generate(method_name, s, sub, width, dtype, total=lhs_total, device=device)
+            q = _qmc.generate_sharded(
+                method_name, s, sub, width, dtype, device=device, total=lhs_total
+            )
             value, grad = grad_fn(theta0, q)
             return float(value), grad.detach().cpu().numpy().astype(np.float64)
 
@@ -726,6 +734,23 @@ def sensitivity(
     )
 
 
+def _sink_rows(plan, body, pairs, theta, quantiles, drawn):
+    """The sink's samples with ``pairs`` swapped for ``theta``'s entries.
+
+    Under a device mesh each shard evaluates its own rows with its own
+    copy of ``theta`` (``.to`` is differentiable, so autograd carries the
+    gradient back to ``theta`` from every shard) and the rows are gathered
+    on the first device before the statistic (``compile.map_quantiles``).
+    """
+    sink_id = plan.sink._id
+    return _compile.map_quantiles(
+        plan,
+        lambda q: _swapped(pairs, theta.to(q.device), lambda: body(q)[sink_id]),
+        quantiles,
+        drawn,
+    )
+
+
 def _build_grad_fn(plan, pairs, stat_fn, correlator_cls, drawn):
     """``value_and_grad(theta, quantiles) -> (value, gradient)`` of the
     statistic over the plain executor's body.
@@ -747,7 +772,7 @@ def _build_grad_fn(plan, pairs, stat_fn, correlator_cls, drawn):
     def value_and_grad(theta, quantiles):
         theta = _leaf(theta)
         with torch.enable_grad():
-            samples = _swapped(pairs, theta, lambda: body(quantiles)[sink_id])
+            samples = _sink_rows(plan, body, pairs, theta, quantiles, drawn)
             _check_inexact(samples)
             value = stat_fn(samples)
             grad = _vjp(value, theta)
@@ -790,11 +815,11 @@ def _make_block_sampler(plan, pairs, block_size, method_name, lhs_total, correla
         if drawn:
             q = _qmc.uniform(_streaming._derive_seed(seed, 0, b), block_size, plan.d, dtype, device)
         else:
-            q = _qmc.generate(
+            q = _qmc.generate_sharded(
                 method_name, seed, block_size, plan.d_total, dtype,
                 offset=b * block_size, total=lhs_total, device=device,
             )
-        s = _swapped(pairs, theta, lambda: body(q)[sink_id])
+        s = _sink_rows(plan, body, pairs, theta, q, drawn)
         _check_inexact(s)
         return s.to(torch.float32)
 
@@ -1168,7 +1193,7 @@ def _build_sobol_fn(plan, col_sets, pair_positions=()):
         # Copy i of A takes its set's columns from B (copies k.. the closed
         # pairs'): one (2 + k + pairs) * size batch.
         stacked = torch.cat([A[None], B[None], torch.where(hot, B[None], A[None])])
-        y = body(stacked.reshape(-1, d))[sink_id]
+        y = _compile.map_quantiles(plan, lambda q: body(q)[sink_id], stacked.reshape(-1, d))
         if not y.is_floating_point():
             y = y.to(config.float_dtype())
         y = y.reshape(2 + len(sets), size)

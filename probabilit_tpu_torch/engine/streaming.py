@@ -63,6 +63,13 @@ quantiles and CVaR and, with ``covariance=True``, the (M, M) co-moment
 sums.  The kernels refuse a ``NoOp`` sink, as the TPU kernel does, so its
 blocks run on the plain executor on ``config.device()``.  Every option of
 ``estimate`` composes, with the JAX package's rules and messages.
+
+Under a device mesh (``parallel/mesh.py``) each block's rows are split
+over the shards (``compile.map_quantiles``; a method's rows generated
+shard by shard) and the fold runs on ``mesh.devices[0]``, so a fixed-size
+estimate equals the one without a mesh bit for bit.  ``executor="auto"``
+takes the plain executor under a mesh, and ``executor="cuda"`` refuses
+it.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ from probabilit_tpu_torch.engine import checkpoint as _checkpoint
 from probabilit_tpu_torch.engine import compile as _compile
 from probabilit_tpu_torch.engine.sampler import cuda_limits, resolve_seed
 from probabilit_tpu_torch.ops import qmc as _qmc
+from probabilit_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["sample_streaming", "estimate", "estimate_many"]
 
@@ -303,26 +311,12 @@ def _resolve_executor(plan, keep, executor, correlator):
         if issue is not None:
             raise ValueError(issue)
         return "cuda"
-    if not graph_ok or config.device().type != "cuda":
+    if not graph_ok or config.device().type != "cuda" or _mesh.current_mesh() is not None:
         return None
     issue = cuda_exec.environment_issue()
     if issue is not None:
         raise RuntimeError(issue)
     return "cuda"
-
-
-def _find_key_seeded(plan):
-    """The first node whose randomness comes from a generator keyed by its
-    quantile column (a copula node, or a multivariate ``Distribution``),
-    or None."""
-    from probabilit_tpu_torch.models.distributions import Distribution, _scipy_is_multivariate
-
-    for node in plan.topo:
-        if getattr(node, "_key_seeded", False):
-            return node
-        if isinstance(node, Distribution) and _scipy_is_multivariate(node.distr):
-            return node
-    return None
 
 
 def _method_name(method, total_size):
@@ -384,7 +378,7 @@ def _block_program(
 
     device = config.device()
     if method is not None:
-        seeded = _find_key_seeded(plan)
+        seeded = _compile.find_key_seeded(plan)
         if seeded is not None:
             raise ValueError(
                 f"Streamed method={method!r} promises bitwise equality with a "
@@ -411,11 +405,11 @@ def _block_program(
         total = total_size if name == "lhs" else None
 
         def run(b, seed):
-            q = _qmc.generate(
+            q = _qmc.generate_sharded(
                 name, seed, block_size, plan.d_total, config.float_dtype(),
                 offset=b * block_size, total=total, device=device,
             )
-            return pair(body(q))
+            return pair(_compile.map_quantiles(plan, body, q))
 
         return plan, run
 
@@ -443,7 +437,7 @@ def _block_program(
 
     def run(b, seed):
         q = _qmc.uniform(_derive_seed(seed, 0, b), block_size, plan.d, config.float_dtype(), device)
-        return pair(body(q))
+        return pair(_compile.map_quantiles(plan, body, q, drawn=True))
 
     return plan, run
 
@@ -1331,6 +1325,7 @@ def _many_program(
         None if control_node is None else control_node._id,
         None if where_node is None else ("where", where_node._id),
         str(config.float_dtype()), str(config.device()), moments, covariance,
+        _compile._active_mesh_key(),
     )
     fold = _MANY_CACHE.get(key)
     if fold is not None:

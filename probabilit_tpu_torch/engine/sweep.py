@@ -55,6 +55,11 @@ No kernel lies on this path: K1 (``engine/cuda_exec.py``) bakes
 parameters into its text, and the JAX package's sweep also runs its
 plain body, never its TPU kernel.  R2 of the JAX package (an explicit
 ``max_size`` capped at 64 rounds) is fixed: ``max_size // size`` rounds.
+
+Under a device mesh and common random numbers the quantile matrix is
+split by rows, each shard evaluates its rows of every scenario, and the
+row statistics are computed on the mesh's first device; without common
+random numbers nothing is sharded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -260,7 +265,7 @@ def sweep(
                 f"method must be one of {_QMC_METHODS} or None, got "
                 f"{method!r}."
             )
-        seeded = _streaming._find_key_seeded(plan)
+        seeded = _compile.find_key_seeded(plan)
         if seeded is not None:
             raise ValueError(
                 f"method={method!r} drives the run from an explicit "
@@ -375,7 +380,7 @@ def sweep(
 
     else:
         drawn = method_name is None
-        run = _build_sweep_fn(plan, pairs, statistics, inner_sem, correlator_cls, drawn)
+        run = _build_sweep_fn(plan, pairs, statistics, inner_sem, correlator_cls, drawn, crn)
         width = plan.d if drawn else plan.d_total
 
         def draw(s):
@@ -505,27 +510,42 @@ def _check_real(samples):
     return samples
 
 
-def _scenario_rows(body, plan, pairs, theta, quantiles, batched):
+def _scenario_rows(body, plan, pairs, theta, quantiles, batched, drawn=False, shard=False):
     """Yield the sink's samples under the rows of ``theta``, in order, as
     ``(s, n)`` tensors: one evaluation of the body per chunk of scenarios
-    (each slot an ``(s, 1)`` column), or one per scenario (``(1, n)``)."""
+    (each slot an ``(s, 1)`` column), or one per scenario (``(1, n)``).
+
+    ``shard`` (common random numbers) splits the matrix's rows over the
+    active mesh: each shard evaluates its own rows with the slot values on
+    its device, and the rows are gathered on the first device along the
+    sample axis (``compile.map_quantiles``)."""
     sink_id = plan.sink._id
-    n = quantiles.shape[0]
+
+    def rows(one):
+        if shard:
+            return _compile.map_quantiles(plan, one, quantiles, drawn, axis=-1)
+        return one(quantiles)
+
     if not batched:
         for th in theta:
-            yield _check_real(_swapped(pairs, th, lambda: body(quantiles)[sink_id]))[None]
+            y = rows(lambda q, th=th: _swapped(pairs, th.to(q.device), lambda: body(q)[sink_id]))
+            yield _check_real(y)[None]
         return
+    n = sum(q.shape[0] for q in quantiles) if isinstance(quantiles, tuple) else quantiles.shape[0]
     chunk = max(1, _BATCH_ELEMENTS // max(n, 1))
     for lo in range(0, theta.shape[0], chunk):
         cols = theta[lo : lo + chunk]
-        saved = _save_slots(pairs)
-        try:
-            for (node, slot), col in zip(pairs, cols.T):
-                _write_slot(node, slot, col[:, None])
-            y = _check_real(body(quantiles)[sink_id])
-        finally:
-            _restore_slots(saved)
-        yield y.expand(cols.shape[0], n)
+
+        def one(q, cols=cols):
+            saved = _save_slots(pairs)
+            try:
+                for (node, slot), col in zip(pairs, cols.to(q.device).T):
+                    _write_slot(node, slot, col[:, None])
+                return body(q)[sink_id]
+            finally:
+                _restore_slots(saved)
+
+        yield _check_real(rows(one)).expand(cols.shape[0], n)
 
 
 def _sweep_body(plan, correlator_cls, drawn):
@@ -569,7 +589,7 @@ def _row_statistics(statistics, with_sem):
     return stats
 
 
-def _build_sweep_fn(plan, pairs, statistics, with_sem, correlator_cls, drawn):
+def _build_sweep_fn(plan, pairs, statistics, with_sem, correlator_cls, drawn, crn=True):
     """``run(theta (S, P), quantiles) -> (K, S)`` float64 numpy statistics.
 
     ``quantiles`` is one matrix every scenario consumes: the ``(n,
@@ -585,7 +605,7 @@ def _build_sweep_fn(plan, pairs, statistics, with_sem, correlator_cls, drawn):
     stats = _row_statistics(statistics, with_sem)
 
     def run(theta, quantiles):
-        rows = _scenario_rows(body, plan, pairs, theta, quantiles, batched)
+        rows = _scenario_rows(body, plan, pairs, theta, quantiles, batched, drawn, crn)
         return torch.cat([stats(y) for y in rows], dim=1).cpu().numpy()
 
     return run
@@ -628,7 +648,9 @@ def _build_stream_sweep_fn(
 
     def block_rows(theta, seed, b):
         if crn:
-            return _scenario_rows(body, plan, pairs, theta, block_quantiles(seed, b), batched)
+            return _scenario_rows(
+                body, plan, pairs, theta, block_quantiles(seed, b), batched, drawn, True
+            )
         return (
             next(_scenario_rows(
                 body, plan, pairs, theta[i : i + 1],

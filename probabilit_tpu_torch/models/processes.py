@@ -26,9 +26,13 @@ Randomness has two modes (``engine/compile.EmitContext.drawn``):
   this mode matches the JAX package on the same matrix, and a streamed
   ``method=`` run equals the one-shot run bit for bit.
 
-The JAX package pins the sample axis of a key-drawn increment matrix to
-the mesh (``parallel/mesh.sample_sharding``); the port is single-device
-until ROADMAP A12, so there is nothing to pin.
+Under a device mesh (``parallel/mesh.py``) a path node on an explicit
+matrix evaluates its slab rows shard by shard, like any row-wise node; in
+key mode its generator is keyed by the column's leading quantiles, which
+only the first shard holds, so the plan runs on the gathered rows on the
+mesh's first device (``compile.shards_alone``) and the draws equal the
+unsharded ones bit for bit.  The JAX package pins the key-drawn increment
+matrix to the mesh instead (``parallel/mesh.sample_sharding``).
 
 >>> gbm = GeometricBrownianMotion(s0=100, mu=0.05, sigma=0.2, T=1.0)
 >>> gbm.terminal()

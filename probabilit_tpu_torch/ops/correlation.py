@@ -19,8 +19,10 @@ Port of ``probabilit_tpu/ops/correlation.py``:
 Statistics-bearing products run in full float32: ``_full_float32`` turns
 TF32 off around them, as the JAX package pins float32 matmul precision
 (``correlation.py:537-541``).  A mixing stream is a ``torch.Generator``
-(``w_key``); the JAX package's is a PRNG key.  The mesh-sharded
-``_apply_rows_sharded`` is still to port (ROADMAP A12).
+(``w_key``); the JAX package's is a PRNG key.  Under a device mesh of
+more than one shard, ``ImanConover._apply_rows`` splits the statistical
+columns over the shards (``_apply_rows_sharded``); the other correlators
+run on the gathered rows on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -125,6 +127,20 @@ def rankdata(X, axis=0, method="average"):
     ranks = _sort.apply_inverse_permutation_rows(order, sorted_ranks.contiguous())
     ranks = ranks.T if axis == 0 else ranks
     return ranks[:, 0] if squeeze else ranks
+
+
+def _filler_rows(rows, n, dtype, device):
+    """The JAX package's padding rows (``_apply_rows_sharded``): the
+    flat index from ``0x9E3779B9`` through a splitmix-style uint32 hash,
+    its top 24 bits mapped into (0, 1).  uint32 words are held in int64
+    and masked."""
+    m32 = 0xFFFFFFFF
+    idx = (torch.arange(rows * n, dtype=torch.int64, device=device).reshape(rows, n)
+           + 0x9E3779B9) & m32
+    h = (idx * 0x85EBCA6B) & m32
+    h = ((h ^ (h >> 13)) * 0xC2B2AE35) & m32
+    h = h ^ (h >> 16)
+    return (h >> 8).to(dtype) * 2.0**-24 + 2.0**-25
 
 
 def _triangular_inverse(L):
@@ -331,8 +347,62 @@ class ImanConover(Correlator):
     def _apply_rows(self, XT, w_key=None):
         """Iman-Conover on a (K, N) matrix: four sorts (two of them the
         scatters of ``apply_inverse_permutation_rows``) and one product.
-        ``w_key`` is the mixing stream of a mixed-score subclass."""
+        ``w_key`` is the mixing stream of a mixed-score subclass.  Under a
+        mesh of more than one shard a Gaussian-score correlator splits the
+        rows here (the statistical columns) over the shards
+        (``_apply_rows_sharded``)."""
+        from probabilit_tpu_torch.parallel import mesh as _mesh
+
+        mesh = _mesh.current_mesh()
+        if mesh is not None and mesh.size > 1 and self.gaussian_scores:
+            return self._apply_rows_sharded(XT, mesh)
         return self._transform_rows(XT, torch.as_tensor(self.P), w_key=w_key)
+
+    def _apply_rows_sharded(self, XT, mesh):
+        """Column-sharded transform: rows padded to a multiple of the shard
+        count, each shard's rows sorted, scored, recoloured and placed on
+        its own device; the K x K Gram and its factors on the first.
+
+        The filler rows are the JAX package's hashed pseudo-uniforms and
+        the target extends block-diagonally.  Cholesky factors and
+        triangular inverses respect the order (row block i depends only
+        on leading blocks) and the filler carries zero weight for the real
+        rows, so the first K output rows are the unsharded result up to
+        reduction order: bitwise when the shard count divides K.
+        """
+        from probabilit_tpu_torch.parallel import mesh as _mesh
+
+        K, N = XT.shape
+        home = mesh.devices[0]
+        XT = XT.to(home)
+        P = np.asarray(self.P)
+        K_pad = -(-K // mesh.size) * mesh.size
+        if K_pad != K:
+            XT = torch.cat([XT, _filler_rows(K_pad - K, N, XT.dtype, home)])
+            P_pad = np.eye(K_pad, dtype=P.dtype)
+            P_pad[:K, :K] = P
+            P = P_pad
+        bounds = _mesh.row_bounds(K_pad, mesh.size)
+        parts = [self._sort_rows(b) for b in _mesh.split_rows(XT, mesh)]
+        scored = [self._scores_rows(x_sorted, order) for x_sorted, order in parts]
+        rows = [hi - lo for lo, hi in bounds]
+        scores, s_mean, s_var = (
+            _mesh.gather_rows([sc[i] for sc in scored], rows, home) for i in range(3)
+        )
+        with _full_float32():
+            gram = (scores @ scores.T) / N
+            s_std = torch.sqrt(s_var)
+            emp_corr = (gram - s_mean * s_mean.T) / (s_std * s_std.T)
+            L = torch.linalg.cholesky(emp_corr)
+            M = torch.as_tensor(P).to(dtype=XT.dtype, device=home) @ _triangular_inverse(L)
+            Z = (scores - s_mean) / s_std
+        out = []
+        for (lo, hi), dev, (x_sorted, _) in zip(bounds, mesh.devices, parts):
+            with _full_float32():
+                correlated = M[lo:hi].to(dev) @ Z.to(dev)
+            _, order2 = _sort.rowsort_with_order(correlated)
+            out.append(_sort.apply_inverse_permutation_rows(order2, x_sorted))
+        return _mesh.gather_rows(out, rows, home)[:K]
 
     def _transform_rows(self, XT, target_P, w_key=None):
         K, N = XT.shape

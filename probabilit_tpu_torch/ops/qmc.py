@@ -48,6 +48,7 @@ from probabilit_tpu_torch.ops.hashing import shr, signed
 
 __all__ = [
     "generate",
+    "generate_sharded",
     "randomisation",
     "sobol",
     "halton",
@@ -598,3 +599,29 @@ def generate(method, seed, n, d, dtype=None, offset=0, total=None, device=None):
     if name == "lhs":
         return latin_hypercube(r, n, d, dtype=dtype, offset=offset, total=total, device=device)
     return _METHODS[name](r, n, d, dtype=dtype, offset=offset, device=device)
+
+
+def generate_sharded(method, seed, n, d, dtype=None, device=None, offset=0, total=None):
+    """``generate`` with the sample axis split over the active mesh.
+
+    Without a mesh, ``generate`` on ``device``.  Under one, the row blocks
+    of ``parallel/mesh.split_rows``, each on its shard's device: shard s
+    generates its own rows ``[start_s, stop_s)`` (``offset + start_s``
+    onwards, LHS stratified over ``total``, default ``n``), so the full
+    matrix is never built on one device and, points being pure functions
+    of their index, the blocks equal slices of one call bitwise.
+    ``method=None`` draws from a ``torch.Generator``, which cannot be
+    addressed by index: it is generated on ``mesh.devices[0]`` and split.
+    """
+    from probabilit_tpu_torch.parallel import mesh as _mesh
+
+    mesh = _mesh.current_mesh()
+    if mesh is None:
+        return generate(method, seed, n, d, dtype, offset=offset, total=total, device=device)
+    if method is None:
+        return _mesh.split_rows(generate(None, seed, n, d, dtype, device=mesh.devices[0]), mesh)
+    total = n if total is None else total
+    return tuple(
+        generate(method, seed, hi - lo, d, dtype, offset=offset + lo, total=total, device=dev)
+        for (lo, hi), dev in zip(_mesh.row_bounds(n, mesh.size), mesh.devices)
+    )
