@@ -41,7 +41,12 @@ correlation-statistics kernel and the megakernel's recolour branch:
    ``executor="cuda"`` and ``executor=None`` agree within 5 standard errors;
 10. times both kernels, their twins, both executors and the host share at
     1e8, and the recolour transform with its K x K solve on the host
-    (what ``sample`` does) and on the card.
+    (what ``sample`` does) and on the card; then the statistics kernel
+    alone at every K from 1 to 16 (columns 3 j + 1) at 1e8: its sums
+    within 1e-5 * n of the twin and bitwise equal on a repeat, its time
+    beside the ``OP_COST`` bound and the bound re-priced with the cross
+    products on the tensor cores (three TF32 products at the dense TF32
+    rate), the blocks an SM holds, and one 2^24 block at start 2^24.
 
 The sort path, ``ops/bitonic_sort.bitonic_sort_rows`` (kernels K3, K4 and
 K5 of ``csrc/bitonic_sort.cu``):
@@ -597,6 +602,7 @@ TRACE_ATTEMPTS = 3
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM at the 1980 MHz max clock
 FP32_FLOPS = 67e12  # an FMA counts two
+TF32_FLOPS = 495e12  # dense tensor-core rate
 
 # Per-sample work of one tape row: (32-bit integer instructions, float32
 # flops).  A Philox4x32-10 call is 10 rounds of two IMAD.WIDE and two
@@ -760,6 +766,22 @@ def stats_cost(k):
     """(integer instructions, float32 flops) per sample of the statistics
     kernel with k columns: k draws and scores, then k + k(k+1)/2 sums."""
     return _DRAW_INTS * k, k * (3 + _NDTRI + 1) + 2 * (k * (k + 1) // 2)
+
+
+def stats_tensor_bound(n, nbytes, k):
+    """The statistics kernel's bound with its cross products re-priced on
+    the tensor cores: (ms, what binds).  The draws and scores keep
+    ``stats_cost``'s price on the integer and FP32 pipes; the k(k+1)/2
+    products a sample (two flops each) count three times (the hi.hi,
+    hi.lo and lo.hi TF32 products) at the dense TF32 rate; the pipes run
+    side by side, so the slowest binds."""
+    ints, flops = stats_cost(k)
+    cross = 2 * (k * (k + 1) // 2)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": max(n * ints / INT32_OPS_PER_S, n * (flops - cross) / FP32_FLOPS,
+                               n * 3 * cross / TF32_FLOPS)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def bound(n, nbytes, cost):
@@ -1098,6 +1120,11 @@ def main():
         record = {"phase": "build", "kernel": job if job in SOURCES else "graph_megakernel",
                   "seconds": seconds, "all_builds_seconds": build_s, "library": lib_path.name,
                   "registers_and_spill_bytes": ptxas_instances(log)}
+        if job == "corr_stats":  # every K's instance, without local memory
+            spills = {kernel: regs for kernel, regs in record["registers_and_spill_bytes"].items()
+                      if regs[1]}
+            check(len(record["registers_and_spill_bytes"]) == 16 and not spills,
+                  f"corr_stats: 16 instances without spills expected: {record['registers_and_spill_bytes']}")
         if job == "bitonic_sort":  # K3 and K5 hold a padded 2^tile_log tile
             record["dynamic_smem_bytes_k3_k5"] = {
                 f"{k}-byte keys, {p}-byte payload": (k + p) * (33 << bs._tile_log(k, p)) // 32
@@ -1288,6 +1315,12 @@ def main():
             "bound_ms": corr["k2_bound_ms"],
             "bound_by": corr["k2_bound_by"],
             "library_ms": None,
+            # The cross products re-priced on the tensor cores, and every K
+            # from 1 to 16 at 1e8 (columns 3 j + 1).
+            "tensor_bound_ms": corr["k2_tensor_bound_ms"],
+            "by_k": {k: {key: row[key] for key in ("ms", "bound_ms", "tensor_bound_ms",
+                                                    "blocks_per_sm", "max_abs_err")}
+                     for k, row in corr["k2_by_k"].items()},
         },
         *sort["kernels"],
     ]})
@@ -1387,7 +1420,7 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
     plain_ms = cuda_time_ms(
         lambda: sink.sample(N_MAIN, random_state=0, gc_strategy=[], executor=None), repeats=3)
     host_ms = cuda_ms - k1_ms - k2_ms
-    k2_bytes = 4 * sums.numel() * cuda_exec.stats_grid(K, N_MAIN)  # the partials written
+    k2_bytes = 8 * sums.numel() * cuda_exec.stats_grid(K, N_MAIN)  # the float64 partials written
     k2_bound_ms, k2_bound_by = bound(N_MAIN, k2_bytes, stats_cost(K))
     k1_cost = tape_cost(main_tape, cuda_exec)
     k1_bound_ms, k1_bound_by = bound(N_MAIN, 4 * N_MAIN, k1_cost)
@@ -1404,14 +1437,49 @@ def correlated_path(torch, np, cuda_exec, _compile, smi):
           "samples_per_sec_cuda": N_MAIN / (cuda_ms * 1e-3),
           "samples_per_sec_plain": N_MAIN / (plain_ms * 1e-3),
           "stats_bound_ms": k2_bound_ms, "stats_bound_by": k2_bound_by,
+          "stats_tensor_bound_ms": stats_tensor_bound(N_MAIN, k2_bytes, K)[0],
           "stats_int_instr_per_sample": stats_cost(K)[0],
           "stats_flops_per_sample": stats_cost(K)[1],
           "megakernel_bound_ms": k1_bound_ms, "megakernel_bound_by": k1_bound_by,
           "megakernel_int_instr_per_sample": k1_cost[0],
           "megakernel_flops_per_sample": k1_cost[1], "tape_instructions": main_tape.n_instr})
+    by_k = stats_by_k(torch, cuda_exec, smi)
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k1_err": k1_err,
-            "k2_err": k2_err, "k2_ms": k2_ms, "k2_twin_ms": k2_twin_ms,
-            "k2_bound_ms": k2_bound_ms, "k2_bound_by": k2_bound_by}
+            "k2_err": max(k2_err, by_k["max_abs_err"]), "k2_ms": k2_ms, "k2_twin_ms": k2_twin_ms,
+            "k2_bound_ms": k2_bound_ms, "k2_bound_by": k2_bound_by,
+            "k2_tensor_bound_ms": stats_tensor_bound(N_MAIN, k2_bytes, K)[0],
+            "k2_by_k": by_k["rows"]}
+
+
+def stats_by_k(torch, cuda_exec, smi):
+    """Phase 10, continued: the statistics kernel alone at every K."""
+    words = cuda_exec.seed_words(0)
+    rows, worst = {}, 0.0
+    for k in range(1, cuda_exec.MAX_CORR_K + 1):
+        columns = [3 * j + 1 for j in range(k)]
+        sums = cuda_exec.corr_stats(words, N_MAIN, columns, "cuda")
+        again = cuda_exec.corr_stats(words, N_MAIN, columns, "cuda")
+        twin = cuda_exec.corr_stats_reference(words, N_MAIN, columns, "cuda")
+        err = (sums - twin).abs().max().item()
+        check(err <= STATS_TOL * N_MAIN, f"K = {k}: statistics kernel vs twin {err} > {STATS_TOL} * n")
+        check(bool(torch.equal(sums, again)), f"K = {k}: statistics kernel differs on a repeat")
+        worst = max(worst, err)
+        del twin
+        ms = cuda_time_ms(lambda: cuda_exec.corr_stats(words, N_MAIN, columns, "cuda"))
+        block_ms = cuda_time_ms(
+            lambda: cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK))
+        grid = cuda_exec.stats_grid(k, N_MAIN)
+        nbytes = 8 * cuda_exec._stats_width(k) * grid
+        bound_ms, bound_by = bound(N_MAIN, nbytes, stats_cost(k))
+        tensor_ms, tensor_by = stats_tensor_bound(N_MAIN, nbytes, k)
+        rows[k] = {"ms": ms, "block_ms": block_ms, "max_abs_err": err,
+                   "tolerance": STATS_TOL * N_MAIN, "bitwise_repeat": True,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tensor_bound_ms": tensor_ms, "tensor_bound_by": tensor_by,
+                   "grid": grid, "blocks_per_sm": cuda_exec.stats_blocks_per_sm(k)}
+    emit({"phase": "stats_by_k", "card": smi, "n": N_MAIN, "columns": "3 j + 1",
+          "block": {"n": BLOCK, "start": BLOCK}, "k": rows})
+    return {"rows": rows, "max_abs_err": worst}
 
 
 def unaligned_and_shared_path(torch, cuda_exec, _compile, _build):
@@ -2356,7 +2424,7 @@ def portfolio_path(torch, np, scipy, cuda_exec, _compile, smi):
     del t_col
     cost = tape_cost(sink_tape, cuda_exec, {"PPF_T": price["flops"]})
     bound_ms, bound_by = bound(N_MAIN, 4 * N_MAIN, cost)
-    k2_bytes = 4 * cuda_exec._stats_width(K) * cuda_exec.stats_grid(K, N_MAIN)
+    k2_bytes = 8 * cuda_exec._stats_width(K) * cuda_exec.stats_grid(K, N_MAIN)
     k2_bound_ms, k2_bound_by = bound(N_MAIN, k2_bytes, stats_cost(K))
     record = {"launches": k1_launches, "ms": k1_ms, "twin_ms_at_2^22": twin_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "flops_per_sample": cost[1],

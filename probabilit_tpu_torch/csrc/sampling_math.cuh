@@ -42,6 +42,45 @@ __device__ __forceinline__ uint4 philox_group(uint64_t g, uint32_t column, uint3
   return make_uint4(c0, c1, c2, c3);
 }
 
+// The ten round keys of Philox4x32-10 under key (k0, k1), for a kernel
+// that takes them as a launch parameter: its rounds then read each key
+// from constant memory instead of holding twenty in registers.
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+inline PhiloxKeys philox_keys(uint32_t k0, uint32_t k1) {
+  PhiloxKeys keys;
+  for (int r = 0; r < 10; ++r) {
+    keys.k0[r] = k0;
+    keys.k1[r] = k1;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return keys;
+}
+
+// philox_group with the round keys given.
+__device__ __forceinline__ uint4 philox_group(uint64_t g, uint32_t column,
+                                              const PhiloxKeys& keys) {
+  uint32_t c0 = static_cast<uint32_t>(g);
+  uint32_t c1 = static_cast<uint32_t>(g >> 32);
+  uint32_t c2 = column;
+  uint32_t c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ keys.k0[r];
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ keys.k1[r];
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
 // The top 23 bits in the mantissa of 1.0f, minus 1, clamped to
 // [2^-24, 1 - 2^-24].
 __device__ __forceinline__ float bits_to_open_unit(uint32_t bits) {

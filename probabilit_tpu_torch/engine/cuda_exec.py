@@ -1798,8 +1798,8 @@ def corr_stats(seed_words, n, columns, device, start=0):
     float64 ``(P,)``.
 
     On the CPU the plain twin; on a CUDA device the kernel
-    (``csrc/corr_stats.cu``), whose per-block float32 partials are summed
-    in float64 on the device.
+    (``csrc/corr_stats.cu``), whose per-block float64 partials are summed
+    on the device.
     """
     global STATS_LAUNCHES
     device = torch.device(device)
@@ -1812,17 +1812,17 @@ def corr_stats(seed_words, n, columns, device, start=0):
     if not 1 <= k <= MAX_CORR_K or n <= 0 or start < 0:
         raise ValueError(f"corr_stats takes 1..{MAX_CORR_K} columns, n > 0 and start >= 0.")
     blocks = stats_grid(k, n)
-    cols = torch.tensor(list(columns), dtype=torch.int32, device=device)
-    partials = torch.empty((blocks, _stats_width(k)), dtype=torch.float32, device=device)
+    cols = (ctypes.c_int * k)(*(int(c) for c in columns))  # a launch parameter, not a copy
+    partials = torch.empty((blocks, _stats_width(k)), dtype=torch.float64, device=device)
     err = _stats_kernel().corr_stats_launch(
-        cols.data_ptr(), k, seed_words[0], seed_words[1], start, n,
+        cols, k, seed_words[0], seed_words[1], start, n,
         partials.data_ptr(), blocks,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"corr_stats launch failed: CUDA error {err}.")
     STATS_LAUNCHES += 1
-    return partials.sum(dim=0, dtype=torch.float64)
+    return partials.sum(dim=0)
 
 
 def stats_grid(k, n):
@@ -1835,12 +1835,24 @@ def stats_grid(k, n):
     return blocks.value
 
 
+def stats_blocks_per_sm(k):
+    """Blocks of the statistics kernel for k columns that one SM of the
+    current card holds at once (256 threads each)."""
+    per_sm = ctypes.c_int(0)
+    err = _stats_kernel().corr_stats_blocks_per_sm(k, ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"corr_stats_blocks_per_sm failed: CUDA error {err}.")
+    return per_sm.value
+
+
 def _stats_kernel():
     from probabilit_tpu_torch import _build
 
     lib = _build.load("corr_stats")
     lib.corr_stats_grid.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
     lib.corr_stats_grid.restype = ctypes.c_int
+    lib.corr_stats_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.corr_stats_blocks_per_sm.restype = ctypes.c_int
     lib.corr_stats_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

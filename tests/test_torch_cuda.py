@@ -14,7 +14,9 @@ tolerances);
 the statistics kernel, each sum within 1e-5 * n of the twin's (every sum
 is of n terms of magnitude about 1: z_k, z_j z_k).  They differ only where
 nvcc contracts a*b+c into FMAs, where CUDA's libm rounds differently from
-PyTorch's, and in the order of float32 partial sums.  The three sort
+PyTorch's, in the order of float32 partial sums and, for the statistics
+kernel, in its products' TF32 halves (about 2^-22 of a product) and the
+tensor cores' truncating sums (about 1.3e-6 of a diagonal sum).  The three sort
 kernels move bits and compare, so they equal their twins bitwise.  The
 path processes run no kernel (the plain executor on the card): each
 factory's slab on the card within 1e-4 of each path's largest magnitude
@@ -134,17 +136,21 @@ def test_kernel_flags_non_finite_values(cuda_card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3, 10, 16])
-def test_stats_kernel_matches_twin(cuda_card, k):
+@pytest.mark.parametrize(
+    "k, start, n",
+    [(k, 0, N) for k in range(1, 17)]
+    + [(k, start, n) for k in (10, 16) for start, n in ((5, N + 3), (7, N - 1), (3, 1), (2, 6))],
+)
+def test_stats_kernel_matches_twin(cuda_card, k, start, n):
     columns = [3 * j + 1 for j in range(k)]
     launches = cuda_exec.STATS_LAUNCHES
-    got = cuda_exec.corr_stats((7, 8), N, columns, "cuda")
-    again = cuda_exec.corr_stats((7, 8), N, columns, "cuda")
-    ref = cuda_exec.corr_stats_reference((7, 8), N, columns, "cuda")
+    got = cuda_exec.corr_stats((7, 8), n, columns, "cuda", start=start)
+    again = cuda_exec.corr_stats((7, 8), n, columns, "cuda", start=start)
+    ref = cuda_exec.corr_stats_reference((7, 8), n, columns, "cuda", start=start)
     assert cuda_exec.STATS_LAUNCHES == launches + 2
     assert got.dtype == torch.float64 and got.shape == (k + k * (k + 1) // 2,)
     torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: deterministic
-    assert (got - ref).abs().max().item() <= STATS_TOL * N
+    assert (got - ref).abs().max().item() <= max(STATS_TOL * n, 1e-4)
 
 
 @pytest.mark.cuda
