@@ -133,7 +133,12 @@ The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
     alone: K1 at 1e8 with its bound beside the library's ``icdf`` plus loc
     on the same uniforms (drawn beforehand; the largest difference is
     printed, not checked: the library computes its own formula), K1
-    against the twin and the transcription at 2^22.
+    against the twin and the transcription at 2^22.  The plain path's
+    float32 incomplete beta on the card: ``special.betainc(15, 0.5, 1 -
+    2^-24)`` must equal the CPU's within 1e-6 (x clamped at the last float
+    below 1, not at the kernel's 1 - 1e-7, which gives 1 - 0.0014964), and
+    ``ppf.call("t", band, 30.0)`` on 4,001 uniforms in [0.499, 0.501]
+    must be 0 on as many of them as on the CPU (1,917).
 15. ``benchmarks.portfolio_var()``, the correlated portfolio of
     ``examples/03_portfolio_var.py`` (a t(df = 4), a lognormal and a
     normal; the analyst's guess repaired by ``nearest_correlation_matrix``):
@@ -484,6 +489,7 @@ LIBRARY_FAMILIES = {
     "halfcauchy": ((), {}),
 }
 CLOSED_FORM_GRAPHS = tuple(f"closed_form_{i}" for i in range(4))
+T_BAND_ZEROS = 1917  # the plain float32 t(30) ppf's zeros on 4,001 uniforms in [0.499, 0.501]
 NEWTON_CENTRAL = (0.001, 0.999)  # the uniforms on which a Newton node is held to its twin
 PORTFOLIO_QUANTILES = (0.01, 0.05, 0.5)
 TYPED_SHARE_MAX = 1e-4  # int and bool nodes of K1 and the twin may differ on this share
@@ -2170,8 +2176,34 @@ def family_path(torch, np, stats, cuda_exec, _compile, smi):
         graphs[label] = record
         emit({"phase": "family_timing", "graph": label, "card": smi, "n": N_MAIN, **record})
     graphs["newton_families"] = newton_family_timings(torch, cuda_exec, _compile, smi)
+    plain_betainc_ceiling(torch, np, "cuda")
     return {"k1_launches": launches_total, "graphs": graphs,
             "library": library_family_timings(torch, cuda_exec, _compile, smi)}
+
+
+def plain_betainc_ceiling(torch, np, device):
+    """Phase 14's check of the plain path's float32 betainc at the top of
+    its range, on ``device`` against the CPU: its ceiling is the last
+    float below 1, so the t ppf near its median is 0 where the CPU's is."""
+    from probabilit_tpu_torch.ops import ppf, special
+
+    band = torch.from_numpy(np.linspace(0.499, 0.501, 4001).astype(np.float32))
+    x = torch.tensor(1.0 - 2.0**-24)
+    values, zeros = {}, {}
+    for where in ("cpu", device):
+        a, b = torch.tensor(15.0, device=where), torch.tensor(0.5, device=where)
+        values[where] = special.betainc(a, b, x.to(where)).item()
+        zeros[where] = int((ppf.call("t", band.to(where), 30.0) == 0.0).sum())
+    clamped = special.betainc_kernel(torch.tensor(15.0), torch.tensor(0.5), x).item()
+    emit({"phase": "plain_betainc_ceiling", "device": device,
+          "betainc_15_half_at_1_minus_2^-24": values, "kernel_ceiling_value": clamped,
+          "t30_zeros_on_4001_band": zeros})
+    check(abs(values[device] - values["cpu"]) <= 1e-6,
+          f"plain betainc on {device}: {values[device]} against the CPU's {values['cpu']}")
+    check(abs(values[device] - clamped) > 4e-4,
+          f"plain betainc on {device} stops at the kernel's ceiling: {values[device]}")
+    check(zeros[device] == zeros["cpu"] == T_BAND_ZEROS,
+          f"t(30) ppf zeros on the median band: {zeros}, expected {T_BAND_ZEROS}")
 
 
 def transcription_held(plan, tape, nodes, got, ref, U, sweep):

@@ -383,15 +383,15 @@ def _betacf(a, b, x, iters=40):
     return h
 
 
-def _betainc(a, b, x, log_beta, cf_iters):
-    """I_x(a, b) with the symmetry split at x = (a+1)/(a+b+2).
+def _betainc(a, b, x, log_beta, cf_iters, ceiling):
+    """I_x(a, b) with the symmetry split at x = (a+1)/(a+b+2), x clamped
+    to [_TINY, ceiling].
 
     One continued fraction on the operands each lane selects (``(a, b,
     x)`` or ``(b, a, 1 - x)``): elementwise the same arithmetic as
     evaluating both and selecting.
     """
-    # The float32 kernel's ceiling; float64 keeps its own last step below 1.
-    xc = torch.clamp(x, _TINY, 1.0 - (1e-7 if x.dtype == torch.float32 else 2.0**-53))
+    xc = torch.clamp(x, _TINY, ceiling)
     log_bt = log_beta(a + b) - log_beta(a) - log_beta(b) + a * torch.log(xc) + b * torch.log1p(-xc)
     bt = torch.exp(log_bt)
     direct = xc < (a + 1.0) / (a + b + 2.0)
@@ -408,18 +408,26 @@ def betainc_kernel(a, b, x):
     Lanczos log-gammas and 40 continued-fraction pairs.  Sized for a, b in
     (0, ~30]."""
     a, b, x = _broadcast(a, b, x)
-    return _betainc(a, b, x, lgamma_kernel, 40)
+    # The float32 kernel's ceiling, 1 - 1e-7 (K1's Newton tier's
+    # 0.9999999f); float64 keeps its own last step below 1.
+    ceiling = 1.0 - (1e-7 if x.dtype == torch.float32 else 2.0**-53)
+    return _betainc(a, b, x, lgamma_kernel, 40, ceiling)
 
 
 def betainc(a, b, x):
     """Regularized incomplete beta I_x(a, b) for the plain path.
 
     The kernel's continued fraction with ``torch.special.gammaln`` in the
-    prefactor, 40 pairs in float32 and 100 in float64.
+    prefactor, 40 pairs in float32 and 100 in float64.  x is clamped at
+    the last float below 1 of its dtype (1 - 2^-24 in float32), not at the
+    kernel's 1 - 1e-7: ``jax.scipy.special.betainc`` has no ceiling, and
+    under the kernel's every float32 p in the last step below 1 inverts
+    to x = 1, a t quantile of 0 near the median.
     """
     a, b, x = _broadcast(a, b, x)
     iters = 100 if a.dtype == torch.float64 else 40
-    return _betainc(a, b, x, torch.special.gammaln, iters)
+    ceiling = 1.0 - torch.finfo(x.dtype).eps / 2.0  # torch.nextafter(1, 0)
+    return _betainc(a, b, x, torch.special.gammaln, iters, ceiling)
 
 
 def _gammainc_impl():

@@ -17,20 +17,34 @@ the parameters of the JAX package's family sweep
   most 4.1e-9, t), 3e-5 for foldcauchy (its tail series, switched in at
   q > 0.99, truncates at < 3e-5 by design);
 * batch independence: the ppf of a vector equals, bitwise, the ppfs of
-  its slices, in float32 and float64.
+  its slices, in float32 and float64;
+* the incomplete-beta families near their median, on 4,001 uniforms in
+  [0.499, 0.501] (``BAND``), against the JAX package within ``REL_TOL`` of
+  the largest JAX value on ``Q``: the plain ``betainc`` clamps x at the
+  last float below 1, as ``jax.scipy.special.betainc`` has no ceiling,
+  so the float32 t ppf is 0 on as many of those points as the JAX
+  package's (before, at the kernel's 1 - 1e-7, on 1.4-1.7x as many).
+  The kernel transcription keeps the kernel's ceiling, and parts from the
+  plain path there as the JAX package's kernel does.
 """
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.special
 import numpy as np
 import pytest
+import scipy.special
 import scipy.stats
 import torch
 
+from probabilit_tpu.models.distributions import Distribution as JaxDistribution
 from probabilit_tpu.ops import ppf as jax_ppf
-from probabilit_tpu_torch import config
+from probabilit_tpu.ops import special as jax_special
+from probabilit_tpu_torch import config, interop
+from probabilit_tpu_torch.engine import compile as tcompile
 from probabilit_tpu_torch.engine import cuda_exec
 from probabilit_tpu_torch.models.distributions import Distribution
 from probabilit_tpu_torch.ops import ppf, special
@@ -52,6 +66,10 @@ REL_TOL = 1e-4
 F64_TOL = 1e-6
 F64_FAMILY_TOL = {"foldcauchy": 3e-5}
 Q = np.linspace(0.001, 0.999, 2001).astype(np.float32)
+BAND = np.linspace(0.499, 0.501, 4001).astype(np.float32)
+MEDIAN = np.concatenate([BAND, Q[np.abs(Q - 0.5) <= 1e-3]])
+# Zeros of the float32 t ppf on BAND, the JAX package's plain path (jax.jit).
+T_MEDIAN_ZEROS = {2.0: 289, 4.0: 533, 7.0: 795, 10.0: 1001, 30.0: 1917, 100.0: 3687}
 
 # (family, args, kwargs): tests/test_distributions.py's sweep.
 NEWTON = [
@@ -208,3 +226,90 @@ def test_table_tier_and_unregistered_families_name_a8(name, args):
     # the JAX package.
     mvn = Distribution("multivariate_normal", mean=[0, 0]).sample(4, random_state=0)
     assert mvn.shape == (4, 2) and bool(torch.isfinite(mvn).all())
+
+
+@functools.lru_cache
+def _jax_median(name, args):
+    """(JAX on MEDIAN, largest |JAX| on Q): one jit."""
+    ref = _jax(name, args, {}, np.concatenate([MEDIAN, Q]))
+    return ref[:MEDIAN.size], np.abs(ref[MEDIAN.size:]).max()
+
+
+def _on_band_and_q(name, args):
+    """(port on MEDIAN, JAX on MEDIAN, largest |JAX| on Q)."""
+    got = ppf.call(name, torch.from_numpy(MEDIAN), *args).numpy()
+    return (got, *_jax_median(name, args))
+
+
+@pytest.mark.parametrize("df", list(T_MEDIAN_ZEROS), ids=lambda df: f"{df:g}")
+def test_t_near_the_median_matches_jax(df):
+    got, ref, top = _on_band_and_q("t", (df,))
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= REL_TOL * top
+    zeros = int((got[:BAND.size] == 0.0).sum())
+    assert zeros == int((ref[:BAND.size] == 0.0).sum()) == T_MEDIAN_ZEROS[df]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_plain_betainc_ceiling_is_the_last_float_below_one(dtype):
+    x = torch.tensor(1.0 - torch.finfo(dtype).eps / 2.0, dtype=dtype)
+    assert x == torch.nextafter(torch.ones((), dtype=dtype), torch.zeros((), dtype=dtype))
+    a, b = torch.tensor(15.0, dtype=dtype), torch.tensor(0.5, dtype=dtype)
+    got = special.betainc(a, b, x).item()
+    assert got < 1.0
+    assert abs(got - scipy.special.betainc(15.0, 0.5, x.item())) <= (
+        1e-6 if dtype == torch.float32 else 1e-12)
+    if dtype == torch.float32:
+        ref = float(jax.scipy.special.betainc(jnp.float32(15.0), jnp.float32(0.5),
+                                              jnp.float32(x.item())))
+        assert abs(got - ref) <= 1e-6
+        # The kernel clamps at 1 - 1e-7 (1 - 2^-23 in float32): 1 - 0.0014964.
+        assert abs(got - special.betainc_kernel(a, b, x).item()) > 4e-4
+
+
+def test_betainc_kernel_keeps_the_kernel_ceiling():
+    x = np.array([1.0 - 2.0**-24, 1.0 - 2.0**-23], np.float32)
+    got = special.betainc_kernel(torch.tensor(15.0), torch.tensor(0.5), torch.from_numpy(x))
+    ref = jax.jit(jax_special.betainc_kernel)(jnp.float32(15.0), jnp.float32(0.5), jnp.asarray(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got[0] == got[1]  # both at the ceiling
+
+
+@pytest.mark.parametrize("name,args", [
+    ("beta", (2.0, 3.0)), ("beta", (30.0, 30.0)),
+    ("betaprime", (3.0, 4.0)), ("betaprime", (50.0, 50.0)),
+    ("f", (5.0, 9.0)), ("f", (100.0, 100.0)),
+    ("rdist", (3.0,)), ("rdist", (40.0,)),
+], ids=lambda v: v if isinstance(v, str) else "-".join(f"{a:g}" for a in v))
+def test_incomplete_beta_families_match_jax_near_the_median(name, args):
+    got, ref, top = _on_band_and_q(name, args)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= REL_TOL * top
+
+
+def test_t_node_matches_jax_through_sample_from_quantiles():
+    ref = JaxDistribution("t", df=30.0) + 1.0
+    port = interop.from_reference(ref)[ref._id]
+    q = BAND[:, None]
+    expected = np.asarray(ref.sample_from_quantiles(q))
+    got = port.sample_from_quantiles(q).numpy()
+    top = _jax_median("t", (30.0,))[1]
+    assert got.shape == expected.shape == (BAND.size,) and np.isfinite(got).all()
+    assert np.abs(got - expected).max() <= REL_TOL * top
+
+
+def test_kernel_and_plain_t_part_near_the_median_as_in_the_jax_package():
+    """Near its median the kernel's t ppf (betainc at the 1 - 1e-7
+    ceiling) is 0 on more points than the plain path's, in both packages:
+    the port's twin, which runs the kernel's tape, counts the JAX
+    package's kernel-mode zeros, and its plain path the plain ones."""
+    node = Distribution("t", df=30.0)
+    plan = tcompile.get_plan(node + 1.0)
+    tape = cuda_exec.lower(plan, cuda_exec.keep_order(plan, {node._id}))
+    twin = cuda_exec.run_tape(tape, torch.from_numpy(BAND)[:, None])[0]
+    plain = ppf.call("t", torch.from_numpy(BAND), 30.0)
+    with jax_special.kernel_safe_special():
+        jax_kernel = _jax("t", (30.0,), {}, BAND)
+    jax_plain = _jax_median("t", (30.0,))[0][:BAND.size]
+    assert int((twin == 0.0).sum()) == int((jax_kernel == 0.0).sum()) == 2793
+    assert int((plain == 0.0).sum()) == int((jax_plain == 0.0).sum()) == T_MEDIAN_ZEROS[30.0]
