@@ -26,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from probabilit_tpu_torch.utils import profiling
+
 __all__ = [
     "build",
     "load",
@@ -165,10 +167,14 @@ def load_host(name):
 
 
 def _load(key, build_library):
+    """The loaded library of ``key``; the first use in a process builds (or
+    finds) and loads it, the ``probabilit.build`` span of a
+    ``torch.profiler`` trace."""
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
-            lib = _LIBS[key] = ctypes.CDLL(str(build_library()[0]))
+            with profiling.span("probabilit.build"):
+                lib = _LIBS[key] = ctypes.CDLL(str(build_library()[0]))
         return lib
 
 

@@ -41,6 +41,7 @@ from probabilit_tpu_torch.ops import special as _special
 from probabilit_tpu_torch.ops.qmc import clamp_open_unit
 from probabilit_tpu_torch.parallel import mesh as _mesh
 from probabilit_tpu_torch.utils import build_corrmat
+from probabilit_tpu_torch.utils import profiling as _profiling
 
 __all__ = [
     "CORRELATOR_MAP",
@@ -252,14 +253,17 @@ def get_plan(sink):
     """Build (or fetch) the Plan for ``sink``, cached on the node itself.
 
     The cache entry is dropped when ``Node._mutation_epoch`` moves and by
-    ``Node.copy`` (the copy shares ``_id`` s with the original).
+    ``Node.copy`` (the copy shares ``_id`` s with the original).  A plan
+    built here is the ``probabilit.plan`` span of a ``torch.profiler``
+    trace.
     """
     cached = getattr(sink, "_plan_cache", None)
     if cached is not None:
         epoch, plan = cached
         if epoch == _graph.Node._mutation_epoch:
             return plan
-    plan = Plan(sink)
+    with _profiling.span("probabilit.plan"):
+        plan = Plan(sink)
     sink._plan_cache = (_graph.Node._mutation_epoch, plan)
     return plan
 

@@ -125,6 +125,7 @@ from probabilit_tpu_torch.ops import philox as _philox
 from probabilit_tpu_torch.ops import ppf as _ppf
 from probabilit_tpu_torch.ops import special as _special
 from probabilit_tpu_torch.ops.qmc import clamp_open_unit
+from probabilit_tpu_torch.utils import profiling as _profiling
 
 __all__ = [
     "LAUNCHES",
@@ -1718,42 +1719,43 @@ def run(tape, seed_words, n, ab=None, start=0):
     build or a launch that fails raises.
     """
     global LAUNCHES
-    device = tape.code.device
-    _check_ab(tape, ab)
-    if device.type == "cpu":
-        out = run_reference(tape, seed_words, n, ab, start)
-        return out, (~torch.isfinite(out)).any().to(torch.int32).reshape(1)
-    issue = environment_issue(device)
-    if issue is not None:
-        raise RuntimeError(issue)
-    if (
-        tape.n_instr > MAX_INSTR or len(tape.consts) > MAX_CONSTS or tape.n_keep > MAX_KEEP
-        or tape.n_corr > MAX_CORR_K or tape.shared_bytes > MAX_SHARED_BYTES
-    ):
-        raise ValueError("The tape exceeds the kernel's caps.")
-    if tape.tables.device != device or tape.tables.dtype != torch.float32:
-        raise ValueError("The tape's tables must be float32 on the tape's device.")
-    if start < 0 or n < 0:
-        raise ValueError(f"start and n must be >= 0, got {start} and {n}.")
-    launch = tape.kernel
-    if tape.n_corr:
-        ab = ab.to(device=device, dtype=torch.float32).contiguous()
-    out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=device)
-    flag = torch.zeros((1,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        err = launch(
-            tape.const_block, len(tape.consts),
-            ab.data_ptr() if tape.n_corr else None, tape.n_corr,
-            tape.tables.data_ptr() if tape.tables.numel() else None, tape.tables.numel(),
-            tape.n_keep,
-            seed_words[0], seed_words[1], start, n,
-            out.data_ptr(), flag.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"graph_megakernel launch failed: CUDA error {err}.")
-    LAUNCHES += 1
-    return out, flag
+    with _profiling.span("probabilit.k1"):
+        device = tape.code.device
+        _check_ab(tape, ab)
+        if device.type == "cpu":
+            out = run_reference(tape, seed_words, n, ab, start)
+            return out, (~torch.isfinite(out)).any().to(torch.int32).reshape(1)
+        issue = environment_issue(device)
+        if issue is not None:
+            raise RuntimeError(issue)
+        if (
+            tape.n_instr > MAX_INSTR or len(tape.consts) > MAX_CONSTS or tape.n_keep > MAX_KEEP
+            or tape.n_corr > MAX_CORR_K or tape.shared_bytes > MAX_SHARED_BYTES
+        ):
+            raise ValueError("The tape exceeds the kernel's caps.")
+        if tape.tables.device != device or tape.tables.dtype != torch.float32:
+            raise ValueError("The tape's tables must be float32 on the tape's device.")
+        if start < 0 or n < 0:
+            raise ValueError(f"start and n must be >= 0, got {start} and {n}.")
+        launch = tape.kernel
+        if tape.n_corr:
+            ab = ab.to(device=device, dtype=torch.float32).contiguous()
+        out = torch.empty((tape.n_keep, n), dtype=torch.float32, device=device)
+        flag = torch.zeros((1,), dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            err = launch(
+                tape.const_block, len(tape.consts),
+                ab.data_ptr() if tape.n_corr else None, tape.n_corr,
+                tape.tables.data_ptr() if tape.tables.numel() else None, tape.tables.numel(),
+                tape.n_keep,
+                seed_words[0], seed_words[1], start, n,
+                out.data_ptr(), flag.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"graph_megakernel launch failed: CUDA error {err}.")
+        LAUNCHES += 1
+        return out, flag
 
 
 def _megakernel(source):
@@ -1802,27 +1804,28 @@ def corr_stats(seed_words, n, columns, device, start=0):
     on the device.
     """
     global STATS_LAUNCHES
-    device = torch.device(device)
-    if device.type == "cpu":
-        return corr_stats_reference(seed_words, n, columns, device, start=start)
-    issue = environment_issue(device)
-    if issue is not None:
-        raise RuntimeError(issue)
-    k = len(columns)
-    if not 1 <= k <= MAX_CORR_K or n <= 0 or start < 0:
-        raise ValueError(f"corr_stats takes 1..{MAX_CORR_K} columns, n > 0 and start >= 0.")
-    blocks = stats_grid(k, n)
-    cols = (ctypes.c_int * k)(*(int(c) for c in columns))  # a launch parameter, not a copy
-    partials = torch.empty((blocks, _stats_width(k)), dtype=torch.float64, device=device)
-    err = _stats_kernel().corr_stats_launch(
-        cols, k, seed_words[0], seed_words[1], start, n,
-        partials.data_ptr(), blocks,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"corr_stats launch failed: CUDA error {err}.")
-    STATS_LAUNCHES += 1
-    return partials.sum(dim=0)
+    with _profiling.span("probabilit.k2"):
+        device = torch.device(device)
+        if device.type == "cpu":
+            return corr_stats_reference(seed_words, n, columns, device, start=start)
+        issue = environment_issue(device)
+        if issue is not None:
+            raise RuntimeError(issue)
+        k = len(columns)
+        if not 1 <= k <= MAX_CORR_K or n <= 0 or start < 0:
+            raise ValueError(f"corr_stats takes 1..{MAX_CORR_K} columns, n > 0 and start >= 0.")
+        blocks = stats_grid(k, n)
+        cols = (ctypes.c_int * k)(*(int(c) for c in columns))  # a launch parameter, not a copy
+        partials = torch.empty((blocks, _stats_width(k)), dtype=torch.float64, device=device)
+        err = _stats_kernel().corr_stats_launch(
+            cols, k, seed_words[0], seed_words[1], start, n,
+            partials.data_ptr(), blocks,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"corr_stats launch failed: CUDA error {err}.")
+        STATS_LAUNCHES += 1
+        return partials.sum(dim=0)
 
 
 def stats_grid(k, n):
@@ -1924,12 +1927,15 @@ def recolor_transform(plan, seed_words, n, device=None, start=0, solve="host"):
     and never waits for it.
     """
     device = config.device() if device is None else torch.device(device)
-    columns = [plan.col_of[v._id] for v in plan.corr_vars]
-    P = _correlation.ImanConover().set_target(plan.corr_matrix).P  # raises if singular
-    sums = corr_stats(seed_words, n, columns, device, start=start)
-    if solve == "device":
-        return solve_recolor_device(sums, n, P).to(torch.float32)
-    if solve != "host":
+    if solve not in ("host", "device"):
         raise ValueError(f"solve must be 'host' or 'device', got {solve!r}.")
-    ab = solve_recolor(sums.cpu().numpy(), n, plan.corr_matrix)
-    return torch.tensor(ab, dtype=torch.float32, device=device)
+    columns = [plan.col_of[v._id] for v in plan.corr_vars]
+    sums = corr_stats(seed_words, n, columns, device, start=start)
+    with _profiling.span("probabilit.solve"):
+        if solve == "device":
+            P = _correlation.ImanConover().set_target(plan.corr_matrix).P  # raises if singular
+            return solve_recolor_device(sums, n, P).to(torch.float32)
+        with _profiling.span("probabilit.wait"):
+            sums = sums.cpu().numpy()
+        ab = solve_recolor(sums, n, plan.corr_matrix)
+        return torch.tensor(ab, dtype=torch.float32, device=device)

@@ -26,7 +26,10 @@ refuses a mesh, as the JAX package's ``executor="pallas"`` does.
 
 With ``PROBABILIT_TPU_PROFILE=1`` either executor times its
 build+compile, execute and host phases (``utils/profiling.PhaseTimer``,
-each phase synchronised with the card) and prints them to stderr.
+each phase synchronised with the card) and prints them to stderr.  Under
+a ``torch.profiler`` session a call records a ``probabilit.sample`` span,
+and each of its waits for the device a ``probabilit.wait`` span
+(``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -87,39 +90,40 @@ def sample(
     gc_strategy=None,
     executor=None,
 ):
-    size = 1 if size is None else int(size)
-    plan = _compile.get_plan(sink)
+    with _profiling.span("probabilit.sample"):
+        size = 1 if size is None else int(size)
+        plan = _compile.get_plan(sink)
 
-    if executor == "pallas":
-        raise ValueError(
-            "executor='pallas' is the JAX package's TPU megakernel; the "
-            "port's counterpart is executor='cuda'."
+        if executor == "pallas":
+            raise ValueError(
+                "executor='pallas' is the JAX package's TPU megakernel; the "
+                "port's counterpart is executor='cuda'."
+            )
+        if executor == "cuda":
+            return _sample_cuda(plan, size, random_state, method, correlator, gc_strategy)
+        if executor is not None:
+            raise ValueError(f"Unknown executor {executor!r}; use None or 'cuda'.")
+        # method=None draws iid uniforms from a torch.Generator, one column a
+        # node (a path node keys its own draws by its column), and declared
+        # correlations take the sort-free recolouring; a QMC or antithetic
+        # method gives an explicit quantile matrix of plan.d_total columns, a
+        # path node's slab of drivers included, which the correlator
+        # transforms (the JAX package's quantile path).
+        drawn = method is None
+        quantiles = _qmc.generate_sharded(
+            method,
+            resolve_seed(random_state),
+            size,
+            plan.d if drawn else plan.d_total,
+            dtype=config.float_dtype(),
+            device=config.device(),
         )
-    if executor == "cuda":
-        return _sample_cuda(plan, size, random_state, method, correlator, gc_strategy)
-    if executor is not None:
-        raise ValueError(f"Unknown executor {executor!r}; use None or 'cuda'.")
-    # method=None draws iid uniforms from a torch.Generator, one column a
-    # node (a path node keys its own draws by its column), and declared
-    # correlations take the sort-free recolouring; a QMC or antithetic
-    # method gives an explicit quantile matrix of plan.d_total columns, a
-    # path node's slab of drivers included, which the correlator
-    # transforms (the JAX package's quantile path).
-    drawn = method is None
-    quantiles = _qmc.generate_sharded(
-        method,
-        resolve_seed(random_state),
-        size,
-        plan.d if drawn else plan.d_total,
-        dtype=config.float_dtype(),
-        device=config.device(),
-    )
-    generated = (
-        drawn
-        and plan.corr_matrix is not None
-        and _compile.recolor_eligible(plan, _compile.resolve_correlator(correlator))
-    )
-    return _execute(plan, quantiles, correlator, gc_strategy, generated, drawn)
+        generated = (
+            drawn
+            and plan.corr_matrix is not None
+            and _compile.recolor_eligible(plan, _compile.resolve_correlator(correlator))
+        )
+        return _execute(plan, quantiles, correlator, gc_strategy, generated, drawn)
 
 
 def cuda_limits():
@@ -186,7 +190,9 @@ def _sample_cuda(plan, size, random_state, method, correlator, gc_strategy):
             ab = cuda_exec.recolor_transform(plan, words, size, device=device)
         out, nonfinite = cuda_exec.run(tape, words, size, ab)
     with _phase(timer, "host", device):
-        if nonfinite.item():
+        with _profiling.span("probabilit.wait"):
+            bad = nonfinite.item()
+        if bad:
             raise ValueError("Sampling produced non-finite values.")
         by_id = {node._id: node for node in plan.topo}
         for k, nid in enumerate(keep_order):
@@ -248,16 +254,18 @@ def _execute(plan, quantiles, correlator, gc_strategy, generated=False, drawn=Fa
             for nid, v in outputs.items()
             if v is not None and v.is_floating_point()
         }
-        if floats and not torch.stack(
-            [torch.isfinite(v).all() for v in floats.values()]
-        ).all().item():
-            by_id = {node._id: node for node in plan.topo}
-            for nid, value in floats.items():
-                if not torch.isfinite(value).all():
-                    raise ValueError(
-                        f"Sampling this node gave non-finite values: "
-                        f"{by_id[nid]}\n{value}"
-                    )
+        if floats:
+            finite = torch.stack([torch.isfinite(v).all() for v in floats.values()]).all()
+            with _profiling.span("probabilit.wait"):
+                finite = finite.item()
+            if not finite:
+                by_id = {node._id: node for node in plan.topo}
+                for nid, value in floats.items():
+                    if not torch.isfinite(value).all():
+                        raise ValueError(
+                            f"Sampling this node gave non-finite values: "
+                            f"{by_id[nid]}\n{value}"
+                        )
 
         # Host finalizers: a string-valued DiscreteDistribution's values.
         for nid, fn in plan.finalizers.items():

@@ -26,7 +26,10 @@ The carry stays on the device: Chan/Pébay merges in float64 on device
 scalars (the JAX package carries float32), histogram counts in int64
 (where the JAX package splits each count over two float32 words), and
 the non-finite flag as a device boolean read once, at the end.  Nothing
-waits for the card between blocks.
+waits for the card between blocks.  Under a ``torch.profiler`` session a
+call of ``estimate`` records the ``probabilit.estimate`` span, each
+block's fold a ``probabilit.fold`` span and the carry's read a
+``probabilit.wait`` span (``utils/profiling.span``).
 
 ``estimate`` also runs sequentially to a target precision
 (``target_sem``/``target_rel_sem`` up to ``max_size``, alone or with
@@ -86,6 +89,7 @@ from probabilit_tpu_torch.engine import compile as _compile
 from probabilit_tpu_torch.engine.sampler import cuda_limits, resolve_seed
 from probabilit_tpu_torch.ops import qmc as _qmc
 from probabilit_tpu_torch.parallel import mesh as _mesh
+from probabilit_tpu_torch.utils import profiling as _profiling
 
 __all__ = ["sample_streaming", "estimate", "estimate_many"]
 
@@ -535,63 +539,68 @@ def estimate(
     blocks) as they complete and resumes from the file; the file is
     removed once the result is final.
     """
-    size = int(size)
-    if size < 1:
-        raise ValueError(f"size must be >= 1, got {size}.")
-    quantiles, cvar, histogram, control_node, control_mu = _check_options(
-        quantiles, cvar, histogram, where, control
-    )
-    reps, targets = _check_run(
-        size, random_state, method, replicates, target_sem, target_rel_sem, max_size, checkpoint,
-        checkpoint_every,
-    )
-    seed = resolve_seed(random_state)
-    opts = dict(
-        quantiles=quantiles, cvar=cvar, histogram=histogram, moments=moments,
-        correlator=correlator, control_node=control_node, where_node=where,
-        method=method,
-    )
-    final = dict(
-        quantiles=quantiles, control_mu=control_mu, where=where, cvar=cvar,
-        histogram=histogram, moments=moments,
-    )
-    if targets is not None:
-        if reps is not None:
-            return _estimate_sequential_replicated(
-                sink, size, block_size, seed, executor, opts, final, *targets, reps
+    with _profiling.span("probabilit.estimate"):
+        size = int(size)
+        if size < 1:
+            raise ValueError(f"size must be >= 1, got {size}.")
+        quantiles, cvar, histogram, control_node, control_mu = _check_options(
+            quantiles, cvar, histogram, where, control
+        )
+        reps, targets = _check_run(
+            size, random_state, method, replicates, target_sem, target_rel_sem, max_size,
+            checkpoint, checkpoint_every,
+        )
+        seed = resolve_seed(random_state)
+        opts = dict(
+            quantiles=quantiles, cvar=cvar, histogram=histogram, moments=moments,
+            correlator=correlator, control_node=control_node, where_node=where,
+            method=method,
+        )
+        final = dict(
+            quantiles=quantiles, control_mu=control_mu, where=where, cvar=cvar,
+            histogram=histogram, moments=moments,
+        )
+        if targets is not None:
+            if reps is not None:
+                return _estimate_sequential_replicated(
+                    sink, size, block_size, seed, executor, opts, final, *targets, reps
+                )
+            return _estimate_sequential(
+                sink, size, block_size, seed, executor, opts, final, *targets
             )
-        return _estimate_sequential(sink, size, block_size, seed, executor, opts, final, *targets)
-    if checkpoint is not None:
-        return _estimate_checkpointed(
-            sink, size, block_size, seed, executor, opts, final, str(checkpoint),
-            checkpoint_every,
-        )
-    if reps is None:
-        carry = _estimate_carry(sink, size, block_size, seed, executor, **opts)
-        return _finalize_estimate(carry, size, **final)
-    if size % reps:
-        raise ValueError(
-            f"size ({size}) must be divisible by replicates ({reps}) so every "
-            "randomisation carries equal weight."
-        )
-    carries = [
-        _estimate_carry(sink, size // reps, block_size, _derive_seed(seed, 1, r), executor, **opts)
-        for r in range(reps)
-    ]
-    merged, rep_means = _merge_carries(carries, control_mu)
-    stats = _finalize_estimate(merged, size, **final)
-    rep = np.asarray(rep_means, np.float64)
-    if rep.size < 2:
-        raise ValueError(
-            f"Only {rep.size} of {reps} replicates accepted any samples; the "
-            "between-replicate sem needs >= 2. Loosen the where condition, "
-            "raise size, or drop replicates=."
-        )
-    stats["sem"] = float(rep.std(ddof=1) / np.sqrt(rep.size))
-    if control_mu is not None:
-        stats["mean"] = float(rep.mean())
-    stats["replicates"] = reps
-    return stats
+        if checkpoint is not None:
+            return _estimate_checkpointed(
+                sink, size, block_size, seed, executor, opts, final, str(checkpoint),
+                checkpoint_every,
+            )
+        if reps is None:
+            carry = _estimate_carry(sink, size, block_size, seed, executor, **opts)
+            return _finalize_estimate(carry, size, **final)
+        if size % reps:
+            raise ValueError(
+                f"size ({size}) must be divisible by replicates ({reps}) so every "
+                "randomisation carries equal weight."
+            )
+        carries = [
+            _estimate_carry(
+                sink, size // reps, block_size, _derive_seed(seed, 1, r), executor, **opts
+            )
+            for r in range(reps)
+        ]
+        merged, rep_means = _merge_carries(carries, control_mu)
+        stats = _finalize_estimate(merged, size, **final)
+        rep = np.asarray(rep_means, np.float64)
+        if rep.size < 2:
+            raise ValueError(
+                f"Only {rep.size} of {reps} replicates accepted any samples; the "
+                "between-replicate sem needs >= 2. Loosen the where condition, "
+                "raise size, or drop replicates=."
+            )
+        stats["sem"] = float(rep.std(ddof=1) / np.sqrt(rep.size))
+        if control_mu is not None:
+            stats["mean"] = float(rep.mean())
+        stats["replicates"] = reps
+        return stats
 
 
 def _check_options(quantiles, cvar, histogram, where, control):
@@ -872,15 +881,16 @@ def _estimate_carry(
         last_count = size - (n_blocks - 1) * block_size
     for b in range(block_lo, block_lo + n_blocks):
         x, y = run(b, seed)
-        x = x.to(torch.float32)
-        cnt = block_size if b < block_lo + n_blocks - 1 else last_count
-        stats = _block_moments(x, y, cnt, where_mode, moments)
-        qsum = qsum_full(x) if cnt == block_size else qsum_partial(x, cnt)
-        if where_mode:
-            counts = hist(x[:cnt], y[:cnt] != 0)
-        else:
-            counts = hist(x[:cnt])
-        carry = _merge(carry, (*stats, qsum, counts), where_mode, moments)
+        with _profiling.span("probabilit.fold"):
+            x = x.to(torch.float32)
+            cnt = block_size if b < block_lo + n_blocks - 1 else last_count
+            stats = _block_moments(x, y, cnt, where_mode, moments)
+            qsum = qsum_full(x) if cnt == block_size else qsum_partial(x, cnt)
+            if where_mode:
+                counts = hist(x[:cnt], y[:cnt] != 0)
+            else:
+                counts = hist(x[:cnt])
+            carry = _merge(carry, (*stats, qsum, counts), where_mode, moments)
     return carry
 
 
@@ -940,7 +950,8 @@ def _finalize_estimate(
 ):
     """The statistics dict from a 13-field carry (device tensors or host
     values): ``_finalize_many`` of the carry lifted to one node's."""
-    fields = [_host(v) for v in carry]
+    with _profiling.span("probabilit.wait"):
+        fields = [_host(v) for v in carry]
     lifted = [np.asarray(v)[None] if i in _NODE_FIELDS else v for i, v in enumerate(fields)]
     return _finalize_many(
         [0], (*lifted, np.zeros((1, 1))), size, quantiles, cvar, histogram, control_mu, where,
