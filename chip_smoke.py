@@ -11,8 +11,8 @@ hand-written headers in ``probabilit_tpu_torch/csrc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels with nvcc, one process per source, all started
-   together: ``csrc/corr_stats.cu``, ``csrc/bitonic_sort.cu`` and the
-   generated megakernel of every graph and keep set the script runs
+   together: ``csrc/corr_stats.cu``, ``csrc/bitonic_sort.cu``,
+   ``csrc/block_fold.cu`` and the generated megakernel of every graph and keep set the script runs
    (``generated_tapes``); prints each build's seconds and ptxas's registers and
    spill-store bytes per kernel instance;
 3. samples the flagship graph at n = 1e8 and asserts that the kernel was
@@ -94,10 +94,21 @@ The streamed path, ``estimate`` and ``sample_streaming``:
     ``sample(2^26)`` bitwise; the same estimate of ``mixed_correlated_50``
     must launch K2 and K1 60 times each, and its three normal drivers,
     streamed at 1e7 (the block program of ``sample_streaming`` with the
-    drivers kept), must carry the repaired target within 2e-3.  Each
-    estimate is timed at 1e9 with quantiles on and off, with its host
-    share (wall - kernel time) / wall; the correlated one with each
-    block's recolour system solved on the card and on the host.
+    drivers kept), must carry the repaired target within 2e-3.  Both
+    estimates must launch the fold kernel (``csrc/block_fold.cu``) once
+    a block; on block 1's sink the kernel must match its twin
+    (``streaming._block_moments`` and ``_merge``: every float64 field
+    within 1e-10 of its scale, the count, min, max and finite flag
+    equal), from an empty carry and from one holding K1's block 0, and a
+    repeat must be bitwise equal, with moments off and on, a float32
+    control and a float32 and a bool ``where=`` condition; each case is
+    timed (on four copies of the block in turn, so the L2 holds none of
+    the next) beside the twin and the bytes it reads at 3.35 TB/s, and
+    ``torch.sum`` of the block beside them.  Each estimate is timed at
+    1e9 with quantiles on and off, with its host share (wall - kernel
+    time) / wall, the kernel time counting K1, K2 and the fold a block;
+    the correlated one with each block's recolour system solved on the
+    card and on the host.
 
 The parametric families (K1's family branches, ``csrc/ppf_ops.cuh`` and
 ``csrc/special_ops.cuh``):
@@ -448,10 +459,11 @@ N_KS = 500_000
 N_MOMENTS = 10_000_000
 REL_TOL = 1e-4  # per kept node: max |kernel - twin| <= REL_TOL * max |twin|
 STATS_TOL = 1e-5  # per sum of n terms of magnitude ~1: |kernel - twin| <= STATS_TOL * n
+FOLD_TOL = 1e-10  # the fold kernel's float64 fields against the twin's, each of its scale
 CORR_TOL = 2e-3
 KS_P_MIN = 0.01
 SE_MAX = 5.0
-SOURCES = ("corr_stats", "bitonic_sort")  # csrc/<name>.cu; K1 is generated per graph
+SOURCES = ("corr_stats", "bitonic_sort", "block_fold")  # csrc/<name>.cu; K1 is generated per graph
 N_UNALIGNED = (5, (1 << 22) + 3)  # a start and an n that are no multiples of 4
 SORT_MAIN = (50, 10_000_000)  # the JAX package's Iman-Conover timing shape
 SORT_ROWS = (128, 1 << 17)  # one 2^24 block of the streamed quantile estimator
@@ -851,7 +863,8 @@ def ptxas_instances(log):
     output.  An instance is ``name<mangled template arguments>``: f, i, d,
     l for float, int32, float64, int64 keys; j, m for 4- and 8-byte
     payloads; Li14 for the integer 14."""
-    kernels = "sort_tiles_kernel|block_exchange_kernel|tail_kernel|corr_stats|graph_megakernel"
+    kernels = ("sort_tiles_kernel|block_exchange_kernel|tail_kernel|corr_stats|graph_megakernel"
+               "|block_fold_kernel")
     out, name, spill = {}, None, 0
     for line in log.splitlines():
         # Greedy: the mangled name also carries the source file's name.
@@ -923,6 +936,81 @@ def cuda_time_ms(fn, repeats=5, warm=True):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def rotating_ms(fn, items, launches, repeats=5):
+    """Median ms of one call of ``fn`` over ``launches`` calls on
+    ``items`` in turn (``cuda_time_ms`` of the batch)."""
+    return cuda_time_ms(
+        lambda: [fn(items[i % len(items)]) for i in range(launches)], repeats
+    ) / launches
+
+
+def fold_gap(got, want):
+    """The largest gap of the fold kernel's packed float64 fields from
+    the twin's, each against its scale (the means against their standard
+    deviations, M3 against n sd^3, Cxy against sqrt(M2 M2y), M2, M2y and
+    M4 relative), and whether n, min, max and finite are equal."""
+    n, _, m2, _, _, _, _, m2y, _, _, m4 = want
+    sd = (m2 / n) ** 0.5 if n else 0.0
+    sd_y = (m2y / n) ** 0.5 if n else 0.0
+    scales = {1: sd, 2: m2, 6: sd_y, 7: m2y, 8: (m2 * m2y) ** 0.5, 9: n * sd**3, 10: m4}
+    gap = max(abs(got[i] - want[i]) / (scale or 1.0) for i, scale in scales.items())
+    return gap, got[0] == want[0] and got[3:6] == want[3:6]
+
+
+def fold_cases(torch, cuda_exec, streaming, x, prior):
+    """The fold kernel on one streamed block ``x`` (float32) against its
+    twin and timed (phase 12), with moments off and on, a float32 control
+    and a float32 and a bool condition that accepts half the block;
+    ``prior`` is a block of the same length folded into the carry first
+    in the second check."""
+    n = x.numel()
+    gen = torch.Generator(device=x.device).manual_seed(12)
+    control = (x - x.mean()) / x.std() + torch.randn(n, device=x.device, generator=gen)
+    accept = x > x.median()
+    cases = {
+        "moments_off": (None, False, False), "moments_on": (None, False, True),
+        "control_f32": (control, False, True), "where_f32": (accept.float(), True, True),
+        "where_bool": (accept, True, True),
+    }
+    scratch = cuda_exec.fold_scratch(x.device)
+    empty = streaming._initial_carry(0, 0, x.device)
+    xs = [x] + [x.clone() for _ in range(3)]  # 256 MiB at 2^24: the L2 holds none of the next
+    records = {}
+    for case, (y, where_mode, moments) in cases.items():
+        ys = [y] * 4 if y is None else [y] + [y.clone() for _ in range(3)]
+
+        def twin(carry, xb, yb):
+            stats = streaming._block_moments(xb, yb, n, where_mode, moments)
+            return streaming._merge(carry, (*stats, carry[6], carry[10]), where_mode, moments)
+
+        gap, exact, repeat = 0.0, True, True
+        for start in (empty, twin(empty, prior, y)):
+            folded = []
+            for _ in range(2):
+                packed = cuda_exec.pack_moments(start)
+                cuda_exec.block_fold(packed, x, y, n, where_mode, moments, scratch)
+                folded.append(packed)
+            repeat &= torch.equal(folded[0], folded[1])
+            want = cuda_exec.pack_moments(twin(start, x, y))
+            g, e = fold_gap(folded[0].tolist(), want.tolist())
+            gap, exact = max(gap, g), exact and e
+        check(gap <= FOLD_TOL and exact and repeat,
+              f"fold kernel {case} vs twin: gap {gap}, exact {exact}, repeat bitwise {repeat}")
+        packed = cuda_exec.pack_moments(empty)
+        pairs = list(zip(xs, ys))
+        records[case] = {
+            "kernel_ms": rotating_ms(
+                lambda p: cuda_exec.block_fold(packed, *p, n, where_mode, moments, scratch),
+                pairs, 100),
+            "plain_ms": rotating_ms(lambda p: twin(empty, *p), pairs, 8),
+            "bound_ms": (4 * n + (0 if y is None else y.element_size() * n))
+            / HBM_BYTES_PER_S * 1e3,
+            "max_rel_err": gap, "n_min_max_finite_equal": exact, "repeat_bitwise": repeat,
+        }
+    records["sum_ms"] = rotating_ms(lambda xb: xb.sum(), xs, 100)  # a read of the block alone
+    return records
 
 
 def priced(loc, scale):
@@ -1097,7 +1185,7 @@ def main():
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    # Phase 2: build, one nvcc per source, all started together: the two
+    # Phase 2: build, one nvcc per source, all started together: the three
     # sources of csrc/ and the generated megakernel of every graph structure
     # and keep set the phases below run.
     generated = generated_tapes(cuda_exec, _compile)
@@ -1329,6 +1417,26 @@ def main():
                      for k, row in corr["k2_by_k"].items()},
         },
         *sort["kernels"],
+        {
+            "name": "block_fold",
+            "route": "cuda",
+            "source": "probabilit_tpu_torch/csrc/block_fold.cu",
+            # None: XLA fused the JAX package's fold under jit.
+            "replaces": None,
+            "launches": stream["fold_launches"],
+            "max_rel_err": max(case["max_rel_err"] for graph in stream["folds"].values()
+                               for key, case in graph.items() if key != "sum_ms"),
+            "ms": stream["folds"]["mixed_dag_20"]["moments_off"]["kernel_ms"],
+            "plain_ms": stream["folds"]["mixed_dag_20"]["moments_off"]["plain_ms"],
+            "bound_ms": 4 * BLOCK / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": None,
+            # torch.sum of the block: a read alone, no float64 moments.
+            "sum_ms": stream["folds"]["mixed_dag_20"]["sum_ms"],
+            # Per graph, block 1's sink at 2^24: moments off and on, a
+            # float32 control, a float32 and a bool condition.
+            "cases": stream["folds"],
+        },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1918,6 +2026,7 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
     options = {"quantiles": (0.5, 0.99), "cvar": (0.99,)}
     shipped_solve = streaming.RECOLOR_SOLVE
     results = {}
+    folds = {}
     stream_errs = {"k1": 0.0, "k2": 0.0}
     for name, build, histogram in (("mixed_dag_20", mixed_dag_20, (-2e4, 1.5e5, 100)),
                                    ("mixed_correlated_50", mixed_correlated_50, (0.0, 100.0, 100))):
@@ -1925,18 +2034,21 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
         correlated = name != "mixed_dag_20"
         cuda_exec.LAUNCHES = 0
         cuda_exec.STATS_LAUNCHES = 0
+        cuda_exec.FOLD_LAUNCHES = 0
         st = sink.estimate(N_STREAM, random_state=0, histogram=histogram, **options)
-        k1, k2 = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES
+        k1, k2, fold = cuda_exec.LAUNCHES, cuda_exec.STATS_LAUNCHES, cuda_exec.FOLD_LAUNCHES
         check(k1 == n_blocks, f"{name}: K1 ran {k1} times for {n_blocks} blocks")
         check(k2 == (n_blocks if correlated else 0), f"{name}: K2 ran {k2} times")
+        check(fold == n_blocks, f"{name}: the fold kernel ran {fold} times for {n_blocks} blocks")
         h = st["histogram"]
         counted = int(h["counts"].sum() + h["underflow"] + h["overflow"])
         check(counted == N_STREAM, f"{name}: the histogram counts {counted}")
         emit({"phase": "streamed_estimate", "graph": name, "n": N_STREAM, "block": BLOCK,
-              "k1_launches": k1, "k2_launches": k2, **estimate_agrees(np, sink, st, name),
+              "k1_launches": k1, "k2_launches": k2, "fold_launches": fold,
+              **estimate_agrees(np, sink, st, name),
               **{k: st[k] for k in ("q0.5", "q0.99", "cvar0.99", "min", "max")},
               "histogram_counted": counted})
-        results[name] = (k1, k2)
+        results[name] = (k1, k2, fold)
 
         # The kernels of one streamed block (start = BLOCK) against their
         # twins, then timed alone for the host share.
@@ -1967,13 +2079,23 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
         record.update(k1_max_abs_err=k1_err, k1_max_abs_twin=scale, k1_tolerance=REL_TOL * scale)
         stream_errs["k1"] = max(stream_errs["k1"], k1_err)
         emit(record)
-        del got, twin
-        k1_ms = cuda_time_ms(lambda: cuda_exec.run(tape, words, BLOCK, ab, start=BLOCK))
+        del twin
+        prior, _ = cuda_exec.run(tape, words, BLOCK, ab)
+        folds[name] = fold_cases(torch, cuda_exec, streaming, got[0], prior[0])
+        emit({"phase": "streamed_fold_vs_twin", "graph": name, "card": smi, "n": BLOCK,
+              "start": BLOCK, "tolerance": FOLD_TOL, **folds[name]})
+        del got, prior
+        # Per launch over 20 back to back, as a stream launches them: one
+        # launch alone also times the host's way to it.
+        k1_ms = rotating_ms(lambda _: cuda_exec.run(tape, words, BLOCK, ab, start=BLOCK),
+                            [None], 20)
         k2_ms = 0.0
         if correlated:
-            k2_ms = cuda_time_ms(
-                lambda: cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK))
-        kernel_ms = n_blocks * (k1_ms + k2_ms)
+            k2_ms = rotating_ms(
+                lambda _: cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK),
+                [None], 20)
+        fold_ms = folds[name]["moments_off"]["kernel_ms"]
+        kernel_ms = n_blocks * (k1_ms + k2_ms + fold_ms)
 
         # Timings at 1e9, quantiles (and CVaR) on and off; a correlated
         # graph with the recolour system solved on the card and on the
@@ -1997,7 +2119,8 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
                       "options": label, "solve": solve if correlated else None,
                       "shipped": solve == shipped_solve, "wall_ms": wall,
                       "samples_per_sec": N_STREAM / (wall * 1e-3),
-                      "k1_block_ms": k1_ms, "k2_block_ms": k2_ms, "kernel_ms": kernel_ms,
+                      "k1_block_ms": k1_ms, "k2_block_ms": k2_ms, "fold_block_ms": fold_ms,
+                      "kernel_ms": kernel_ms,
                       "host_share": (wall - kernel_ms) / wall})
 
         if correlated:
@@ -2021,9 +2144,10 @@ def streamed_path(torch, np, cuda_exec, _compile, smi):
             emit({"phase": "streamed_equals_single_shot", "n": n, "block": BLOCK,
                   "bitwise_equal": equal})
             del streamed, single
-    return {"k1_launches": sum(k1 for k1, _ in results.values()),
-            "k2_launches": sum(k2 for _, k2 in results.values()),
-            "k1_err": stream_errs["k1"], "k2_err": stream_errs["k2"]}
+    return {"k1_launches": sum(k1 for k1, _, _ in results.values()),
+            "k2_launches": sum(k2 for _, k2, _ in results.values()),
+            "fold_launches": sum(fold for _, _, fold in results.values()),
+            "k1_err": stream_errs["k1"], "k2_err": stream_errs["k2"], "folds": folds}
 
 
 def moments_of(x, np):

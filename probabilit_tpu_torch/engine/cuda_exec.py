@@ -98,6 +98,12 @@ the kernels, counting the launches in ``LAUNCHES`` and ``STATS_LAUNCHES``,
 or raise.  ``run_reference`` is ``philox_uniforms`` (the same random bits
 as the kernel) followed by ``run_tape`` (the same tape, interpreted with
 PyTorch ops on float32).
+
+``block_fold`` launches ``csrc/block_fold.cu``, a streamed estimate's
+fold of one block into its packed float64 carry, and counts its launches
+in ``FOLD_LAUNCHES``; it takes CUDA tensors only.  Its plain twin is
+``streaming._block_moments`` followed by ``streaming._merge``, which
+``streaming._estimate_carry`` runs for a block on the CPU.
 """
 
 from __future__ import annotations
@@ -130,6 +136,7 @@ from probabilit_tpu_torch.utils import profiling as _profiling
 __all__ = [
     "LAUNCHES",
     "STATS_LAUNCHES",
+    "FOLD_LAUNCHES",
     "TABLE_MAX",
     "supports",
     "const_kind",
@@ -152,12 +159,19 @@ __all__ = [
     "solve_recolor",
     "solve_recolor_device",
     "recolor_transform",
+    "PACKED_FIELDS",
+    "pack_moments",
+    "unpack_moments",
+    "fold_scratch",
+    "block_fold",
 ]
 
 # Launches of the megakernel by ``run`` and of the statistics kernel by
 # ``corr_stats``.
 LAUNCHES = 0
 STATS_LAUNCHES = 0
+# Launches of the fold kernel by ``block_fold``.
+FOLD_LAUNCHES = 0
 
 # What a tape may hold.  MAX_KEEP and MAX_CORR_K are pallas_exec.supports'
 # 16 outputs and 16 correlated variables (MAX_CORR_K equals kMaxCorr in
@@ -1939,3 +1953,117 @@ def recolor_transform(plan, seed_words, n, device=None, start=0, solve="host"):
             sums = sums.cpu().numpy()
         ab = solve_recolor(sums, n, plan.corr_matrix)
         return torch.tensor(ab, dtype=torch.float32, device=device)
+
+
+# The fold kernel's kinds of y (``YKind`` in csrc/block_fold.cu): a
+# control is float32 or float64, a condition also bool/uint8 or int32.
+_FOLD_Y_KINDS = {
+    torch.float32: 1, torch.float64: 2, torch.bool: 3, torch.uint8: 3, torch.int32: 4,
+}
+# The fields of a streamed estimate's 13-field carry
+# (``streaming._estimate_carry``) that the fold kernel keeps in one
+# float64 buffer, in the buffer's order (``Field`` in csrc/block_fold.cu):
+# n, mean, M2, min, max, finite, my, M2y, Cxy, M3, M4.
+PACKED_FIELDS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 11, 12)
+FOLD_FIELDS = len(PACKED_FIELDS)
+
+
+def pack_moments(carry, device=None):
+    """The moment fields of a 13-field carry as one float64 tensor
+    (``finite`` as 1.0 or 0.0), on ``device`` (default: the carry's)."""
+    packed = torch.stack([carry[i].to(torch.float64) for i in PACKED_FIELDS])
+    return packed if device is None else packed.to(device)
+
+
+def unpack_moments(packed, qsum, hsum):
+    """The 13-field carry whose moment fields are views of ``packed``
+    (``finite`` a bool), with the quantile sums and histogram counts."""
+    n, mean, m2, vmin, vmax, finite, my, m2y, cxy, m3, m4 = packed.unbind()
+    return (n, mean, m2, vmin, vmax, finite != 0, qsum, my, m2y, cxy, hsum, m3, m4)
+
+
+def fold_scratch(device):
+    """The fold kernel's scratch for one call on ``device``: float64
+    partials (``FOLD_FIELDS``, capacity), one column per CTA of a launch,
+    and the zeroed uint32 ticket that picks the CTA which finishes it."""
+    device = torch.device(device)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _fold_kernel().block_fold_capacity(ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"block_fold_capacity failed: CUDA error {err}.")
+    partials = torch.empty((FOLD_FIELDS, blocks.value), dtype=torch.float64, device=device)
+    return partials, torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its storage is not 16-byte aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def block_fold(carry, x, y, cnt, where_mode, moments, scratch):
+    """Fold samples ``0 .. cnt - 1`` of the float32 block ``x`` into the
+    packed carry in place: the fold kernel (``csrc/block_fold.cu``).
+
+    ``carry`` is a ``pack_moments`` buffer, float64 ``(FOLD_FIELDS,)``.  ``y``
+    is the control (read as float64) or, with ``where_mode``, the
+    condition (nonzero accepts), or None; ``moments`` adds M3 and M4.
+    ``scratch`` is ``fold_scratch(device)``.  A control that is neither
+    float32 nor float64 becomes float64, a condition of another dtype
+    ``y != 0`` (one launch).  Takes CUDA tensors only, and raises on what
+    the kernel does not take.
+    """
+    global FOLD_LAUNCHES
+    device = carry.device
+    partials, ticket = scratch
+    if device.type != "cuda":
+        raise ValueError(
+            "block_fold runs on a CUDA device; on the CPU the fold is "
+            "streaming._block_moments and streaming._merge."
+        )
+    if carry.dtype != torch.float64 or carry.shape != (FOLD_FIELDS,) or not carry.is_contiguous():
+        raise ValueError(f"The packed carry must be contiguous float64 ({FOLD_FIELDS},).")
+    if x.dtype != torch.float32 or x.dim() != 1 or x.device != device:
+        raise ValueError("block_fold folds a 1-D float32 block on the carry's device.")
+    if not 0 < cnt <= x.numel():
+        raise ValueError(f"cnt must lie in 1..{x.numel()}, got {cnt}.")
+    if partials.device != device or ticket.device != device:
+        raise ValueError("The scratch must lie on the carry's device.")
+    if where_mode and y is None:
+        raise ValueError("where_mode folds under a condition y.")
+    kind = 0
+    if y is not None:
+        if y.dim() != 1 or y.numel() < cnt or y.device != device:
+            raise ValueError(f"y must be 1-D with at least {cnt} entries on the carry's device.")
+        if where_mode and y.dtype not in _FOLD_Y_KINDS:
+            y = y != 0
+        elif not where_mode and y.dtype not in (torch.float32, torch.float64):
+            y = y.to(torch.float64)
+        y = _aligned(y.contiguous())
+        kind = _FOLD_Y_KINDS[y.dtype]
+    x = _aligned(x.contiguous())
+    with torch.cuda.device(device):
+        err = _fold_kernel().block_fold_launch(
+            x.data_ptr(), None if y is None else y.data_ptr(), kind, int(bool(where_mode)),
+            int(bool(moments)), cnt, carry.data_ptr(), partials.data_ptr(), partials.shape[1],
+            ticket.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_fold launch failed: CUDA error {err}.")
+    FOLD_LAUNCHES += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_kernel():
+    from probabilit_tpu_torch import _build
+
+    lib = _build.load("block_fold")
+    lib.block_fold_capacity.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.block_fold_capacity.restype = ctypes.c_int
+    lib.block_fold_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.block_fold_launch.restype = ctypes.c_int
+    return lib

@@ -23,7 +23,9 @@ from a ``torch.Generator`` seeded from ``(seed, b)`` and runs the plain
 executor.
 
 The carry stays on the device: Chan/Pébay merges in float64 on device
-scalars (the JAX package carries float32), histogram counts in int64
+scalars (the JAX package carries float32), on the card one launch of
+the fold kernel a block (``csrc/block_fold.cu``) into one float64
+buffer of the moment fields, histogram counts in int64
 (where the JAX package splits each count over two float32 words), and
 the non-finite flag as a device boolean read once, at the end.  Nothing
 waits for the card between blocks.  Under a ``torch.profiler`` session a
@@ -858,7 +860,16 @@ def _estimate_carry(
     uninterrupted run (``start = b * block_size`` on the kernels,
     ``_derive_seed(seed, 0, b)`` on the plain path, the method's points
     ``b * block_size ..`` under ``method=``; ``size`` stays the run's total,
-    over which LHS stratifies)."""
+    over which LHS stratifies).
+
+    A block on a CUDA device is folded by the fold kernel
+    (``cuda_exec.block_fold``) into the packed moment fields, one float64
+    buffer for the whole window, returned as views of it; a block on the
+    CPU by its plain twin, ``_block_moments`` and ``_merge``.  The quantile
+    and histogram sums are added alike on both, where the run asks for
+    them."""
+    from probabilit_tpu_torch.engine import cuda_exec
+
     where_mode = where_node is not None
     aux = control_node if control_node is not None else where_node
     plan, run = _block_program(
@@ -875,7 +886,13 @@ def _estimate_carry(
     qsum_full, qsum_partial = _quantile_accumulators(quantiles, block_size, cvar)
     hist = _histogram_accumulators(histogram)
     hist_len = 0 if histogram is None else histogram[2] + 2
-    carry = _initial_carry(len(quantiles) + len(cvar), hist_len, config.device())
+    levels = len(quantiles) + len(cvar)
+    carry = _initial_carry(levels, hist_len, config.device())
+    qsum, hsum = carry[6], carry[10]
+    # The moment fields: the plain carry's with empty quantile and
+    # histogram fields, or on the card the fold kernel's packed buffer.
+    moment_carry = _initial_carry(0, 0, config.device())
+    packed = scratch = None
     if n_blocks is None:
         n_blocks = -(-size // block_size)
         last_count = size - (n_blocks - 1) * block_size
@@ -884,14 +901,22 @@ def _estimate_carry(
         with _profiling.span("probabilit.fold"):
             x = x.to(torch.float32)
             cnt = block_size if b < block_lo + n_blocks - 1 else last_count
-            stats = _block_moments(x, y, cnt, where_mode, moments)
-            qsum = qsum_full(x) if cnt == block_size else qsum_partial(x, cnt)
-            if where_mode:
-                counts = hist(x[:cnt], y[:cnt] != 0)
+            if x.device.type == "cuda":
+                if packed is None:
+                    packed = cuda_exec.pack_moments(moment_carry, x.device)
+                    scratch = cuda_exec.fold_scratch(x.device)
+                cuda_exec.block_fold(packed, x, y, cnt, where_mode, moments, scratch)
             else:
-                counts = hist(x[:cnt])
-            carry = _merge(carry, (*stats, qsum, counts), where_mode, moments)
-    return carry
+                stats = _block_moments(x, y, cnt, where_mode, moments)
+                empty = (moment_carry[6], moment_carry[10])
+                moment_carry = _merge(moment_carry, (*stats, *empty), where_mode, moments)
+            if levels:
+                qsum = qsum + (qsum_full(x) if cnt == block_size else qsum_partial(x, cnt))
+            if histogram is not None:
+                hsum = hsum + hist(x[:cnt], y[:cnt] != 0 if where_mode else None)
+    if packed is not None:
+        return cuda_exec.unpack_moments(packed, qsum, hsum)
+    return (*moment_carry[:6], qsum, *moment_carry[7:10], hsum, *moment_carry[11:])
 
 
 # The fields of a carry that hold one value per node: mean, M2, min, max,
