@@ -199,7 +199,13 @@ tiers:
     corr(F^-1(Phi(Y)), Y)) on the
     repaired target within 2e-3 at 1e7, ``cuda`` against ``None`` and
     streamed ``estimate(1e9)`` against one-shot within 5 standard errors,
-    each timed with its host share.  The plain path on the card at 1e7:
+    each timed with its host share.  The claims register of
+    ``mcbench/configs/sii_nonlife12.json`` (``claims_register``: twelve
+    Poisson counts correlated at K = 12) on the cell's 2^24 block at start
+    2^24 with the device solve: its counts and result against the twin as
+    ``table_risk_correlated``'s are, its result on the cell's own tape
+    within 1e-4 but where counts crossed a step, then K1 and K2 timed per
+    launch over 20.  The plain path on the card at 1e7:
     ``bird_survival()``'s mean 1.2 within 5 standard errors (and
     ``executor="cuda"`` refuses its composite binomial), ``skewnorm(3)``
     through its PCHIP table KS-tested against scipy's CDF, a string
@@ -1115,6 +1121,8 @@ def generated_tapes(cuda_exec, _compile):
         "table_risk_correlated": tape(table_risk_correlated()[0]),
         "table_risk_correlated, drivers": tape(table_risk_correlated()[0], portfolio_keep),
         "table_risk_correlated, drawn": tape(correlated_tables_drawn()[0], dist_keep),
+        "sii_nonlife12": tape(claims_register()[0]),
+        "sii_nonlife12, counts": tape(claims_register()[0], dist_keep),
         **typed,
         **joint,
     }
@@ -2660,6 +2668,19 @@ def correlated_tables_drawn():
     return n["orders"] * (n["price"] - n["unit_cost"]) - n["lead_time"] * 50.0, n
 
 
+def claims_register():
+    """The benchmark's claims register, built from its configuration file
+    (``mcbench/configs/sii_nonlife12.json``: twelve Poisson claim counts
+    correlated at K = 12 under one underwriting result).  Returns
+    ``(result, {name: node})``."""
+    from mcbench import spec
+
+    nodes = {}
+    config = spec.load_json(Path(__file__).resolve().parent / "mcbench" / "configs"
+                            / "sii_nonlife12.json")
+    return spec.build_graph(config, nodes), nodes
+
+
 def dist_keep(plan):
     """The sink and every distribution node."""
     return {plan.sink._id} | {node._id for node in plan.dist_nodes}
@@ -2714,8 +2735,8 @@ def table_prices(torch, cuda_exec, tape, words, ab=None):
 
 def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
     """Phase 16: K1's table branch (large_table, table_risk,
-    table_risk_correlated) and the plain path's table, PCHIP and string
-    tiers."""
+    table_risk_correlated, the sii_nonlife12 claims register) and the
+    plain path's table, PCHIP and string tiers."""
     from probabilit_tpu_torch.models.benchmarks import (
         bird_survival,
         large_table,
@@ -2981,6 +3002,75 @@ def table_path(torch, np, scipy, cuda_exec, _compile, smi, registers):
               **table_prices(torch, cuda_exec, sink_tape, words, ab)}
     emit({"phase": "table_correlated_timing", "card": smi, "n": N_MAIN, "k": K, **record})
     records["table_risk_correlated"] = record
+
+    # The claims register (sii_nonlife12): 12 table rows under recolouring,
+    # K2 at K = 12, on the cell's block (2^24 at start 2^24, the device
+    # solve).  Its counts and result against the twin, on the tape that
+    # keeps them all (a count within 1 on at most 1e-3 of the samples, the
+    # result within REL_TOL where every count agrees) and on the cell's
+    # own tape (the result within REL_TOL but where counts crossed a step,
+    # at most one step of each); then K1 and K2 timed per launch over 20.
+    sink, nodes = claims_register()
+    plan = _compile.get_plan(sink)
+    K = len(plan.corr_vars)
+    columns = [plan.col_of[v._id] for v in plan.corr_vars]
+    ab = cuda_exec.recolor_transform(plan, words, BLOCK, device="cuda", start=BLOCK, solve="device")
+    keep_tape = cuda_exec.lowered(plan, cuda_exec.keep_order(plan, dist_keep(plan)), "cuda")
+    got, flag = cuda_exec.run(keep_tape, words, BLOCK, ab, start=BLOCK)
+    ref = cuda_exec.run_reference(keep_tape, words, BLOCK, ab, start=BLOCK)
+    check(int(flag) == 0, "sii_nonlife12: non-finite values")
+    name_of = {node._id: name for name, node in nodes.items()}
+    same = torch.ones(BLOCK, dtype=torch.bool, device="cuda")
+    rows = []
+    for k, nid in enumerate(keep_tape.keep_order):
+        if nid == sink._id:
+            continue
+        err = (got[k] - ref[k]).abs()
+        share = (err > 0).float().mean().item()
+        rows.append({"node": name_of[nid], "max_abs_err": err.max().item(), "share_off": share})
+        check(rows[-1]["max_abs_err"] <= 1 and share <= 1e-3, f"sii_nonlife12: {rows[-1]}")
+        same &= err == 0
+    k = keep_tape.keep_order.index(sink._id)
+    scale = ref[k].abs().max().item()
+    err = (got[k] - ref[k]).abs()[same].max().item()
+    rows.append({"node": "result", "max_abs_err": err, "max_abs_twin": scale,
+                 "share_all_counts_agree": same.float().mean().item()})
+    check(err <= REL_TOL * scale, f"sii_nonlife12: K1 vs twin: {rows[-1]}")
+    del got, ref, same
+    sink_tape = cuda_exec.lowered(plan, [sink._id], "cuda")
+    out, flag = cuda_exec.run(sink_tape, words, BLOCK, ab, start=BLOCK)
+    twin = cuda_exec.run_reference(sink_tape, words, BLOCK, ab, start=BLOCK)[0]
+    check(int(flag) == 0, "sii_nonlife12: non-finite result")
+    err = (out[0] - twin).abs()
+    off = err > REL_TOL * scale
+    steps = sum(1.0 / node.kwargs["mu"] for node in plan.dist_nodes)
+    sink_row = {"node": "result, its own tape", "share_off": off.float().mean().item(),
+                "max_abs_err": err.max().item(), "step_sum": steps}
+    rows.append(sink_row)
+    check(sink_row["share_off"] <= K * 1e-3 and sink_row["max_abs_err"] <= steps + REL_TOL * scale,
+          f"sii_nonlife12: the cell's K1 vs twin: {sink_row}")
+    emit({"phase": "claims_register_vs_twin", "n": BLOCK, "start": BLOCK,
+          "rel_tolerance": REL_TOL, "nodes": rows})
+    del out, twin, err, off
+    block_k1 = cuda_time_ms(
+        lambda: [cuda_exec.run(sink_tape, words, BLOCK, ab, start=BLOCK) for _ in range(20)]) / 20
+    block_k2 = cuda_time_ms(
+        lambda: [cuda_exec.corr_stats(words, BLOCK, columns, "cuda", start=BLOCK)
+                 for _ in range(20)]) / 20
+    cost = tape_cost(sink_tape, cuda_exec)
+    bound_ms, bound_by = bound(BLOCK, 4 * BLOCK, cost)
+    k2_bytes = 8 * (K + K * (K + 1) // 2)
+    record = {"block_k1_ms": block_k1, "block_k2_ms": block_k2, "bound_ms": bound_ms,
+              "bound_by": bound_by, "flops_per_sample": cost[1],
+              "int_instr_per_sample": cost[0],
+              "k2_bound_ms": bound(BLOCK, k2_bytes, stats_cost(K))[0],
+              "k2_tensor_bound_ms": stats_tensor_bound(BLOCK, k2_bytes, K)[0],
+              "shared_bytes": sink_tape.shared_bytes, "guides": [g[2] for g in sink_tape.guides],
+              "registers_and_spill_bytes": registers.get("sii_nonlife12"),
+              **table_prices(torch, cuda_exec, sink_tape, words, ab)}
+    record["block_repriced_bound_ms"] = record["repriced_bound_ms"] * BLOCK / N_MAIN
+    emit({"phase": "claims_register_timing", "card": smi, "n": BLOCK, "k": K, **record})
+    records["sii_nonlife12"] = record
 
     # The plain path's tiers on the card, at 1e7 through executor=None.
     birds = bird_survival()
